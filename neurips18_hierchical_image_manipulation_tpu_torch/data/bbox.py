@@ -1,0 +1,214 @@
+"""Bbox preprocessing + bbox-conditioned crop dataset.
+
+``extract_bbox_records`` (offline): scans ``{phase}_inst`` instance-id
+maps and emits per-object records {image_index, class, bbox} — the
+equivalent of the reference's preprocessed-json step over Cityscapes
+instance polygons. Thing-objects are instance ids >= 1000 (Cityscapes
+``class*1000+k`` convention).
+
+``BboxCropDataset``: samples an object record, expands its box to a
+context window (``contextMargin`` x the box, clipped), crops label/inst/
+RGB, resizes to the fixed ``fineSize`` square, and returns the
+structure-generator batch: GT layout ids, box mask (in window coords),
+class id, GT object mask, plus the RGB window + in-window box for the
+conditioned mask2image stage.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+from PIL import Image
+
+from . import hostops
+from .cityscapes import AlignedDataset
+
+
+def bboxes_from_instance_map(inst: np.ndarray, min_size=16, max_size=10_000):
+    """(H,W) instance ids -> list of {cls, bbox=(y0,x0,h,w)} for thing ids.
+    """
+    records = []
+    for rec in hostops.extract_bboxes(inst, min_id=1000):
+        h, w = rec["bbox"][2], rec["bbox"][3]
+        if min(h, w) < min_size or max(h, w) > max_size:
+            continue
+        records.append(rec)
+    return records
+
+
+def extract_bbox_records(dataset: AlignedDataset, min_size=16, max_size=10_000):
+    """Offline pass over a dataset's instance maps -> per-image records."""
+    all_records = []
+    for idx in range(len(dataset)):
+        sample = dataset[idx]
+        for rec in bboxes_from_instance_map(sample["inst"], min_size, max_size):
+            rec["image_index"] = idx
+            all_records.append(rec)
+    return all_records
+
+
+def save_bbox_records(records: List[Dict], path: str):
+    with open(path, "w") as f:
+        json.dump(records, f)
+
+
+def load_bbox_records(path: str) -> List[Dict]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _scaled_box(bbox, wy0, wx0, wh, ww, s):
+    """Object box in window coordinates scaled to the fixed ``s`` crop —
+    the ONE rule shared by the streaming BboxCropDataset and the
+    device-resident loader so their ``boxes`` tensors are bit-identical.
+    bh/bw are deliberately UNclamped at the window edge: every
+    rasterizer (numpy boxmask here, the encode kernel's box test on the
+    device) clamps geometrically, and downstream consumers see the true scaled
+    extent."""
+    y0, x0, h, w = bbox
+    sy, sx = s / wh, s / ww
+    by0 = int(np.clip((y0 - wy0) * sy, 0, s - 1))
+    bx0 = int(np.clip((x0 - wx0) * sx, 0, s - 1))
+    return by0, bx0, max(int(h * sy), 1), max(int(w * sx), 1)
+
+
+def context_window_math(y0, x0, bh, bw, hw, context_scale, out_size, xp=np):
+    """The context-window rule (``ops.boxcomposite.context_window_math`` of
+    the JAX package): a square window of ``context_scale`` x the box's max
+    side, floored at ``max(out_size/8, 8)``, centered, clipped to the
+    image, integer-floored like the host crop indices."""
+    cy = y0 + bh / 2.0
+    cx = x0 + bw / 2.0
+    min_side = max(float(out_size) / 8.0, 8.0)
+    side = xp.maximum(xp.maximum(bh, bw) * context_scale, min_side)
+    side_h = xp.minimum(side, float(hw[0]))
+    side_w = xp.minimum(side, float(hw[1]))
+    wy0 = xp.floor(xp.clip(cy - side_h / 2.0, 0.0, hw[0] - side_h))
+    wx0 = xp.floor(xp.clip(cx - side_w / 2.0, 0.0, hw[1] - side_w))
+    return wy0, wx0, xp.floor(side_h), xp.floor(side_w)
+
+
+def _context_window(bbox, hw, margin, out_size):
+    """Square context window in integer pixels."""
+    y0, x0, h, w = bbox
+    wy0, wx0, side_h, side_w = context_window_math(
+        float(y0), float(x0), float(h), float(w), hw, margin, out_size, np
+    )
+    return int(wy0), int(wx0), int(side_h), int(side_w)
+
+
+class BboxCropDataset:
+    """Per-object context-window crops for box2mask (and box-conditioned
+    mask2image). One epoch = one pass over object records."""
+
+    def __init__(self, opt, records: Optional[List[Dict]] = None):
+        self.opt = opt
+        # the crop dataset always needs instance maps to find objects, even
+        # when the model consumes no instance-edge channel (no_instance).
+        # Geometry must be DETERMINISTIC: bbox records are extracted in the
+        # transformed coordinate frame, so random flip/crop in the base
+        # dataset would desynchronize boxes from pixels — flips would
+        # mirror the image but not the stored box. (Flip augmentation, if
+        # wanted, belongs here where crop and box can flip together.)
+        import copy as _copy
+        import dataclasses as _dc
+
+        # always a COPY: mutating a shared (non-dataclass) opt here would
+        # corrupt the caller's flags (e.g. flip no_instance before
+        # create_model(opt) runs)
+        base_opt = _dc.replace(opt) if _dc.is_dataclass(opt) else _copy.copy(opt)
+        base_opt.no_instance = False
+        base_opt.no_flip = True
+        if "crop" in getattr(base_opt, "resize_or_crop", ""):
+            base_opt.resize_or_crop = (
+                "scale_width"
+                if "scale_width" in base_opt.resize_or_crop
+                else "none"
+            )
+        self.base = AlignedDataset(base_opt)
+        self.size = opt.fineSize
+        self.margin = getattr(opt, "contextMargin", 2.0)
+        if records is None:
+            cache = os.path.join(
+                opt.dataroot, f"{getattr(opt, 'phase', 'train')}_bboxes.json"
+            )
+            if os.path.exists(cache):
+                records = load_bbox_records(cache)
+            else:
+                records = extract_bbox_records(
+                    self.base,
+                    getattr(opt, "min_box_size", 16),
+                    getattr(opt, "max_box_size", 10_000),
+                )
+                try:
+                    save_bbox_records(records, cache)
+                except OSError:
+                    pass
+        self.records = records
+
+    def set_epoch(self, epoch: int) -> None:
+        self.base.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, index) -> Dict[str, np.ndarray]:
+        rec = self.records[index]
+        sample = self.base[rec["image_index"]]
+        label, inst = sample["label"], sample["inst"]
+        hw = label.shape
+        s = self.size
+
+        bbox = rec["bbox"]
+        wy0, wx0, wh, ww = _context_window(bbox, hw, self.margin, s)
+
+        def crop_resize_nearest(arr):
+            win = arr[wy0 : wy0 + wh, wx0 : wx0 + ww]
+            return hostops.nearest_resize_i32(win, s, s)
+
+        gt_layout = crop_resize_nearest(label)
+        inst_win = crop_resize_nearest(inst)
+
+        # object box in window coords, scaled to the fixed crop
+        by0, bx0, bh, bw = _scaled_box(bbox, wy0, wx0, wh, ww, s)
+        boxmask = hostops.box_mask_f32(s, s, by0, bx0, bh, bw)
+
+        gt_objmask = (
+            (inst_win == rec["inst_id"]).astype(np.float32)[..., None] * boxmask
+        )
+        cls_id = np.int32(rec["cls"])
+
+        u8 = getattr(self.opt, "uint8_transfer", False)
+        if u8:
+            # --uint8_transfer on the crop path: ids ship as uint8/uint16
+            # (all device consumers cast to int32), image as raw uint8 —
+            # 3-4x smaller host-to-device copies; the device normalizes.
+            gt_layout = gt_layout.astype(np.uint8)
+            inst_win = inst_win.astype(np.uint16)
+        out = {
+            "gt_layout": gt_layout,
+            "masked_layout": gt_layout.copy(),  # one-hot zeroed in-box on device
+            "boxmask": boxmask,
+            "gt_objmask": gt_objmask,
+            "cls": cls_id,
+            "boxes": np.asarray([by0, bx0, bh, bw], np.float32),
+            "path": sample["path"],
+        }
+        if "image" in sample:
+            win = sample["image"][wy0 : wy0 + wh, wx0 : wx0 + ww]
+            if win.dtype == np.uint8:
+                win8 = win  # base emitted raw uint8 (--uint8_transfer)
+            else:
+                # exact inverse of normalize_rgb: round-to-nearest recovers
+                # the original uint8 decode bit-exactly (no quantize drift)
+                win8 = np.clip((win + 1.0) * 127.5 + 0.5, 0, 255).astype(
+                    np.uint8
+                )
+            rgb = np.asarray(Image.fromarray(win8).resize((s, s), Image.BICUBIC))
+            out["image"] = rgb if u8 else rgb.astype(np.float32) / 127.5 - 1.0
+            out["label"] = gt_layout
+            out["inst"] = inst_win
+        return out

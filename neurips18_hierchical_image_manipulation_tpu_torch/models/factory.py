@@ -1,0 +1,53 @@
+"""Model factory — counterpart of ``models/factory.py`` in the JAX package:
+resolves the device and the numeric precision, then builds the model."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(opt) -> torch.device:
+    """``--gpu_ids -1`` is the CPU; otherwise the first listed card. With
+    a card requested and none present this raises: the port never
+    carries on on the CPU in its place."""
+    ids = [int(i) for i in str(opt.gpu_ids).split(",") if i.strip() != ""]
+    if not ids or ids[0] < 0:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--gpu_ids {opt.gpu_ids} asks for a CUDA device but none is "
+            "available; pass --gpu_ids -1 to run on the CPU"
+        )
+    return torch.device("cuda", ids[0])
+
+
+def resolve_precision(opt) -> str:
+    """``--conv_precision``: auto -> 'default' under --dtype bfloat16,
+    else 'highest' (the fp32 parity tier)."""
+    prec = getattr(opt, "conv_precision", "auto")
+    if prec == "auto":
+        prec = "default" if getattr(opt, "dtype", "float32") == "bfloat16" else "highest"
+    if prec not in ("default", "highest"):
+        raise ValueError(f"--conv_precision must be auto|default|highest, got {prec!r}")
+    return prec
+
+
+def create_model(opt):
+    # 'highest' keeps fp32 convolutions and matmuls in full fp32: cuDNN
+    # would otherwise run fp32 convolutions in TF32 (about three decimal
+    # digits). 'default' allows TF32, the counterpart of the JAX package's
+    # Precision.DEFAULT tier. These are process-wide switches.
+    prec = resolve_precision(opt)
+    tf32 = prec == "default"
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    # --no_pallas is accepted and changes nothing here: it selected the JAX
+    # package's lax fallbacks over its TPU kernels, while on the card every
+    # ported kernel IS the path (the plain versions serve CPU tensors only).
+    if opt.model != "pix2pixHD":
+        raise NotImplementedError(f"--model {opt.model} is not ported yet")
+    from .pix2pixhd import Pix2PixHDModel
+
+    model = Pix2PixHDModel(opt, resolve_device(opt))
+    model.conv_precision_resolved = prec
+    return model

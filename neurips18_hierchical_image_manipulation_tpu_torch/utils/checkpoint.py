@@ -1,0 +1,91 @@
+"""Weights carried across from the JAX package.
+
+The JAX package writes a flat npz sidecar next to each checkpoint,
+``{checkpoints_dir}/{name}/ckpt/{label}_params.npz``, keyed by the flax
+param path joined with '/': ``G/params/conv_in/kernel``,
+``G/params/res3/conv2/bias``, ``G/params/norm_in/scale`` (batch norm).
+``params_from_jax`` maps those keys onto the port generator's
+``state_dict`` and ``params_to_jax`` maps back, bit-exactly:
+
+  * conv kernel HWIO -> weight (Cout, Cin, kh, kw)  by transpose(3, 2, 0, 1)
+  * transposed-conv kernel HWIO (I = the op's input channels)
+    -> weight (Cin, Cout, kh, kw)  by transpose(2, 3, 0, 1), no spatial flip
+    (the JAX op flips at call time exactly as torch's does);
+  * batch-norm scale -> weight; every bias -> bias.
+
+The generator's transposed convs are its ``up{i}`` modules.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+PREFIX = "G/params/"
+_UP = re.compile(r"^up\d+$")
+
+
+def params_from_jax(flat: Dict[str, np.ndarray], prefix: str = PREFIX) -> Dict[str, torch.Tensor]:
+    """Flat JAX npz dict -> generator state_dict (keys outside ``prefix``
+    are ignored)."""
+    out = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split("/")
+        arr = np.asarray(arr)
+        if leaf == "kernel":
+            perm = (2, 3, 0, 1) if _UP.match(path[-1]) else (3, 2, 0, 1)
+            arr, leaf = arr.transpose(perm), "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join(path + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor], prefix: str = PREFIX) -> Dict[str, np.ndarray]:
+    """Generator state_dict -> flat JAX npz dict (inverse of
+    ``params_from_jax``)."""
+    out = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            perm = (2, 3, 0, 1) if _UP.match(path[-1]) else (2, 3, 1, 0)
+            arr, leaf = arr.transpose(perm), "kernel"
+        elif leaf == "weight":
+            leaf = "scale"
+        out[prefix + "/".join(path + [leaf])] = np.ascontiguousarray(arr)
+    return out
+
+
+def restore_params(opt, model) -> bool:
+    """Load ``{which_epoch}_params.npz`` into ``model.netG`` where present;
+    every parameter missing from the file (or of another shape) keeps its
+    init — the reference's partial-load fallback. Returns whether a file
+    was found."""
+    path = os.path.join(
+        opt.checkpoints_dir, opt.name, "ckpt", f"{opt.which_epoch}_params.npz"
+    )
+    if not os.path.exists(path):
+        print("WARNING: no checkpoint found — using random init")
+        return False
+    with np.load(path) as data:
+        loaded = params_from_jax({k: data[k] for k in data.files})
+    sd = model.netG.state_dict()
+    missing = 0
+    with torch.no_grad():
+        for key, t in sd.items():
+            src = loaded.get(key)
+            if src is not None and tuple(src.shape) == tuple(t.shape):
+                t.copy_(src.to(t.dtype))
+            else:
+                missing += 1
+    if missing:
+        print(f"checkpoint partial load: {missing} leaves kept at init")
+    print(f"restored checkpoint '{opt.which_epoch}'")
+    return True

@@ -1,0 +1,59 @@
+"""The port imports neither JAX nor any module of the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+PORT = "neurips18_hierchical_image_manipulation_tpu_torch"
+JAX_PKG = "neurips18_hierchical_image_manipulation_tpu"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = f"""
+import importlib, pkgutil, sys
+import {PORT} as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "flax", "optax", "orbax")
+    or m.startswith(("jax.", "flax.", "optax.", "orbax."))
+    or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")
+)
+print("COUNT", len(names))
+print("BAD", ",".join(bad))
+"""
+
+
+def run_script(code, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=cwd,
+        env=env, timeout=120,
+    )
+
+
+def test_port_imports_no_jax(tmp_path):
+    proc = run_script(SCRIPT, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if " " in ln)
+    assert int(lines["COUNT"]) >= 25
+    assert lines["BAD"] == "", f"the port pulled in: {lines['BAD']}"
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["chip_smoke", f"{PORT}.cli.mask2image_test", f"{PORT}.kernels.encode"],
+)
+def test_entry_points_import_no_jax(tmp_path, module):
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "print([m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        f" or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r})])\n"
+    )
+    proc = run_script(code, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
