@@ -1,26 +1,47 @@
-"""Drive the PyTorch port's mask2image serving path on one CUDA card.
+"""Drive the PyTorch port's mask2image serving and training paths on one
+CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases (any failure raises and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
-  2. build    compiles csrc/*.cu with nvcc for sm_90a (one nvcc per source,
-              all at once) and prints the -Xptxas -v register/smem lines
+  2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
+              source, all at once) and prints the -Xptxas -v register/smem
+              lines
   3. kernels  at the serving shapes (512x256, bs 1 and 8; fp32 and bf16)
-              each kernel against its plain PyTorch version on the card:
-              encode bit-exact in both pad modes, IN at the 5 generator
-              shapes x 3 acts x residual within the stated tolerance;
-              CUDA-event times of kernel, plain version and, for IN, the
-              library call F.instance_norm (a yardstick only)
-  4. serving  the port's mask2image_test CLI end to end at full width
-              (label_nc 35, ngf 64, 4 downs, 9 resblocks at 1024 channels,
-              bbox-crop windows at fineSize 512) on a seeded synthetic PNG
-              dataroot of 4 images at 1024x512; launch counters are zeroed
-              just before and read just after
-  5. model    Pix2PixHDModel.inference at 512x256 fp32 (bs 1 and 8): kernel
+              each serving kernel against its plain PyTorch version on the
+              card: encode bit-exact in both pad modes, IN at the 5
+              generator shapes x 3 acts x residual within the stated
+              tolerance; CUDA-event times of kernel, plain version and, for
+              IN, the library call F.instance_norm (a yardstick only)
+  4. kernels (train)  each training kernel against its plain version, fp32
+              and bf16: the IN backward at the 5 generator and 6
+              discriminator shapes of a 512x256 step (N 1 and 2) x 3 acts x
+              residual, the reflect-pad backward at the resblock and head
+              pads, MSE/L1 at the D-logit, FM-feature and VGG-tap sizes,
+              encode_cond at 512x256; times beside the library call
+  5. serving  (main path 1) the port's mask2image_test CLI end to end at
+              full width (label_nc 35, ngf 64, 4 downs, 9 resblocks at 1024
+              channels, bbox-crop windows at fineSize 512) on a seeded
+              synthetic PNG dataroot of 4 images at 1024x512; launch
+              counters are zeroed just before and read just after
+  6. train CLI  (main path 2) the port's mask2image_train CLI at full width
+              (G as above, 2-scale 3-layer PatchGAN, VGG19, LSGAN + FM +
+              VGG, Adam) on the same kind of dataroot, bs 1, one epoch;
+              counters zeroed before and read after, and held to the
+              per-step launch counts of the architecture; every loss
+              finite; latest_params.npz loaded back into the serving model
+              for one inference
+  7. model    Pix2PixHDModel.inference at 512x256 fp32 (bs 1 and 8): kernel
               path vs plain path (max |diff| of the tanh output), ms/image,
               images/s, peak memory; one --norm batch forward at 256x128
               (the pad-0 encode mode)
+  8. step     make_train_step at 512x256 fp32, bs 1 and 4: ms/step,
+              images/s, peak memory, the plain path's ms/step; from the
+              same parameters one step's loss terms and every G/D gradient
+              leaf on the kernel path against the plain path
+With --profile: torch.profiler tables of one serving forward and of train
+steps at 512x256 bs 1.
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 """
@@ -41,29 +62,63 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neurips18_hierchical_image_manipulation_tpu_torch.cli import mask2image_test
+from neurips18_hierchical_image_manipulation_tpu_torch.cli import (
+    mask2image_test,
+    mask2image_train,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTestOptions,
+    MaskToImageTrainOptions,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import synthetic_batch
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import _build
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
 from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from neurips18_hierchical_image_manipulation_tpu_torch.models.pix2pixhd import Pix2PixHDModel
+from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
+from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import make_train_step
+from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import restore_params
+from neurips18_hierchical_image_manipulation_tpu_torch.utils.visualizer import Visualizer
 
 PKG = "neurips18_hierchical_image_manipulation_tpu_torch"
 JAX_PKG = "neurips18_hierchical_image_manipulation_tpu"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 # kernel vs plain version on the card
 IN_FP32_ATOL = 1e-4         # Welford/Chan vs two-pass fp32 statistics
 IN_BF16_RTOL = 2.0**-7      # one bf16 rounding of the same fp32 value may
 IN_BF16_ATOL = 2.0**-7      # land one ulp apart when the stats differ
 MODEL_ATOL = 1e-3           # tanh output after 27 IN sites, full-fp32 convs
+# training kernels vs their plain versions: the same fp32 arithmetic summed
+# in another order (bf16: one rounding of nearly equal fp32 values)
+IN_BWD_FP32_ATOL = 1e-5     # dx is O(1) here
+PAD_FP32_ATOL = 1e-5        # sums of at most 9 O(1) values
+LOSS_RTOL = 1e-5            # one fp32 sum of up to 8.4M terms, other order
+BF16_RTOL = BF16_ATOL = 2.0**-7
+# the whole step, kernel path vs plain path, from the same parameters, with
+# full-fp32 deterministic convolutions (see compare_step):
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 1e-4        # one backward kernel swapped for its plain version,
+                            # of each gradient leaf's max |g| (measured <= 1e-5)
+STEP_SENS_FACTOR = 2.0      # the whole path, against the 1-ulp sensitivity
 SHAPES_512x256 = [(256, 512, 64), (128, 256, 128), (64, 128, 256), (32, 64, 512),
                   (16, 32, 1024)]
+# the IN sites of one D apply at 512x256 (scale 0, then scale 1)
+D_SHAPES_512x256 = [(65, 129, 128), (33, 65, 256), (34, 66, 512),
+                    (33, 65, 128), (17, 33, 256), (18, 34, 512)]
+STEP_HW = (256, 512)
+DATAROOT_HW = (512, 1024)
+GPU_IDS = "0"
+ARCH = {}        # model overrides (empty: the full-width defaults)
+ARCH_ARGV = []   # the same as CLI flags
+ACTS = ("none", "relu", "lrelu")
+TRAIN_KERNELS = ("encode_cond", "instance_norm_bwd", "mse_to_scalar", "l1_to_scalar",
+                 "reflect_pad_bwd")
 
 
 def log(*a):
@@ -131,13 +186,117 @@ def bound(bytes_, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def in_bwd_bytes(shape, itemsize, act, want_dres):
+    """x, g (and y for a masked act) read once, dx (and dres) written once,
+    the fp32 mean/rstd read; ~12 operations an element."""
+    n, h, w, c = shape
+    elems = n * h * w * c
+    return elems * itemsize * (3 + int(act != "none") + int(want_dres)) + 2 * n * c * 4, 12 * elems
+
+
+def pad_bwd_bytes(dy_shape, pad, itemsize):
+    n, hp, wp, c = dy_shape
+    dy = n * hp * wp * c
+    dx = n * (hp - 2 * pad) * (wp - 2 * pad) * c
+    return (dy + dx) * itemsize, dy
+
+
+def loss_bytes(numel, itemsize, two_operands):
+    return numel * itemsize * (1 + int(two_operands)), 3 * numel
+
+
+def cond_bytes(b, h, w, width, itemsize):
+    """label and inst (int32) read, the width-channel conditioning written."""
+    return b * h * w * (8 + width * itemsize), b * h * w * width
+
+
+def conv_in_bound(n=1, h=16, w=32, c=1024, sites=18):
+    """Row 8 of the kernel table, not ported: the reckoned bound of
+    conv3x3_in_act (reflect-pad-1 3x3 conv + IN + residual/ReLU, one write)
+    over the resblock convs of one 512x256 forward, in fp32 and in TF32."""
+    elems = n * h * w * c
+    nbytes = sites * 4 * (3 * elems + 9 * c * c)   # x, residual, y; the weights
+    flops = sites * 2 * elems * 9 * c
+    return dict(sites=sites, shape=[n, h, w, c], bytes=nbytes, flops=flops,
+                bound_ms_fp32=max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3,
+                bound_ms_tf32=max(nbytes / HBM_BYTES_PER_S, flops / TF32_OPS_PER_S) * 1e3,
+                bound_by="operations" if flops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S
+                else "bytes")
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    return {
+        "encode": kenc.encode, "encode_cond": kenc.encode_cond,
+        "instance_norm": kin.instance_norm, "instance_norm_bwd": kin.instance_norm_bwd,
+        "mse_to_scalar": klosses.mse_to_scalar, "l1_to_scalar": klosses.l1_to_scalar,
+        "reflect_pad_bwd": krp.reflect_pad_bwd,
+    }
+
+
+def read_launches():
+    return {k: f.launches for k, f in counters().items()}
+
+
+def zero_launches():
+    for f in counters().values():
+        f.launches = 0
+
+
+def expect_launches(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the arguments' shapes of every call of a training kernel's
+    wrapper (a call on a CPU tensor too), by kernel name."""
+    calls = {k: [] for k in TRAIN_KERNELS}
+
+    class Recorder:
+        """Stands in for a wrapper; a wrapper finds its own launch counter
+        through its module's global name, so ``launches`` is forwarded."""
+
+        def __init__(self, name, orig, describe):
+            self.name, self.orig, self.describe = name, orig, describe
+
+        def __call__(self, *a, **k):
+            calls[self.name].append(self.describe(*a, **k))
+            return self.orig(*a, **k)
+
+        @property
+        def launches(self):
+            return self.orig.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.orig.launches = n
+
+    def rec(mod, name, describe):
+        return mock.patch.object(mod, name, Recorder(name, getattr(mod, name), describe))
+
+    with rec(kin, "instance_norm_bwd",
+             lambda x, y, g, mean, rstd, act="none", want_dres=False:
+             (tuple(x.shape), x.dtype, act, bool(want_dres))), \
+            rec(krp, "reflect_pad_bwd", lambda dy, pad: (tuple(dy.shape), dy.dtype, pad)), \
+            rec(klosses, "mse_to_scalar", lambda pred, t: (tuple(pred.shape), pred.dtype, float(t))), \
+            rec(klosses, "l1_to_scalar", lambda a, b: (tuple(a.shape), a.dtype)), \
+            rec(kenc, "encode_cond",
+                lambda label, inst, nc, dtype=torch.float32:
+                (tuple(label.shape), inst is not None, nc, dtype)):
+        yield calls
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_build():
+    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
     t = time.time()
-    _build.build_all(["encode", "instance_norm"])
-    log(f"[build] nvcc sm_90a, 2 sources in parallel: {time.time() - t:.1f} s")
-    for name in ("encode", "instance_norm"):
+    _build.build_all(sources)
+    log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel ({', '.join(sources)}): "
+        f"{time.time() - t:.1f} s")
+    for name in sources:
         info = _build.ptxas_info.get(name, "(already built)")
         for line in info.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
@@ -213,13 +372,540 @@ def phase_kernels(dev, results):
     results["in_max_err"] = max_err
 
 
-def write_dataroot(root, n=4, h=512, w=1024, seed=0):
-    """Cityscapes-like scenes: label ids 0..34 (uint8), inst = class id for
-    stuff and class*1000+k for things (mode 'I'), random RGB."""
+def check_close(got, want, dt, fp32_atol, what, rtol=0.0):
+    """max |got - want| within fp32_atol (+ rtol*|want|) in fp32, one bf16
+    rounding apart in bf16; returns the max |diff|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dt == torch.float32:
+        ok = bool((diff <= fp32_atol + rtol * want.abs()).all())
+    else:
+        ok = bool((diff <= BF16_ATOL + BF16_RTOL * want.abs()).all())
+    err = diff.max().item()
+    if not ok:
+        raise AssertionError(f"{what}: kernel vs plain max|diff| {err}")
+    return err
+
+
+def library_in_bwd(x, gy):
+    """The library yardstick: the backward of F.instance_norm (IN alone, no
+    activation or residual) on the same x and cotangent, as the one aten
+    call its autograd makes, on the NCHW (1, N*C, H, W) view instance_norm
+    takes (called directly: an autograd backward would run on the
+    forward's stream, outside a graph captured on another)."""
+    n, h, w, c = x.shape
+    xr = x.permute(0, 3, 1, 2).contiguous().view(1, n * c, h, w)
+    gr = gy.permute(0, 3, 1, 2).contiguous().view(1, n * c, h, w)
+    _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(
+        xr, None, None, None, None, True, 0.0, 1e-5)
+    return lambda: torch.ops.aten.native_batch_norm_backward(
+        gr, xr, None, None, None, save_mean, save_invstd, True, 1e-5, [True, False, False])
+
+
+def library_pad_bwd(dy, pad):
+    n, hp, wp, c = dy.shape
+    x = torch.empty((n, hp - 2 * pad, wp - 2 * pad, c), dtype=dy.dtype, device=dy.device)
+    return lambda: torch.ops.aten.reflection_pad2d_backward(
+        dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), [pad] * 4)
+
+
+def phase_train_kernels(dev, results):
+    """Each training kernel against its plain version on the card, fp32 and
+    bf16, and its times beside the library call (one site at a time)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs, rows = {}, []
+
+    def keep(name, dt, err):
+        key = f"{name}/{str(dt).split('.')[-1]}"
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    in_shapes = [(1, *sh) for sh in SHAPES_512x256] + [
+        (n, *sh) for n in (1, 2) for sh in D_SHAPES_512x256]
+    for shape in in_shapes:
+        x32 = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        r32 = torch.randn(shape, generator=gen, device=dev)
+        g32 = torch.randn(shape, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, r, gy = x32.to(dt), r32.to(dt), g32.to(dt)
+            for act in ACTS:
+                for res in (None, r):
+                    y, mean, rstd = kin.instance_norm(x, act, res)
+                    got = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None)
+                    want = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, res is not None)
+                    what = f"IN bwd {shape} {dt} {act} res={res is not None}"
+                    keep("instance_norm_bwd", dt, check_close(got[0], want[0], dt,
+                                                              IN_BWD_FP32_ATOL, what))
+                    if res is not None:
+                        keep("instance_norm_bwd", dt, check_close(got[1], want[1], dt,
+                                                                  IN_BWD_FP32_ATOL, what))
+            y, mean, rstd = kin.instance_norm(x, "relu")
+            bms, by = bound(*in_bwd_bytes(shape, x.element_size(), "relu", False))
+            row = dict(kernel="instance_norm_bwd", shape=list(shape), dtype=str(dt)[6:],
+                       act="relu",
+                       ms=graph_ms(lambda: kin.instance_norm_bwd(x, y, gy, mean, rstd, "relu")),
+                       plain_ms=graph_ms(
+                           lambda: kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, "relu")),
+                       library_ms=graph_ms(library_in_bwd(x, gy)), bound_ms=bms, bound_by=by)
+            rows.append(row)
+            log(f"[kernels train] {row}")
+    for shape, pad in (((1, 16, 32, 1024), 1), ((1, 256, 512, 64), 3), ((2, 2, 3, 8), 1),
+                       ((1, 4, 5, 16), 3)):
+        n, h, w, c = shape
+        dy32 = torch.randn((n, h + 2 * pad, w + 2 * pad, c), generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            dy = dy32.to(dt)
+            got, want = krp.reflect_pad_bwd(dy, pad), krp.reflect_pad_bwd_plain(dy, pad)
+            keep("reflect_pad_bwd", dt, check_close(got, want, dt, PAD_FP32_ATOL,
+                                                    f"reflect-pad bwd {shape} p{pad} {dt}"))
+            bms, by = bound(*pad_bwd_bytes(tuple(dy.shape), pad, dy.element_size()))
+            row = dict(kernel="reflect_pad_bwd", shape=list(shape), pad=pad,
+                       dtype=str(dt)[6:], ms=graph_ms(lambda: krp.reflect_pad_bwd(dy, pad)),
+                       plain_ms=graph_ms(lambda: krp.reflect_pad_bwd_plain(dy, pad)),
+                       library_ms=graph_ms(library_pad_bwd(dy, pad)), bound_ms=bms, bound_by=by)
+            rows.append(row)
+            log(f"[kernels train] {row}")
+    # the D logits of both scales, the FM features, the VGG taps at 512x256
+    loss_shapes = [(1, 35, 67, 1), (1, 19, 35, 1), (1, 129, 257, 64), (1, 65, 129, 128),
+                   (1, 34, 66, 512), (1, 256, 512, 64), (1, 128, 256, 128), (1, 64, 128, 256),
+                   (1, 32, 64, 512), (1, 16, 32, 512)]
+    for shape in loss_shapes:
+        a32 = torch.randn(shape, generator=gen, device=dev)
+        b32 = torch.randn(shape, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = a32.to(dt), b32.to(dt)
+            t = torch.ones((), dtype=dt, device=dev).expand_as(a)
+            for name, fn, plain, lib, two in (
+                ("mse_to_scalar", lambda: klosses.mse_to_scalar(a, 1.0),
+                 lambda: klosses.mse_to_scalar_plain(a, 1.0), lambda: F.mse_loss(a, t), False),
+                ("l1_to_scalar", lambda: klosses.l1_to_scalar(a, b),
+                 lambda: klosses.l1_to_scalar_plain(a, b), lambda: F.l1_loss(a, b), True),
+            ):
+                keep(name, dt, check_close(fn(), plain(), torch.float32, 0.0,
+                                           f"{name} {shape} {dt}", rtol=LOSS_RTOL))
+                bms, by = bound(*loss_bytes(a.numel(), a.element_size(), two))
+                row = dict(kernel=name, shape=list(shape), dtype=str(dt)[6:], ms=graph_ms(fn),
+                           plain_ms=graph_ms(plain), library_ms=graph_ms(lib),
+                           bound_ms=bms, bound_by=by)
+                rows.append(row)
+                log(f"[kernels train] {row}")
+    for bs in (1, 2):
+        inp = encode_inputs(bs, *STEP_HW, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (inp["label"], inp["inst"], 35, dt)
+            got, want = kenc.encode_cond(*args), kenc.encode_cond_plain(*args)
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                raise AssertionError(f"encode_cond mismatch bs{bs} {dt}")
+            bms, by = bound(*cond_bytes(bs, *STEP_HW, got.shape[-1], got.element_size()))
+            row = dict(kernel="encode_cond", shape=[bs, *STEP_HW], dtype=str(dt)[6:],
+                       ms=graph_ms(lambda: kenc.encode_cond(*args)),
+                       plain_ms=graph_ms(lambda: kenc.encode_cond_plain(*args)),
+                       library_ms=None, bound_ms=bms, bound_by=by, bit_exact=True)
+            rows.append(row)
+            log(f"[kernels train] {row}")
+    log(f"[kernels train] max|kernel - plain|: {errs}")
+    results["train_kernel_rows"] = rows
+    results["train_kernel_max_err"] = errs
+
+
+def site_inputs(kind, calls, dev, gen):
+    """Fresh random inputs for each recorded call of one kernel, and the
+    kernel / plain / library closures over the whole sequence with their
+    bound and max |kernel - plain|."""
+    kern, plain, lib, nbytes, ops, err = [], [], [], 0, 0, 0.0
+    for call in calls:
+        if kind == "instance_norm_bwd":
+            shape, dt, act, want_dres = call
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+            gy = torch.randn(shape, generator=gen, device=dev).to(dt)
+            y, mean, rstd = kin.instance_norm(x, act)
+            a = (x, y, gy, mean, rstd, act, want_dres)
+            kern.append(lambda a=a: kin.instance_norm_bwd(*a))
+            plain.append(lambda a=a: kin.instance_norm_bwd_plain(*a))
+            lib.append(library_in_bwd(x, gy))
+            b, o = in_bwd_bytes(shape, x.element_size(), act, want_dres)
+            e = (kern[-1]()[0].float() - plain[-1]()[0].float()).abs().max().item()
+        elif kind == "reflect_pad_bwd":
+            shape, dt, pad = call
+            dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+            kern.append(lambda dy=dy, p=pad: krp.reflect_pad_bwd(dy, p))
+            plain.append(lambda dy=dy, p=pad: krp.reflect_pad_bwd_plain(dy, p))
+            lib.append(library_pad_bwd(dy, pad))
+            b, o = pad_bwd_bytes(shape, pad, dy.element_size())
+            e = (kern[-1]().float() - plain[-1]().float()).abs().max().item()
+        elif kind == "mse_to_scalar":
+            shape, dt, t = call
+            pred = torch.randn(shape, generator=gen, device=dev).to(dt)
+            tt = torch.full((), t, dtype=dt, device=dev).expand_as(pred)
+            kern.append(lambda p=pred, t=t: klosses.mse_to_scalar(p, t))
+            plain.append(lambda p=pred, t=t: klosses.mse_to_scalar_plain(p, t))
+            lib.append(lambda p=pred, tt=tt: F.mse_loss(p, tt))
+            b, o = loss_bytes(pred.numel(), pred.element_size(), False)
+            e = abs(kern[-1]().item() - plain[-1]().item())
+        elif kind == "l1_to_scalar":
+            shape, dt = call
+            a = torch.randn(shape, generator=gen, device=dev).to(dt)
+            bb = torch.randn(shape, generator=gen, device=dev).to(dt)
+            kern.append(lambda a=a, b=bb: klosses.l1_to_scalar(a, b))
+            plain.append(lambda a=a, b=bb: klosses.l1_to_scalar_plain(a, b))
+            lib.append(lambda a=a, b=bb: F.l1_loss(a, b))
+            b, o = loss_bytes(a.numel(), a.element_size(), True)
+            e = abs(kern[-1]().item() - plain[-1]().item())
+        elif kind == "encode_cond":
+            shape, has_inst, nc, dt = call
+            inp = encode_inputs(shape[0], shape[1], shape[2], dev, seed=len(kern))
+            a = (inp["label"], inp["inst"] if has_inst else None, nc, dt)
+            kern.append(lambda a=a: kenc.encode_cond(*a))
+            plain.append(lambda a=a: kenc.encode_cond_plain(*a))
+            lib = None
+            out = kern[-1]()
+            if not same_bits(out, plain[-1]()):
+                raise AssertionError(f"encode_cond mismatch at {shape}")
+            b, o = cond_bytes(*shape, out.shape[-1], out.element_size())
+            e = 0.0
+        else:
+            raise ValueError(kind)
+        nbytes, ops, err = nbytes + b, ops + o, max(err, e)
+
+    def seq(fns):
+        return lambda: [f() for f in fns]
+
+    return seq(kern), seq(plain), (seq(lib) if lib is not None else None), nbytes, ops, err
+
+
+def time_sites(kind, calls, dev, seed):
+    """Device time of a kernel over the calls one step made of it, by
+    CUDA-graph replay: kernel, plain version, library call, and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kern, plain, lib, nbytes, ops, err = site_inputs(kind, calls, dev, gen)
+    torch.cuda.synchronize()
+    bms, by = bound(nbytes, ops)
+    return dict(launches_per_step=len(calls), max_abs_err=err, ms=graph_ms(kern),
+                plain_ms=graph_ms(plain), library_ms=graph_ms(lib) if lib else None,
+                bound_ms=bms, bound_by=by, bytes=nbytes)
+
+
+def train_per_step(g_sites, opt):
+    """Launches of each kernel in one train step of this architecture."""
+    d_sites = opt.n_layers_D * opt.num_D      # IN sites of one D apply
+    in_sites = g_sites + 2 * d_sites          # G, D on the fake for G, D on [real; fake]
+    return {
+        "encode": 1, "encode_cond": 1, "instance_norm": in_sites,
+        "instance_norm_bwd": in_sites, "mse_to_scalar": 3 * opt.num_D,
+        "l1_to_scalar": (opt.n_layers_D + 1) * opt.num_D + (0 if opt.no_vgg_loss else 5),
+        "reflect_pad_bwd": 2 * opt.n_blocks_global + 1,
+    }
+
+
+def phase_train_cli(tmp, results):
+    """Main path 2: the port's train CLI end to end on the card."""
+    root = os.path.join(tmp, "city_train")
+    write_dataroot(root, phase="train", seed=1)
+    ckpt = os.path.join(tmp, "ckpt")
+    argv = ["--name", "smoke_train", "--dataroot", root, "--checkpoints_dir", ckpt,
+            "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+            "--save_epoch_freq", "1", "--nThreads", "2", *ARCH_ARGV]
+    errors, models = [], []
+    orig_print = Visualizer.print_current_errors
+    orig_create = mask2image_train.create_model
+
+    def record_errors(self, epoch, i, errs, t):
+        errors.append(dict(errs))
+        return orig_print(self, epoch, i, errs, t)
+
+    def create_and_keep(opt):
+        models.append(orig_create(opt))
+        return models[-1]
+
+    zero_launches()
+    t = time.time()
+    with recording() as calls, \
+            mock.patch.object(Visualizer, "print_current_errors", record_errors), \
+            mock.patch.object(mask2image_train, "create_model", create_and_keep):
+        state = mask2image_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = read_launches()
+    model, steps = models[0], state.step
+    g = model.netG
+    per_step = train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, model.opt)
+    log(f"[train CLI] {steps} steps in {wall:.1f} s (incl. model init, data, checkpoint "
+        f"writes); launches {launches}; per step {per_step}")
+    if steps < 1 or len(errors) != steps:
+        raise AssertionError(f"{steps} steps, {len(errors)} loss lines")
+    bad = [e for e in errors if not all(np.isfinite(v) for v in e.values())]
+    if bad:
+        raise AssertionError(f"non-finite losses: {bad}")
+    for k, n in per_step.items():
+        expect_launches(launches[k], n * steps, f"train CLI {k}")
+    log(f"[train CLI] losses, first step {errors[0]}, last step {errors[-1]}")
+    # the checkpoint the CLI wrote, back into the serving model
+    opt = MaskToImageTestOptions(gpu_ids=GPU_IDS, name="smoke_train", checkpoints_dir=ckpt,
+                                 **ARCH)
+    serve = create_model(opt)
+    if not restore_params(opt, serve):
+        raise AssertionError("latest_params.npz not found")
+    for (k, a), b in zip(serve.netG.state_dict().items(), model.netG.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"served G differs from the trained G at {k}")
+    b, h, w = calls["encode_cond"][0][0]
+    out = serve.inference(encode_inputs(1, h, w, serve.device, seed=9))
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (1, h, w, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"served output {tuple(out.shape)} not finite")
+    log(f"[train CLI] latest_params.npz served: output {tuple(out.shape)} finite")
+    step_calls = {k: v[: len(v) // steps] for k, v in calls.items()}
+    results["train_cli"] = dict(wall_s=wall, steps=steps, launches=launches,
+                                per_step=per_step, losses=errors, window=[h, w])
+    del model, serve, models[:]
+    torch.cuda.empty_cache()
+    return launches, step_calls
+
+
+def grads_of(model):
+    return [(f"{net}.{n}", p.grad.clone() if p.grad is not None else None)
+            for net, m in (("G", model.netG), ("D", model.netD))
+            for n, p in m.named_parameters()]
+
+
+def _grad_diff(a, b):
+    """Worst leaf of |a - b| as max|diff| / max|b| and as ||diff|| / ||b||."""
+    mx = nr = 0.0
+    where = None
+    for (name, x), (_, y) in zip(a, b):
+        if x is None or y is None:
+            if x is not None or y is not None:
+                raise AssertionError(f"gradient present on one path only: {name}")
+            continue
+        d = (x - y).double()
+        m = (d.abs().max() / y.abs().max().clamp_min(1e-30)).item()
+        if m > mx:
+            mx, where = m, name
+        nr = max(nr, (d.norm() / y.double().norm().clamp_min(1e-30)).item())
+    return mx, nr, where
+
+
+def compare_step(model, batch):
+    """One step's loss terms and G/D gradients, kernel path vs plain path,
+    from the same parameters, with cuDNN deterministic so that repeated
+    runs give the same bits. Each backward kernel is also swapped alone for
+    its plain version. The gradient of this randomly initialized GAN step
+    amplifies last-ulp differences of its forward (the IN forward kernel's
+    statistics differ from the plain two-pass ones by about an ulp), so the
+    whole-path difference is held to twice the gradient's own sensitivity,
+    measured here: the change a 1-ulp nudge of the input image makes."""
+    bumped = dict(batch)
+    bumped["image"] = torch.nextafter(batch["image"], torch.full_like(batch["image"], 2.0))
+
+    def run(ctx, b=batch):
+        model.netG.zero_grad(set_to_none=True)
+        model.netD.zero_grad(set_to_none=True)
+        with ctx:
+            total, metrics, _ = model.losses(b)
+            total.backward()
+        return {k: v.item() for k, v in metrics.items()}, grads_of(model)
+
+    none = contextlib.nullcontext
+    swaps = {
+        "instance_norm_bwd": lambda: mock.patch.object(
+            kin, "instance_norm_bwd", kin.instance_norm_bwd_plain),
+        "reflect_pad_bwd": lambda: mock.patch.object(
+            krp, "reflect_pad_bwd", krp.reflect_pad_bwd_plain),
+        "losses": lambda: mock.patch.multiple(
+            klosses, mse_to_scalar=klosses.mse_to_scalar_plain,
+            l1_to_scalar=klosses.l1_to_scalar_plain),
+    }
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = read_launches()
+        mk, gk = run(none())
+        mid = read_launches()
+        if any(mid[k] == before[k] for k in TRAIN_KERNELS):
+            raise AssertionError(f"a training kernel did not launch: {before} -> {mid}")
+        mp, gp = run(plain_path())
+        if read_launches() != mid:
+            raise AssertionError("the plain path launched a kernel")
+        repeat = _grad_diff(run(none())[1], gk)
+        alone = {k: _grad_diff(run(ctx())[1], gk) for k, ctx in swaps.items()}
+        sens_k = _grad_diff(run(none(), bumped)[1], gk)
+        sens_p = _grad_diff(run(plain_path(), bumped)[1], gp)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mk)
+    whole = _grad_diff(gk, gp)
+    sens = (max(sens_k[0], sens_p[0]), max(sens_k[1], sens_p[1]))
+    log(f"[step] kernel vs plain: losses {mk} vs {mp}, max rel {loss_rel:.3g}")
+    log(f"[step] gradients (max|diff|/max|g|, ||diff||/||g||, worst leaf): kernel path "
+        f"repeated {repeat}; one kernel plain at a time {alone}; whole plain path {whole}; "
+        f"1-ulp image nudge, kernel path {sens_k}, plain path {sens_p}")
+    if loss_rel > STEP_LOSS_RTOL or repeat[0] > STEP_GRAD_TOL:
+        raise AssertionError(f"step: losses max rel {loss_rel}, repeat {repeat}")
+    bad = {k: v for k, v in alone.items() if v[0] > STEP_GRAD_TOL}
+    if bad:
+        raise AssertionError(f"a backward kernel moves the gradients: {bad}")
+    if whole[0] > STEP_SENS_FACTOR * sens[0] or whole[1] > STEP_SENS_FACTOR * sens[1]:
+        raise AssertionError(f"kernel vs plain gradients {whole} beyond "
+                             f"{STEP_SENS_FACTOR}x the 1-ulp sensitivity {sens}")
+    return dict(losses_kernel=mk, losses_plain=mp, max_loss_rel=loss_rel, repeat=repeat,
+                one_kernel_plain=alone, whole_plain_path=whole,
+                one_ulp_sensitivity={"kernel": sens_k, "plain": sens_p},
+                leaves=sum(g is not None for _, g in gk))
+
+
+def phase_train_step(dev, results):
+    """make_train_step at STEP_HW fp32: times (kernel and plain path), peak
+    memory, the kernel-vs-plain step, and the calls one bs-1 step makes of
+    each training kernel (for the per-step kernel table)."""
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **ARCH)
+    model = create_model(opt)
+    step = make_train_step(model)
+    rows = []
+    for bs, iters in ((1, 10), (4, 4)):
+        batch = encode_inputs(bs, *STEP_HW, dev, seed=8)
+        state = make_optimizers(opt, model, 1000)
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(iters):
+            metrics, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / iters * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        with plain_path():
+            step(state, batch)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(max(2, iters // 2)):
+                step(state, batch)
+            torch.cuda.synchronize()
+            plain = (time.perf_counter() - t) / max(2, iters // 2) * 1e3
+        row = dict(bs=bs, hw=list(STEP_HW), dtype="float32", precision="highest",
+                   ms_per_step=ms, images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs,
+                   plain_ms_per_step=plain, peak_mem_bytes=peak,
+                   losses={k: v.item() for k, v in metrics.items()})
+        rows.append(row)
+        log(f"[step] {row}")
+    batch = encode_inputs(1, *STEP_HW, dev, seed=10)
+    cmp = compare_step(model, batch)
+    with recording() as calls:
+        state = make_optimizers(opt, model, 1000)
+        step(state, batch)
+    torch.cuda.synchronize()
+    results["step"] = dict(rows=rows, kernel_vs_plain=cmp)
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+SOURCES = {
+    "encode_cond": ("csrc/encode.cu", "ops/pallas/encode.py:104"),
+    "instance_norm_bwd": ("csrc/instance_norm.cu", "ops/pallas/instance_norm.py:195"),
+    "mse_to_scalar": ("csrc/losses.cu", "ops/pallas/losses.py:39"),
+    "l1_to_scalar": ("csrc/losses.cu", "ops/pallas/losses.py:39"),
+    "reflect_pad_bwd": ("csrc/reflect_pad.cu", "ops/pallas/reflect_pad.py:82"),
+}
+
+
+def phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, results):
+    """JSON rows of the training kernels, each timed on the calls one step
+    of the train CLI made of it (its bbox windows, bs 1, fp32), and the
+    per-step table at STEP_HW bs 1 for PERF.md."""
+    rows, table = [], []
+    for i, name in enumerate(TRAIN_KERNELS):
+        src, tpu = SOURCES[name]
+        row = dict(name=name, route="cuda", source=f"{PKG}/{src}",
+                   replaces=f"{JAX_PKG}/{tpu}", launches=cli_launches[name],
+                   launches_by_path={"serving": 0, "train": cli_launches[name]},
+                   **time_sites(name, cli_calls[name], dev, seed=20 + i))
+        row["per"] = (f"the {row['launches_per_step']} calls one train-CLI step makes "
+                      f"(bbox windows, bs 1, fp32)")
+        row["max_abs_diff"], row["kernel_ms"] = row["max_abs_err"], row["ms"]
+        rows.append(row)
+        log(f"[main-path kernel] {row}")
+        trow = dict(name=name, **time_sites(name, step_calls[name], dev, seed=40 + i))
+        table.append(trow)
+        log(f"[step {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
+    results["train_step_kernels"] = table
+    return rows
+
+
+# device-kernel names by kind, first match wins (the profile breakdown)
+KERNEL_KINDS = (
+    ("port kernels", ("in_partial_kernel", "in_finalize_kernel", "in_normalize_kernel",
+                      "in_bwd_", "reflect_pad_bwd_kernel", "reduce_partial_kernel",
+                      "reduce_finish_kernel", "encode_kernel")),
+    ("conv weight gradient", ("wgrad",)),
+    ("conv data gradient", ("dgrad",)),
+    ("conv forward / other conv algorithms", ("fprop", "fft", "winograd", "sgemm",
+                                              "gemv", "gemm", "conv")),
+    ("layout conversion (cuDNN)", ("nhwcToNchw", "nchwToNhwc")),
+    ("Adam (multi-tensor)", ("multi_tensor",)),
+    ("aten reflection pad", ("reflection_pad",)),
+    ("pools", ("pool",)),
+    ("elementwise and copies", ("elementwise", "copy", "vectorized", "unrolled")),
+    ("reductions", ("reduce",)),
+)
+
+
+def kernel_kind(name):
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def phase_profile_train(dev, results):
+    """Device time by kernel over train steps at STEP_HW bs 1, grouped by
+    kind; the idle share is that of the unprofiled step (phase 8)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **ARCH)
+    model = create_model(opt)
+    step = make_train_step(model)
+    state = make_optimizers(opt, model, 1000)
+    batch = encode_inputs(1, *STEP_HW, dev, seed=12)
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
+    log(table)
+    kinds = {}
+    for e in avgs:
+        if e.device_type == DeviceType.CUDA:  # kernel rows only: no double count
+            us = getattr(e, "self_device_time_total", 0) / n
+            kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + us / 1e3
+    dev_ms = sum(kinds.values())
+    step_ms = results["step"]["rows"][0]["ms_per_step"]
+    kinds = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
+    log(f"[profile train] device ms per step by kind: "
+        f"{ {k: round(v, 4) for k, v in kinds.items()} }")
+    log(f"[profile train] device busy {dev_ms:.3f} ms per step; unprofiled step "
+        f"{step_ms:.3f} ms; idle share {max(0.0, 1 - dev_ms / step_ms):.3f}")
+    results["profile_train"] = dict(table=table, device_ms_per_step=dev_ms, by_kind=kinds,
+                                    unprofiled_step_ms=step_ms,
+                                    idle_share=max(0.0, 1 - dev_ms / step_ms))
+    del model
+    torch.cuda.empty_cache()
+
+
+def write_dataroot(root, n=4, phase="test", seed=0):
+    """Cityscapes-like scenes of DATAROOT_HW: label ids 0..34 (uint8), inst =
+    class id for stuff and class*1000+k for things (mode 'I'), random RGB."""
     from PIL import Image
 
+    h, w = DATAROOT_HW
     rng = np.random.RandomState(seed)
-    for sub in ("test_label", "test_inst", "test_img"):
+    for sub in (f"{phase}_label", f"{phase}_inst", f"{phase}_img"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     for i in range(n):
         label = np.full((h, w), 7, np.uint8)               # road
@@ -234,9 +920,9 @@ def write_dataroot(root, n=4, h=512, w=1024, seed=0):
             label[y0 : y0 + bh, x0 : x0 + bw] = cls
             inst[y0 : y0 + bh, x0 : x0 + bw] = cls * 1000 + k
         img = rng.randint(0, 256, size=(h, w, 3), dtype=np.uint8)
-        Image.fromarray(label).save(os.path.join(root, "test_label", f"{i}.png"))
-        Image.fromarray(inst, mode="I").save(os.path.join(root, "test_inst", f"{i}.png"))
-        Image.fromarray(img).save(os.path.join(root, "test_img", f"{i}.png"))
+        Image.fromarray(label).save(os.path.join(root, f"{phase}_label", f"{i}.png"))
+        Image.fromarray(inst, mode="I").save(os.path.join(root, f"{phase}_inst", f"{i}.png"))
+        Image.fromarray(img).save(os.path.join(root, f"{phase}_img", f"{i}.png"))
 
 
 def phase_serving(tmp, results):
@@ -276,16 +962,15 @@ def phase_serving(tmp, results):
     argv = ["--name", "smoke", "--dataroot", root,
             "--checkpoints_dir", os.path.join(tmp, "ckpt"),
             "--results_dir", os.path.join(tmp, "results"),
-            "--gpu_ids", "0", "--how_many", "4"]
-    kenc.encode.launches = 0
-    kin.instance_norm.launches = 0
+            "--gpu_ids", GPU_IDS, "--how_many", "4", *ARCH_ARGV]
+    zero_launches()
     t = time.time()
     with mock.patch.object(Pix2PixHDModel, "inference", checked_inference), \
             mock.patch.object(mask2image_test, "create_model", create_and_hook):
         mask2image_test.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = {"encode": kenc.encode.launches, "instance_norm": kin.instance_norm.launches}
+    launches = read_launches()
     for h in hooks:
         h.remove()
     web = os.path.join(tmp, "results", "smoke", "test_latest")
@@ -301,8 +986,9 @@ def phase_serving(tmp, results):
         raise AssertionError(f"gallery incomplete: {rows} rows, files {synth}")
     if len(outputs) != 4 or not all(f for _, f in outputs):
         raise AssertionError(f"non-finite or missing outputs: {outputs}")
-    if launches["encode"] < 1 or launches["instance_norm"] != per_forward[0] * len(outputs):
-        raise AssertionError(f"launch counts off the serving path: {launches}")
+    expect_launches(launches, dict(
+        {k: 0 for k in launches}, encode=len(outputs),
+        instance_norm=per_forward[0] * len(outputs)), "serving CLI")
     if len(sites) != per_forward[0]:
         raise AssertionError(f"expected {per_forward[0]} IN sites per forward, saw {len(sites)}")
     if sites != generator_sites(*outputs[0][0][:3], **arch):
@@ -317,7 +1003,12 @@ def phase_serving(tmp, results):
 def plain_path():
     """Route the model through the plain versions (comparison only)."""
     with mock.patch.object(kenc, "encode", kenc.encode_plain), \
-            mock.patch.object(kin, "instance_norm", kin.instance_norm_plain):
+            mock.patch.object(kenc, "encode_cond", kenc.encode_cond_plain), \
+            mock.patch.object(kin, "instance_norm", kin.instance_norm_plain), \
+            mock.patch.object(kin, "instance_norm_act", kin.instance_norm_act_plain), \
+            mock.patch.object(klosses, "mse_to_scalar", klosses.mse_to_scalar_plain), \
+            mock.patch.object(klosses, "l1_to_scalar", klosses.l1_to_scalar_plain), \
+            mock.patch.object(krp, "reflect_pad", krp.reflect_pad_plain):
         yield
 
 
@@ -425,7 +1116,7 @@ def phase_main_path_kernels(dev, sites, out_shape, results):
 
 
 def phase_model(dev, results):
-    opt = MaskToImageTestOptions(gpu_ids="0")
+    opt = MaskToImageTestOptions(gpu_ids=GPU_IDS, **ARCH)
     model = create_model(opt)
     nparams = sum(p.numel() for p in model.netG.parameters())
     log(f"[model] GlobalGenerator params {nparams}, precision {model.conv_precision_resolved}")
@@ -471,7 +1162,7 @@ def phase_model(dev, results):
     log(f"[model] {rows[-1]}")
     del model
     # --norm batch: the unpadded (pad 0) encode mode, BASELINE config 1 size
-    mb = create_model(MaskToImageTestOptions(gpu_ids="0", norm="batch"))
+    mb = create_model(MaskToImageTestOptions(gpu_ids=GPU_IDS, norm="batch", **ARCH))
     batch = encode_inputs(1, 128, 256, dev, seed=6)
     before = kenc.encode.launches
     out = mb.inference(batch)
@@ -480,7 +1171,8 @@ def phase_model(dev, results):
         ref = mb.inference(batch)
     torch.cuda.synchronize()
     diff = (out - ref).abs().max().item()
-    if launched != 1 or not torch.isfinite(out).all() or diff > MODEL_ATOL:
+    expect_launches(launched, 1, "--norm batch forward, encode")
+    if not torch.isfinite(out).all() or diff > MODEL_ATOL:
         raise AssertionError(f"--norm batch forward: diff {diff}")
     log(f"[model] --norm batch 256x128: out {tuple(out.shape)}, max|diff| vs plain {diff}")
     results["model"] = rows
@@ -491,7 +1183,7 @@ def phase_profile(dev, results):
     """Device time by kernel name over one bs-1 512x256 forward."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = create_model(MaskToImageTestOptions(gpu_ids="0"))
+    model = create_model(MaskToImageTestOptions(gpu_ids=GPU_IDS, **ARCH))
     batch = encode_inputs(1, 256, 512, dev, seed=7)
     for _ in range(2):
         model.inference(batch)
@@ -519,15 +1211,26 @@ def main(argv=None):
     t0 = time.time()
     phase_build()
     phase_kernels(dev, results)
+    phase_train_kernels(dev, results)
     with tempfile.TemporaryDirectory() as tmp:
         sites, out_shape = phase_serving(tmp, results)
+        cli_launches, cli_calls = phase_train_cli(tmp, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
+    for row in kernels:
+        row["launches_by_path"] = {"serving": row["launches"], "train": cli_launches[row["name"]]}
     phase_forward_sites(dev, results)
     phase_model(dev, results)
+    step_calls = phase_train_step(dev, results)
+    kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, results)
     if args.profile:
         phase_profile(dev, results)
+        phase_profile_train(dev, results)
     results["kernels"] = kernels
+    results["not_ported"] = {"conv3x3_in_act": conv_in_bound()}
+    log(f"[not ported] conv3x3_in_act, {JAX_PKG}/ops/pallas/conv_in.py:127, reckoned: "
+        f"{results['not_ported']['conv3x3_in_act']}")
     results["seconds"] = time.time() - t0
+    log(f"[done] {results['seconds']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,10 +1,13 @@
 """himan in PyTorch and CUDA for NVIDIA Hopper (H100).
 
 A port of ``neurips18_hierchical_image_manipulation_tpu`` (the JAX
-package, which stays the reference). This slice serves the mask2image
-stage: ``cli/mask2image_test.py`` -> ``models/pix2pixhd.py``
+package, which stays the reference). It covers the mask2image stage:
+serving, ``cli/mask2image_test.py`` -> ``models/pix2pixhd.py``
 (``encode_input`` + ``inference``) -> ``models/networks.py``
-(``GlobalGenerator``).
+(``GlobalGenerator``); and training, ``cli/mask2image_train.py`` ->
+``train/loop.py`` -> ``train/steps.make_train_step`` ->
+``Pix2PixHDModel.losses`` (GlobalGenerator, ``MultiscaleDiscriminator``,
+``Vgg19Features``, the ``losses/`` package) with Adam (``train/state.py``).
 
 Layout: public functions take and return NHWC tensors like the JAX
 package; convolutions run on the channels_last NCHW view of the same

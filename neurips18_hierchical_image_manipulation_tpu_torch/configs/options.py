@@ -114,6 +114,90 @@ class BaseOptions:
 
 
 @dataclass
+class TrainOptions(BaseOptions):
+    # frequencies
+    display_freq: int = 100  # HTML visuals: not ported yet (noted at start)
+    print_freq: int = 100
+    save_latest_freq: int = 1000
+    save_epoch_freq: int = 10
+    no_html: bool = False
+    debug: bool = False
+
+    # resume
+    continue_train: bool = False
+    load_pretrain: str = ""
+    which_epoch: str = "latest"
+    phase: str = "train"
+
+    # schedule: constant lr for niter epochs, then linear decay
+    niter: int = 100
+    niter_decay: int = 100
+    beta1: float = 0.5
+    lr: float = 0.0002
+
+    profile_dir: str = ""
+
+    # losses
+    lambda_feat: float = 10.0
+    no_ganFeat_loss: bool = False
+    no_vgg_loss: bool = False
+    no_lsgan: bool = False
+
+    # discriminators
+    num_D: int = 2
+    n_layers_D: int = 3
+    ndf: int = 64
+    pool_size: int = 0
+
+    def __post_init__(self):
+        self.isTrain = True
+
+
+# training flags whose path is not ported yet: (flag, is it set?, where it
+# is queued in ROADMAP.md)
+_TRAIN_NOT_PORTED = (
+    ("--dtype bfloat16 (or --data_type 16)", lambda o: o.dtype != "float32",
+     "the bf16 training tier, slice 3"),
+    ("--pool_size > 0", lambda o: o.pool_size > 0, "the image pool, slice 3"),
+    ("--continue_train", lambda o: o.continue_train,
+     "optimizer-state checkpoints and resume, slice 3"),
+    ("--load_pretrain", lambda o: bool(o.load_pretrain), "the 1024p hand-off, slice 6"),
+    ("--mesh_devices > 1", lambda o: o.mesh_devices > 1, "data parallel, slice 8"),
+    ("--device_resident_data", lambda o: o.device_resident_data,
+     "device-resident data, slice 9"),
+    ("--device_prefetch > 0", lambda o: o.device_prefetch > 0, "prefetch, slice 9"),
+    ("--use_dropout", lambda o: o.use_dropout, "dropout in training, slice 3"),
+    ("--remat / --remat_policy", lambda o: o.remat or o.remat_policy != "none",
+     "recomputation, slice 11 (tooling)"),
+    ("--debug_nans", lambda o: o.debug_nans, "tooling, slice 11"),
+    ("--profile_dir", lambda o: bool(o.profile_dir), "torch.profiler tooling, slice 11"),
+    ("--tf_log", lambda o: o.tf_log, "the training visuals, slice 3"),
+)
+
+
+def check_train_options(opt) -> None:
+    """Refuse every training flag whose path is not ported yet, naming the
+    slice that brings it, rather than ignoring it."""
+    for flag, is_set, where in _TRAIN_NOT_PORTED:
+        if is_set(opt):
+            raise NotImplementedError(f"{flag} is not ported yet: it waits for {where}")
+
+
+@dataclass
+class MaskToImageTrainOptions(TrainOptions):
+    """mask2image: pix2pixHD conditioned on the box-masked RGB as well, so
+    the generator inpaints the box region; trained on bbox context
+    windows."""
+
+    model: str = "pix2pixHD"
+    use_masked_image: bool = True
+    use_bbox_dataset: bool = True
+    contextMargin: float = 2.0
+    min_box_size: int = 16
+    max_box_size: int = 10_000
+
+
+@dataclass
 class TestOptions(BaseOptions):
     ntest: int = 2**31 - 1
     results_dir: str = "./results/"

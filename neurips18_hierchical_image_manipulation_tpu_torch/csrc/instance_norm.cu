@@ -34,6 +34,25 @@
 // taken over a long run of values in fp32 (it cancels catastrophically
 // when |mean| >> std).
 //
+// Backward (himan_instance_norm_bwd), replacing ops/pallas/instance_norm.py
+// _run_bwd / _bwd_kernel. From the saved x, y, mean and rstd and the
+// cotangent g of y:
+//   gm = g * act'(y)     relu: y > 0 ? 1 : 0   lrelu: y >= 0 ? 1 : 0.2
+//   dx = (gm - mean(gm) - xhat * mean(gm * xhat)) * rstd,  xhat = (x-mean)*rstd
+// and, where a residual was added before the activation, dres = gm.
+// Bound: bytes (x, y, g read once, dx written once; the statistics pass
+// reads x, y, g a second time, which the bound does not count). Same
+// three-launch structure as the forward, with plain fp32 sums in place of
+// Welford (these are means of products, not a variance):
+//   launch 1  grid (split, channel tile, n): per (n, split, c) partial
+//             sums of gm and gm * xhat, each thread over its rows in a
+//             fixed order, the 8 row lanes summed in a fixed order;
+//   launch 2  one warp per (n, c): the S partials, lanes then a shuffle
+//             tree (fixed order), over HW -> mean(gm), mean(gm * xhat);
+//   launch 3  elementwise dx (and dres).
+// No atomics anywhere, so the result is the same bits on every run. Any
+// HW is taken: the D sites are odd (65x129, 33x65, 17x33, ...).
+//
 // Limits, checked by the wrapper: N <= 65535 (grid.z, grid.y) and
 // HW * C < 2^30 (32-bit index within one sample).
 
@@ -217,7 +236,155 @@ int launch(const void* x, const void* res, void* y, float* mean, float* rstd,
   return (int)cudaGetLastError();
 }
 
+// d act(v) / dv from the activation's output y = act(v)
+template <typename T>
+__device__ __forceinline__ float masked_grad(float g, const T* y, int64_t o,
+                                             int act) {
+  if (act == 1) return to_f<T>(y[o]) > 0.0f ? g : 0.0f;
+  if (act == 2) return to_f<T>(y[o]) >= 0.0f ? g : 0.2f * g;
+  return g;
+}
+
+template <typename T>
+__global__ void in_bwd_partial_kernel(const T* __restrict__ x,
+                                      const T* __restrict__ y,
+                                      const T* __restrict__ g,
+                                      const float* __restrict__ mean,
+                                      const float* __restrict__ rstd,
+                                      float* __restrict__ part, int HW, int C,
+                                      int S, int chunk, int act) {
+  const int s = blockIdx.x, n = blockIdx.z;
+  const int c = blockIdx.y * kTile + threadIdx.x;
+  const int hw0 = s * chunk;
+  const int hw1 = min(hw0 + chunk, HW);
+  float sg = 0.0f, sgx = 0.0f;
+  if (c < C) {
+    const float mu = mean[n * C + c], rs = rstd[n * C + c];
+    const int64_t base = (int64_t)n * HW * C + c;
+    for (int hw = hw0 + threadIdx.y; hw < hw1; hw += kRows) {
+      const int64_t o = base + (int64_t)hw * C;
+      const float gm = masked_grad<T>(to_f<T>(g[o]), y, o, act);
+      sg += gm;
+      sgx += gm * ((to_f<T>(x[o]) - mu) * rs);
+    }
+  }
+  __shared__ float ss[kRows][kTile], sx[kRows][kTile];
+  ss[threadIdx.y][threadIdx.x] = sg;
+  sx[threadIdx.y][threadIdx.x] = sgx;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < C) {
+#pragma unroll
+    for (int j = 1; j < kRows; ++j) {
+      sg += ss[j][threadIdx.x];
+      sgx += sx[j][threadIdx.x];
+    }
+    const int64_t o = ((int64_t)n * S + s) * C + c;
+    const int64_t plane = (int64_t)gridDim.z * S * C;
+    part[o] = sg;
+    part[plane + o] = sgx;
+  }
+}
+
+__global__ void in_bwd_finalize_kernel(const float* __restrict__ part,
+                                       float* __restrict__ mg_out,
+                                       float* __restrict__ mgx_out, int N,
+                                       int HW, int C, int S) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= N * C) return;  // whole warps exit together
+  const int n = warp / C, c = warp % C;
+  const int64_t plane = (int64_t)N * S * C;
+  float sg = 0.0f, sgx = 0.0f;
+  for (int s = lane; s < S; s += 32) {
+    const int64_t o = ((int64_t)n * S + s) * C + c;
+    sg += part[o];
+    sgx += part[plane + o];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sg += __shfl_down_sync(0xffffffffu, sg, off);
+    sgx += __shfl_down_sync(0xffffffffu, sgx, off);
+  }
+  if (lane == 0) {
+    mg_out[warp] = sg / (float)HW;
+    mgx_out[warp] = sgx / (float)HW;
+  }
+}
+
+// grid (tiles, n), one channel per thread as in in_normalize_kernel
+template <typename T>
+__global__ void in_bwd_dx_kernel(const T* __restrict__ x,
+                                 const T* __restrict__ y,
+                                 const T* __restrict__ g,
+                                 const float* __restrict__ mean,
+                                 const float* __restrict__ rstd,
+                                 const float* __restrict__ mg,
+                                 const float* __restrict__ mgx,
+                                 T* __restrict__ dx, T* __restrict__ dres,
+                                 int hwc, int C, int act) {
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int nc = blockIdx.y * C + i0 % C;
+  const float mu = mean[nc], rs = rstd[nc], a = mg[nc], b = mgx[nc];
+  const int64_t base = (int64_t)blockIdx.y * hwc;
+  for (int i = i0; i < hwc; i += stride) {
+    const int64_t o = base + i;
+    const float gm = masked_grad<T>(to_f<T>(g[o]), y, o, act);
+    const float xh = (to_f<T>(x[o]) - mu) * rs;
+    dx[o] = from_f<T>((gm - a - xh * b) * rs);
+    if (dres != nullptr) dres[o] = from_f<T>(gm);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* y, const void* g, const float* mean,
+               const float* rstd, void* dx, void* dres, float* ws, int N,
+               int HW, int C, int S, int chunk, int act, cudaStream_t s) {
+  float* mg = ws;
+  float* mgx = ws + N * C;
+  float* part = ws + 2 * N * C;
+  const dim3 block(kTile, kRows);
+  const dim3 grid1(S, (C + kTile - 1) / kTile, N);
+  in_bwd_partial_kernel<T><<<grid1, block, 0, s>>>(
+      (const T*)x, (const T*)y, (const T*)g, mean, rstd, part, HW, C, S,
+      chunk, act);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int warps = N * C;
+  in_bwd_finalize_kernel<<<(warps + 7) / 8, 256, 0, s>>>(part, mg, mgx, N, HW,
+                                                         C, S);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const int hwc = HW * C;
+  const int gq = C / gcd(C, 256);
+  int tiles = (132 * 16 + N - 1) / N;
+  if (tiles > (hwc + 255) / 256) tiles = (hwc + 255) / 256;
+  tiles = (tiles + gq - 1) / gq * gq;
+  in_bwd_dx_kernel<T><<<dim3(tiles, N), 256, 0, s>>>(
+      (const T*)x, (const T*)y, (const T*)g, mean, rstd, mg, mgx, (T*)dx,
+      (T*)dres, hwc, C, act);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Backward. x, y (nullable when act is 0), g, dx, dres (nullable): NHWC
+// contiguous (N, HW, C) in fp32 or bf16; mean, rstd: the forward's fp32
+// (N, C); ws: fp32 workspace of 2 * N * C + 2 * N * S * C.
+extern "C" int himan_instance_norm_bwd(const void* x, const void* y,
+                                       const void* g, const void* mean,
+                                       const void* rstd, void* dx, void* dres,
+                                       void* ws, int N, int HW, int C, int S,
+                                       int chunk, int act, int is_bf16,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_bwd<__nv_bfloat16>(x, y, g, (const float*)mean,
+                                     (const float*)rstd, dx, dres, (float*)ws,
+                                     N, HW, C, S, chunk, act, s);
+  return launch_bwd<float>(x, y, g, (const float*)mean, (const float*)rstd, dx,
+                           dres, (float*)ws, N, HW, C, S, chunk, act, s);
+}
 
 // x, res (nullable), y: NHWC contiguous (N, HW, C) in fp32 or bf16.
 // mean, rstd: fp32 (N, C). part: fp32 workspace of 3 * N * S * C.

@@ -13,6 +13,11 @@ stages a tile of pixels' ids, edges and masked RGB in shared memory, then
 writes the tile's outputs with fully coalesced stores, the dominant
 traffic; see the source for the numbers.
 
+``encode_cond`` is the no-image mode, ``encode_cond`` / ``_expand_kernel``
+of the JAX package: the discriminator's conditioning (one-hot ⊕ edge) of
+the train step. Its launches count on ``encode_cond.launches``, the RGB
+modes' on ``encode.launches``.
+
 ``encode`` takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors (or raises). No gradient flows through it.
 """
@@ -107,11 +112,28 @@ def encode(label, inst: Optional[torch.Tensor], image: Optional[torch.Tensor],
         int(out_dtype == torch.bfloat16), _build.stream_for(label.device),
     )
     _build.check(err, "himan_encode")
-    encode.launches += 1
+    if image is None:
+        encode_cond.launches += 1
+    else:
+        encode.launches += 1
     return out
 
 
 encode.launches = 0
+
+
+def encode_cond_plain(label, inst: Optional[torch.Tensor], nc: int, dtype=torch.float32):
+    """Plain PyTorch version of ``encode_cond``."""
+    return encode_plain(label, inst, None, None, nc, 0, dtype)
+
+
+def encode_cond(label, inst: Optional[torch.Tensor], nc: int, dtype=torch.float32):
+    """(B,H,W) int32 label [+ inst] -> (B,H,W,nc [+1]) one-hot ⊕ edge in
+    ``dtype``: the discriminator's conditioning."""
+    return encode(label, inst, None, None, nc, 0, dtype)
+
+
+encode_cond.launches = 0
 
 
 def _lib():

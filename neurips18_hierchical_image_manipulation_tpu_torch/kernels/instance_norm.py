@@ -14,10 +14,21 @@ partials), merges them with Chan's formula, then normalizes elementwise —
 see the source. ``_splits`` picks the split so the first launch fills the
 card about once.
 
+Backward: ``instance_norm_bwd`` replaces ``_run_bwd`` / ``_bwd_kernel``
+of the same file: dx = (gm - mean(gm) - x̂·mean(gm·x̂))·rstd with gm the
+cotangent after the activation's mask (relu y > 0; lrelu 1 where y >= 0,
+else 0.2, as ``nnops.leaky_relu``'s ``where(x >= 0, ...)``), and the
+residual's gradient gm itself. fp32 sums per HW split, merged per (n, c),
+no atomics (deterministic). ``instance_norm_act`` is the differentiable
+entry point: an ``autograd.Function`` whose forward is the forward kernel
+and whose backward is this one; ``instance_norm_act_plain`` is plain
+autograd through the plain version.
+
 The JAX package gates its IN kernel off (``ops/pallas/config.py``
 ``_IN_KERNEL = False``); that was a TPU measurement and does not carry
-over: on the card every IN site of the generator goes through this
-kernel. A CPU tensor takes the plain version.
+over: on the card every IN site of the generator and the discriminator
+goes through these kernels, forward and backward. A CPU tensor takes the
+plain versions.
 """
 
 from __future__ import annotations
@@ -103,6 +114,108 @@ def instance_norm(x, act: str = "none", residual: Optional[torch.Tensor] = None,
 instance_norm.launches = 0
 
 
+def _mask(g, y, act):
+    """The cotangent of the activation's input, from its output y."""
+    if act == "relu":
+        return torch.where(y > 0, g, torch.zeros_like(g))
+    if act == "lrelu":
+        return torch.where(y >= 0, g, g * 0.2)
+    return g
+
+
+def instance_norm_bwd_plain(x, y, g, mean, rstd, act="none", want_dres=False):
+    """Plain PyTorch version of the backward kernel, the same fp32 closed
+    form: -> (dx, dres or None) in x's dtype."""
+    n, _, _, c = x.shape
+    gm = _mask(g.to(torch.float32), y.to(torch.float32) if y is not None else None, act)
+    mu, rs = mean.reshape(n, 1, 1, c), rstd.reshape(n, 1, 1, c)
+    xh = (x.to(torch.float32) - mu) * rs
+    mg = gm.mean(dim=(1, 2), keepdim=True)
+    mgx = (gm * xh).mean(dim=(1, 2), keepdim=True)
+    dx = ((gm - mg - xh * mgx) * rs).to(x.dtype)
+    return dx, (gm.to(x.dtype) if want_dres else None)
+
+
+def instance_norm_bwd(x, y, g, mean, rstd, act: str = "none", want_dres: bool = False):
+    """Backward of ``instance_norm``: x, y (its output; unused and may be
+    None for act 'none'), g (the cotangent of y), mean, rstd (its fp32
+    (N, C) statistics) -> (dx, dres): dres, the residual's gradient, only
+    when ``want_dres``."""
+    _check(x, act, None)
+    n, h, w, c = x.shape
+    for name, t in (("g", g), ("y", y)):
+        if t is None and name == "y" and act == "none":
+            continue
+        if t is None or t.shape != x.shape or t.dtype != x.dtype or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must match x in shape, dtype, device and layout")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n, c) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 (N, C)")
+    if x.device.type == "cpu":
+        return instance_norm_bwd_plain(x, y, g, mean, rstd, act, want_dres)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if n > 65535 or h * w * c >= 2**30:
+        raise ValueError(f"instance_norm grid limits: N {n} <= 65535, H*W*C {h * w * c} < 2^30")
+    lib = _lib()
+    s, chunk = _splits(n, h * w, c)
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(x) if want_dres else None
+    ws = torch.empty(2 * n * c + 2 * n * s * c, dtype=torch.float32, device=x.device)
+    err = lib.himan_instance_norm_bwd(
+        x.data_ptr(), y.data_ptr() if act != "none" else None, g.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        dres.data_ptr() if want_dres else None, ws.data_ptr(),
+        n, h * w, c, s, chunk, ACTS[act], int(x.dtype == torch.bfloat16),
+        _build.stream_for(x.device),
+    )
+    _build.check(err, "himan_instance_norm_bwd")
+    instance_norm_bwd.launches += 1
+    return dx, dres
+
+
+instance_norm_bwd.launches = 0
+
+
+class _InstanceNormAct(torch.autograd.Function):
+    """Forward: the forward kernel. Backward: the backward kernel. The
+    residual's gradient is the masked cotangent (g itself for act 'none')."""
+
+    @staticmethod
+    def forward(ctx, x, residual, act):
+        y, mean, rstd = instance_norm(x, act, residual)
+        ctx.act, ctx.has_res = act, residual is not None
+        ctx.save_for_backward(x, y, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, mean, rstd = ctx.saved_tensors
+        act, need_x = ctx.act, ctx.needs_input_grad[0]
+        need_res = ctx.has_res and ctx.needs_input_grad[1]
+        g = g.contiguous()
+        if not need_x:
+            return None, (_mask(g, y, act) if need_res else None), None
+        dx, dres = instance_norm_bwd(
+            x, y, g, mean, rstd, act, want_dres=need_res and act != "none"
+        )
+        if need_res and act == "none":
+            dres = g
+        return dx, dres, None
+
+
+def instance_norm_act(x, act: str = "none", residual: Optional[torch.Tensor] = None):
+    """Differentiable ``act(IN(x) + residual)`` through the kernels (the
+    plain versions for CPU tensors)."""
+    return _InstanceNormAct.apply(x, residual, act)
+
+
+def instance_norm_act_plain(x, act: str = "none", residual: Optional[torch.Tensor] = None):
+    """Plain PyTorch version: autograd through ``instance_norm_plain``."""
+    return instance_norm_plain(x, act, residual)[0]
+
+
 def _lib():
     lib = _build.load("instance_norm")
     fn = lib.himan_instance_norm_fwd
@@ -110,4 +223,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = i
+        bwd = lib.himan_instance_norm_bwd
+        bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        bwd.restype = i
     return lib

@@ -1,10 +1,12 @@
-"""Generator modules — PyTorch counterparts of ``models/networks.py`` in the
-JAX package (pix2pixHD GlobalGenerator lineage), NHWC activations.
+"""Networks — PyTorch counterparts of ``models/networks.py`` in the JAX
+package (pix2pixHD lineage): the GlobalGenerator, the multiscale PatchGAN
+discriminator and the VGG19 feature taps, NHWC activations.
 
 Module and parameter names follow the JAX param tree (``conv_in``,
-``down{i}``, ``res{i}.conv1|conv2``, ``up{i}``, ``conv_out``, and the batch
-norm ``norm*`` modules), so ``utils/checkpoint.py`` maps a JAX npz sidecar
-onto ``state_dict`` keys one to one.
+``down{i}``, ``res{i}.conv1|conv2``, ``up{i}``, ``conv_out``, the batch
+norm ``norm*`` modules; ``scale{i}.layer{n}`` for D; ``conv{b}_{c}`` for
+VGG), so ``utils/checkpoint.py`` maps a JAX npz sidecar onto
+``state_dict`` keys one to one.
 
 Init follows the reference's ``weights_init``: conv weights ~ N(0, 0.02),
 biases zero, batch-norm weight ~ N(1, 0.02), bias zero, drawn from an
@@ -41,11 +43,28 @@ class Conv(nn.Module):
         self.stride, self.padding = stride, padding
         self.reflect, self.dead_bias = reflect, dead_bias
 
-    def forward(self, x, padded: bool = False):
-        """``padded``: x already carries the reflect pad (PaddedStemInput)."""
+    def forward(self, x, x2=None, padded: bool = False):
+        """``padded``: x already carries the reflect pad (PaddedStemInput).
+
+        ``x2``: the conv over the channel concat x ⊕ x2, as two partial
+        convs over one weight, ``conv(x, W[:, :cx]) + conv(x2, W[:, cx:])``
+        (the JAX ``Conv(...)(x, x2)``). When x2 stacks k times x's batch
+        (D's batched [real; fake] apply), x's partial conv runs once and is
+        tiled."""
+        b = None if self.dead_bias else self.bias
+        if x2 is not None:
+            if self.reflect:
+                raise ValueError("the split-input form takes no reflect pad")
+            cx = x.shape[-1]
+            y = nnops.conv2d(x, self.weight[:, :cx], b, stride=self.stride,
+                             padding=self.padding)
+            y2 = nnops.conv2d(x2, self.weight[:, cx:], None, stride=self.stride,
+                              padding=self.padding)
+            if y2.shape[0] != y.shape[0]:
+                y = y.repeat(y2.shape[0] // y.shape[0], 1, 1, 1)
+            return y + y2
         if self.reflect and not padded:
             x = nnops.reflect_pad(x, self.reflect)
-        b = None if self.dead_bias else self.bias
         return nnops.conv2d(x, self.weight, b, stride=self.stride, padding=self.padding)
 
 
@@ -65,10 +84,11 @@ class ConvTranspose(nn.Module):
 
 def norm_act(x, norm: str = "instance", act: str = "relu",
              residual: Optional[torch.Tensor] = None):
-    """Parameterless norm + act: IN goes through the fused kernel wrapper
-    (``kernels/instance_norm.py``), which adds ``residual`` before ``act``."""
+    """Parameterless norm + act: IN goes through the fused kernels
+    (``kernels/instance_norm.py``, forward and backward), which add
+    ``residual`` before ``act``."""
     if norm == "instance":
-        return kin.instance_norm(x, act, residual)[0]
+        return kin.instance_norm_act(x, act, residual)
     if norm != "none":
         raise ValueError(f"unsupported norm: {norm}")
     if residual is not None:
@@ -144,17 +164,7 @@ class GlobalGenerator(nn.Module):
         self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Reference ``weights_init`` from ``generator``, in registration
-        order: conv weights ~ N(0, 0.02), batch-norm weights ~ N(1, 0.02),
-        biases zero."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (Conv, ConvTranspose)):
-                    m.weight.normal_(0.0, 0.02, generator=generator)
-                    m.bias.zero_()
-                elif isinstance(m, NormAct) and m.norm == "batch":
-                    m.weight.normal_(1.0, 0.02, generator=generator)
-                    m.bias.zero_()
+        _reset_convs(self, generator)
 
     def forward(self, x):
         if isinstance(x, PaddedStemInput):
@@ -169,6 +179,137 @@ class GlobalGenerator(nn.Module):
         for i in range(self.n_downsampling):
             h = getattr(self, f"norm_up{i}")(getattr(self, f"up{i}")(h))
         return torch.tanh(self.conv_out(h))
+
+
+def _reset_convs(module: nn.Module, generator: torch.Generator) -> None:
+    """Reference ``weights_init``: conv weights ~ N(0, 0.02), batch-norm
+    weights ~ N(1, 0.02), biases zero, in registration order."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv, ConvTranspose)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, NormAct) and m.norm == "batch":
+                m.weight.normal_(1.0, 0.02, generator=generator)
+                m.bias.zero_()
+
+
+class NLayerDiscriminator(nn.Module):
+    """PatchGAN: Conv4x4 s2 -> LReLU 0.2, then (n_layers - 1) Conv4x4 s2 +
+    norm + LReLU doubling channels (cap 512), one Conv4x4 s1 + norm + LReLU,
+    and a Conv4x4 s1 -> 1 logit map (no sigmoid). Every conv pads 2 with
+    zeros (pix2pixHD's ceil((4-1)/2)). Under IN the convs before a norm
+    keep dead biases; ``layer0``'s and the last layer's are live.
+
+    ``forward(x, x2)`` returns every layer's output, logits last (or only
+    the logits when ``get_interm_feat`` is off); x ⊕ x2 is the input
+    (``Conv``'s split form: x the conditioning, x2 the image)."""
+
+    def __init__(self, input_nc, ndf=64, n_layers=3, norm="instance",
+                 get_interm_feat=True):
+        super().__init__()
+        self.n_layers, self.get_interm_feat = n_layers, get_interm_feat
+        db = norm == "instance"
+        self.layer0 = Conv(input_nc, ndf, 4, stride=2, padding=2)
+        nf = ndf
+        for n in range(1, n_layers):
+            prev, nf = nf, min(nf * 2, 512)
+            self.add_module(f"layer{n}", Conv(prev, nf, 4, stride=2, padding=2, dead_bias=db))
+            self.add_module(f"norm{n}", NormAct(nf, norm, "lrelu"))
+        prev, nf = nf, min(nf * 2, 512)
+        self.add_module(f"layer{n_layers}", Conv(prev, nf, 4, stride=1, padding=2, dead_bias=db))
+        self.add_module(f"norm{n_layers}", NormAct(nf, norm, "lrelu"))
+        self.add_module(f"layer{n_layers + 1}", Conv(nf, 1, 4, stride=1, padding=2))
+
+    def forward(self, x, x2=None):
+        h = nnops.leaky_relu(self.layer0(x, x2), 0.2)
+        feats = [h]
+        for n in range(1, self.n_layers + 1):
+            h = getattr(self, f"norm{n}")(getattr(self, f"layer{n}")(h))
+            feats.append(h)
+        h = getattr(self, f"layer{self.n_layers + 1}")(h)
+        feats.append(h)
+        return feats if self.get_interm_feat else [h]
+
+
+class MultiscaleDiscriminator(nn.Module):
+    """num_D PatchGANs (``scale{i}``) on an AvgPool(3, 2, 1,
+    count_include_pad=False) pyramid of x and x2. Output: a list over
+    scales (index 0 = full resolution) of per-layer feature lists."""
+
+    def __init__(self, input_nc, ndf=64, n_layers=3, num_D=2, norm="instance",
+                 get_interm_feat=True):
+        super().__init__()
+        self.num_D = num_D
+        for i in range(num_D):
+            self.add_module(
+                f"scale{i}",
+                NLayerDiscriminator(input_nc, ndf, n_layers, norm, get_interm_feat),
+            )
+
+    def forward(self, x, x2=None):
+        results = []
+        for i in range(self.num_D):
+            results.append(getattr(self, f"scale{i}")(x, x2))
+            if i != self.num_D - 1:
+                x = nnops.avg_pool_3x3s2(x)
+                if x2 is not None:
+                    x2 = nnops.avg_pool_3x3s2(x2)
+        return results
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+
+class Vgg19Features(nn.Module):
+    """VGG19 feature taps at relu1_1, relu2_1, relu3_1, relu4_1 and relu5_1
+    (torchvision feature indices 1, 6, 11, 20, 29), on [-1, 1] images as
+    the reference feeds them (no ImageNet normalization). The literal form
+    of the JAX package's parity tier; its space-to-depth block 1 was a TPU
+    layout and has no counterpart. conv5_2..conv5_4 are kept as parameters
+    (the checkpoint layout is unchanged) but not run: no tap reads them."""
+
+    CFG = ((64, 64), (128, 128), (256,) * 4, (512,) * 4, (512,) * 4)
+
+    def __init__(self):
+        super().__init__()
+        cin = 3
+        for b, widths in enumerate(self.CFG):
+            for c, width in enumerate(widths):
+                self.add_module(f"conv{b + 1}_{c + 1}", Conv(cin, width, 3, padding=1))
+                cin = width
+
+    def forward(self, x):
+        taps = []
+        h = x
+        for b, widths in enumerate(self.CFG):
+            if b > 0:
+                h = nnops.max_pool_2x2(h)
+            n_run = 1 if b == len(self.CFG) - 1 else len(widths)
+            for c in range(n_run):
+                h = nnops.relu(getattr(self, f"conv{b + 1}_{c + 1}")(h))
+                if c == 0:
+                    taps.append(h)
+        return taps
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+
+def define_D(opt, generator: torch.Generator) -> MultiscaleDiscriminator:
+    """``define_D``: D's input is the conditioning (one-hot ⊕ edge) ⊕ RGB,
+    initialized from ``generator``."""
+    cond_nc = opt.label_nc + (0 if opt.no_instance else 1)
+    d = MultiscaleDiscriminator(
+        cond_nc + opt.output_nc,
+        ndf=opt.ndf,
+        n_layers=opt.n_layers_D,
+        num_D=opt.num_D,
+        norm=opt.norm,
+        get_interm_feat=not opt.no_ganFeat_loss,
+    )
+    d.reset_parameters(generator)
+    return d
 
 
 def define_G(opt, input_nc: int, generator: torch.Generator) -> GlobalGenerator:

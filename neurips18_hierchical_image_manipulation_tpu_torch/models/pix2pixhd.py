@@ -1,6 +1,7 @@
 """mask2image model — PyTorch counterpart of ``models/pix2pixhd.py`` in the
-JAX package, serving half: ``generator_input_nc``, ``encode_input`` and
-``inference``. The training half (D, VGG, losses) waits for a later slice.
+JAX package: ``generator_input_nc``, ``encode_input`` and ``inference``
+(serving) and, when ``opt.isTrain``, the multiscale discriminator, VGG19
+and the GAN objective ``losses`` / ``d_losses`` (training).
 
 The generator is conditioned on the label one-hot, the instance edge
 plane and the box-masked RGB (the fork's change to pix2pixHD), all built
@@ -15,11 +16,13 @@ in one pass by the encode kernel (``kernels/encode.py``):
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
 
 from ..kernels import encode as kenc
+from ..losses import discriminator_loss, feature_matching_loss, gan_loss, vgg_loss
 from ..ops.nnops import PaddedStemInput
 from . import networks
 
@@ -38,7 +41,16 @@ class Pix2PixHDModel:
         self.device = torch.device(device)
         gen = torch.Generator().manual_seed(int(opt.seed))
         self.netG = networks.define_G(opt, self.generator_input_nc(), gen)
-        self.netG.to(self.device).eval()
+        self.netG.to(self.device).train(opt.isTrain)
+        self.netD = self.vgg = None
+        if opt.isTrain:
+            self.netD = networks.define_D(opt, gen).to(self.device)
+            if not opt.no_vgg_loss:
+                # the perceptual loss's fixed feature extractor: never trained
+                self.vgg = networks.Vgg19Features()
+                self.vgg.reset_parameters(gen)
+                self.vgg.requires_grad_(False)
+                self.vgg.to(self.device)
 
     def generator_input_nc(self) -> int:
         nc = self.opt.label_nc
@@ -57,6 +69,10 @@ class Pix2PixHDModel:
         in [-1,1] float, or raw uint8 (--uint8_transfer), normalized here
         in the dtype the batch or the generator computes in; boxes (B,4).
         Returns the generator input: a NHWC tensor or a PaddedStemInput."""
+        return self._encode(batch, with_cond=False)[0]
+
+    def _encode(self, batch, with_cond: bool):
+        """-> (generator input, D conditioning or None, real image)."""
         batch = dict(batch)
         img = batch.get("image")
         if img is not None and img.dtype == torch.uint8:
@@ -79,13 +95,88 @@ class Pix2PixHDModel:
             image = batch["image"].contiguous()
             boxes = batch["boxes"].to(torch.float32).contiguous()
         h, w = label.shape[1:3]
+        nc = self.opt.label_nc
         if self._padded_stem(h, w):
-            return PaddedStemInput(
-                kenc.encode(label, inst, image, boxes, self.opt.label_nc, pad=3, dtype=dt)
-            )
-        return kenc.encode(label, inst, image, boxes, self.opt.label_nc, pad=0, dtype=dt)
+            g_input = PaddedStemInput(kenc.encode(label, inst, image, boxes, nc, pad=3, dtype=dt))
+        else:
+            g_input = kenc.encode(label, inst, image, boxes, nc, pad=0, dtype=dt)
+        # D's conditioning: one-hot ⊕ edge, no RGB (the JAX package's mode
+        # 2: D pools it for its coarser scale itself)
+        cond = kenc.encode_cond(label, inst, nc, dtype=dt) if with_cond else None
+        return g_input, cond, batch.get("image")
 
     @torch.inference_mode()
     def inference(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(B,H,W,3) NHWC generator output in [-1, 1]."""
         return self.netG(self.encode_input(batch))
+
+    # ---- training: the fused G + D objective ----
+
+    @contextlib.contextmanager
+    def _frozen_d(self):
+        """D's parameters take no gradient inside; its input still does."""
+        flags = [p.requires_grad for p in self.netD.parameters()]
+        self.netD.requires_grad_(False)
+        try:
+            yield
+        finally:
+            for p, f in zip(self.netD.parameters(), flags):
+                p.requires_grad_(f)
+
+    def _d_pair(self, cond, real, fake):
+        """One batched D apply over [real; fake] with live D parameters
+        (IN is per sample, so batching is exact; the conditioning's partial
+        conv runs once and is tiled) -> (D(real), D(fake))."""
+        d_rf = self.netD(cond, torch.cat([real, fake], 0))
+        nb = real.shape[0]
+        return [[f[:nb] for f in sc] for sc in d_rf], [[f[nb:] for f in sc] for sc in d_rf]
+
+    def losses(self, batch: Dict[str, torch.Tensor]):
+        """-> (total, metrics, fake). ``total.backward()`` gives both
+        gradients at the same (θG, θD), as the JAX package's one gradient
+        of its fused objective does: G's terms see D with its parameters
+        frozen but its input live; D's terms see one batched apply over
+        [real; fake.detach()] with live D parameters, whose D(real) the
+        feature-matching loss reuses, detached."""
+        opt = self.opt
+        g_input, cond, real = self._encode(batch, with_cond=True)
+        fake = self.netG(g_input)
+        use_lsgan = not opt.no_lsgan
+        with self._frozen_d():
+            d_fake_for_g = self.netD(cond, fake)
+        loss_g_gan = gan_loss(d_fake_for_g, True, use_lsgan)
+        d_real, d_fake = self._d_pair(cond, real, fake.detach())
+        loss_g_feat = 0.0
+        if not opt.no_ganFeat_loss:
+            loss_g_feat = feature_matching_loss(
+                d_fake_for_g, d_real, n_layers_D=opt.n_layers_D, num_D=opt.num_D,
+                lambda_feat=opt.lambda_feat,
+            )
+        loss_g_vgg = 0.0
+        if self.vgg is not None:
+            loss_g_vgg = opt.lambda_feat * vgg_loss(self.vgg, fake, real)
+        loss_d, loss_d_real, loss_d_fake = discriminator_loss(d_real, d_fake, use_lsgan)
+        total = loss_g_gan + loss_g_feat + loss_g_vgg + loss_d
+        metrics = {
+            "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat, "G_VGG": loss_g_vgg,
+            "D_real": loss_d_real, "D_fake": loss_d_fake,
+        }
+        return total, _detached(metrics, real.device), fake
+
+    def d_losses(self, batch: Dict[str, torch.Tensor], fake: torch.Tensor):
+        """D-only objective against a given (e.g. pool-replayed) fake ->
+        (loss_d, {D_real, D_fake})."""
+        _, cond, real = self._encode(batch, with_cond=True)
+        d_real, d_fake = self._d_pair(cond, real, fake.detach())
+        loss_d, loss_d_real, loss_d_fake = discriminator_loss(
+            d_real, d_fake, not self.opt.no_lsgan
+        )
+        return loss_d, _detached({"D_real": loss_d_real, "D_fake": loss_d_fake}, real.device)
+
+
+def _detached(metrics, device):
+    """Loss terms as detached fp32 0-dim tensors (a disabled term is 0)."""
+    return {
+        k: (v.detach() if torch.is_tensor(v) else torch.tensor(float(v), device=device))
+        for k, v in metrics.items()
+    }

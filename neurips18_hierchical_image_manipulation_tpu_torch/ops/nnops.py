@@ -1,7 +1,7 @@
 """NN primitives with the JAX package's semantics, NHWC activations.
 
 Counterpart of the subset of ``ops/nnops.py`` (JAX package) that the
-GlobalGenerator forward needs. Weights are in torch's layouts: conv
+GlobalGenerator, the multiscale discriminator and VGG19 need. Weights are in torch's layouts: conv
 (Cout, Cin, kh, kw), transposed conv (Cin, Cout, kh, kw). The JAX HWIO
 kernels map to them by ``transpose(3, 2, 0, 1)`` and ``transpose(2, 3, 0,
 1)`` (no spatial flip) — see ``utils/checkpoint.py``.
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import reflect_pad as _krp
 
 _EPS = 1e-5
 
@@ -46,8 +48,22 @@ def conv_transpose2d(x, w, b=None, *, stride=2, padding=1, output_padding=1):
 
 
 def reflect_pad(x, pad: int):
-    """torch.nn.ReflectionPad2d(pad) on NHWC (no edge repeat)."""
-    return _nhwc(F.pad(_nchw(x), (pad, pad, pad, pad), mode="reflect"))
+    """torch.nn.ReflectionPad2d(pad) on NHWC (no edge repeat); the backward
+    is the reflect-pad kernel (kernels/reflect_pad.py)."""
+    return _krp.reflect_pad(x, pad)
+
+
+def avg_pool_3x3s2(x):
+    """torch.nn.AvgPool2d(3, 2, 1, count_include_pad=False) on NHWC — the
+    multiscale discriminator's inter-scale downsampler."""
+    return _nhwc(F.avg_pool2d(_nchw(x), 3, 2, 1, count_include_pad=False))
+
+
+def max_pool_2x2(x):
+    """torch.nn.MaxPool2d(2, 2) on NHWC (VGG19); the backward routes a
+    tied window's gradient to its first maximum in scan order, as the JAX
+    package's does."""
+    return _nhwc(F.max_pool2d(_nchw(x), 2, 2))
 
 
 def instance_norm_stats(x, eps=_EPS):

@@ -13,7 +13,13 @@ param path joined with '/': ``G/params/conv_in/kernel``,
     (the JAX op flips at call time exactly as torch's does);
   * batch-norm scale -> weight; every bias -> bias.
 
-The generator's transposed convs are its ``up{i}`` modules.
+The generator's transposed convs are its ``up{i}`` modules. The same map
+serves the discriminator (``D/params/scale{i}/layer{n}/{kernel,bias}``,
+``norm{n}/{scale,bias}`` under batch norm) and VGG19
+(``VGG/params/conv{b}_{c}/{kernel,bias}``): ``state_dicts_from_jax`` turns
+one JAX ``{G, D, VGG}`` tree into the port's three ``state_dict``s.
+``save_params`` writes ``{label}_params.npz`` in the JAX sidecar layout
+(G and D, as the JAX package saves its train state's params).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 PREFIX = "G/params/"
+NETS = ("G", "D", "VGG")
 _UP = re.compile(r"^up\d+$")
 
 
@@ -61,6 +68,42 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], prefix: str = PREFIX) -> 
             leaf = "scale"
         out[prefix + "/".join(path + [leaf])] = np.ascontiguousarray(arr)
     return out
+
+
+def state_dicts_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Flat JAX npz dict of a ``{G, D, VGG}`` param tree -> ``{net:
+    state_dict}`` for each net present."""
+    out = {}
+    for net in NETS:
+        sd = params_from_jax(flat, f"{net}/params/")
+        if sd:
+            out[net] = sd
+    return out
+
+
+def state_dicts_to_jax(state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """Inverse of ``state_dicts_from_jax``."""
+    out = {}
+    for net, sd in state_dicts.items():
+        out.update(params_to_jax(sd, f"{net}/params/"))
+    return out
+
+
+def save_params(opt, label, model) -> str:
+    """Write ``{checkpoints_dir}/{name}/ckpt/{label}_params.npz``: the
+    model's G (and D, when training) in the JAX sidecar layout, which the
+    JAX package's ``load_params_npz`` and this package's ``restore_params``
+    read. Returns the path."""
+    ckpt = os.path.join(opt.checkpoints_dir, opt.name, "ckpt")
+    os.makedirs(ckpt, exist_ok=True)
+    nets = {"G": model.netG.state_dict()}
+    if getattr(model, "netD", None) is not None:
+        nets["D"] = model.netD.state_dict()
+    path = os.path.join(ckpt, f"{label}_params.npz")
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **state_dicts_to_jax(nets))
+    os.replace(tmp, path)
+    return path
 
 
 def restore_params(opt, model) -> bool:

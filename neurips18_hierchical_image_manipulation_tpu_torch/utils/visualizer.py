@@ -1,6 +1,7 @@
-"""Visualizer (pix2pixHD util/visualizer.py), test side: the run's
-``loss_log.txt`` header and ``save_images`` into an HTML gallery. The
-training displays wait for the training slice."""
+"""Visualizer (pix2pixHD util/visualizer.py): the run's ``loss_log.txt``,
+the console loss lines of training and ``save_images`` into an HTML
+gallery. The training HTML displays and TensorBoard scalars wait for a
+later slice."""
 
 from __future__ import annotations
 
@@ -20,6 +21,15 @@ class Visualizer:
         with open(self.log_name, "a") as f:
             now = time.strftime("%c")
             f.write(f"================ Training Loss ({now}) ================\n")
+
+    def print_current_errors(self, epoch, i, errors, t):
+        """One console line, also appended to loss_log.txt."""
+        message = f"(epoch: {epoch}, iters: {i}, time: {t:.3f}) "
+        for k, v in errors.items():
+            message += f"{k}: {float(v):.3f} "
+        print(message, flush=True)
+        with open(self.log_name, "a") as f:
+            f.write(message + "\n")
 
     def save_images(self, webpage, visuals, image_path):
         """visuals: dict name -> uint8 HWC image; one gallery row per call."""

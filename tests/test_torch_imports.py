@@ -45,7 +45,8 @@ def test_port_imports_no_jax(tmp_path):
 
 @pytest.mark.parametrize(
     "module",
-    ["chip_smoke", f"{PORT}.cli.mask2image_test", f"{PORT}.kernels.encode"],
+    ["chip_smoke", f"{PORT}.cli.mask2image_test", f"{PORT}.kernels.encode",
+     f"{PORT}.cli.mask2image_train", f"{PORT}.kernels.losses", f"{PORT}.kernels.reflect_pad"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

@@ -14,8 +14,13 @@ from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTestOptions,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import synthetic_batch
+from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
+    MaskToImageTrainOptions,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from torch_port_helpers import cuda_device, restore_torch_precision  # noqa: F401
 
@@ -121,3 +126,135 @@ def test_model_kernel_path_matches_plain(cuda_device, restore_torch_precision, m
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 1e-3
+
+
+def close_bf16_ok(got, want, dt):
+    """fp32: the same sums in another order; bf16: one rounding of nearly
+    equal fp32 values, at most one ulp apart."""
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=2.0**-7, rtol=2.0**-7)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["none", "relu", "lrelu"])
+@pytest.mark.parametrize("residual", [False, True])
+# a generator site, two odd discriminator sites, a tiny one
+@pytest.mark.parametrize("shape", [(1, 64, 128, 64), (2, 33, 65, 256), (1, 17, 33, 512),
+                                   (1, 5, 7, 48)])
+def test_in_backward_kernel_matches_plain(cuda_device, dt, act, residual, shape):
+    tdt = getattr(torch, dt)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(tdt)
+    r = torch.randn(shape, generator=g, device=cuda_device).to(tdt) if residual else None
+    gy = torch.randn(shape, generator=g, device=cuda_device).to(tdt)
+    y, mean, rstd = kin.instance_norm(x, act, r)
+    before = kin.instance_norm_bwd.launches
+    dx, dres = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, want_dres=residual)
+    assert kin.instance_norm_bwd.launches == before + 1
+    dxp, dresp = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, want_dres=residual)
+    torch.cuda.synchronize()
+    close_bf16_ok(dx, dxp, tdt)
+    if residual:
+        close_bf16_ok(dres, dresp, tdt)
+    again, _ = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, want_dres=residual)
+    assert torch.equal(again, dx)  # no atomics: the same bits every run
+
+
+def test_in_autograd_through_kernels_matches_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 16, 32, 128), generator=g, device=cuda_device, requires_grad=True)
+    r = torch.randn((2, 16, 32, 128), generator=g, device=cuda_device, requires_grad=True)
+    gy = torch.randn((2, 16, 32, 128), generator=g, device=cuda_device)
+    grads = []
+    for fn in (kin.instance_norm_act, kin.instance_norm_act_plain):
+        grads.append(torch.autograd.grad(fn(x, "relu", r), (x, r), gy))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pad", [((1, 16, 32, 1024), 1), ((1, 64, 128, 64), 3),
+                                       ((2, 2, 3, 8), 1), ((1, 4, 5, 16), 3)])
+def test_reflect_pad_backward_kernel_matches_plain(cuda_device, dt, shape, pad):
+    tdt = getattr(torch, dt)
+    n, h, w, c = shape
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    dy = torch.randn((n, h + 2 * pad, w + 2 * pad, c), generator=g, device=cuda_device).to(tdt)
+    before = krp.reflect_pad_bwd.launches
+    dx = krp.reflect_pad_bwd(dy, pad)
+    assert krp.reflect_pad_bwd.launches == before + 1
+    want = krp.reflect_pad_bwd_plain(dy, pad)
+    torch.cuda.synchronize()
+    close_bf16_ok(dx, want, tdt)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2345, 300_001, 8_388_608])
+def test_loss_kernels_match_plain(cuda_device, dt, n):
+    tdt = getattr(torch, dt)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    a = torch.randn(n, generator=g, device=cuda_device).to(tdt)
+    b = torch.randn(n, generator=g, device=cuda_device).to(tdt)
+    m0, l0 = klosses.mse_to_scalar.launches, klosses.l1_to_scalar.launches
+    mse = klosses.mse_to_scalar(a, 1.0)
+    l1 = klosses.l1_to_scalar(a, b)
+    assert (klosses.mse_to_scalar.launches, klosses.l1_to_scalar.launches) == (m0 + 1, l0 + 1)
+    torch.testing.assert_close(mse, klosses.mse_to_scalar_plain(a, 1.0), rtol=1e-5, atol=0)
+    torch.testing.assert_close(l1, klosses.l1_to_scalar_plain(a, b), rtol=1e-5, atol=0)
+    assert torch.equal(klosses.l1_to_scalar(a, b), l1)  # deterministic
+
+
+def test_loss_backward_on_card(cuda_device):
+    a = torch.randn(1000, device=cuda_device, requires_grad=True)
+    b = torch.randn(1000, device=cuda_device)
+    (klosses.mse_to_scalar(a, 0.0) + klosses.l1_to_scalar(a, b)).backward()
+    want = 2 * a.detach() / 1000 + torch.sign(a.detach() - b) / 1000
+    torch.testing.assert_close(a.grad, want)
+
+
+def test_encode_cond_counts_apart(cuda_device):
+    i = encode_inputs(cuda_device, nc=8)
+    e0, c0 = kenc.encode.launches, kenc.encode_cond.launches
+    got = kenc.encode_cond(i["label"], i["inst"], 8)
+    assert (kenc.encode.launches, kenc.encode_cond.launches) == (e0, c0 + 1)
+    torch.cuda.synchronize()
+    assert bits_equal(got, kenc.encode_cond_plain(i["label"], i["inst"], 8))
+
+
+def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precision, monkeypatch):
+    """A small G+D+VGG step: every training kernel launches, and the loss
+    terms and gradients agree with the plain path."""
+    opt = MaskToImageTrainOptions(gpu_ids="0", label_nc=8, ngf=16, ndf=16,
+                                  n_downsample_global=2, n_blocks_global=2)
+    model = create_model(opt)
+    batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=8, seed=6)
+    counters = [kin.instance_norm_bwd, klosses.mse_to_scalar, klosses.l1_to_scalar,
+                krp.reflect_pad_bwd, kenc.encode_cond]
+    before = [c.launches for c in counters]
+    total, metrics, _ = model.losses(batch)
+    total.backward()
+    # IN bwd: G 1 + 2*2 + 2*2 sites, D 2 applies x 2 scales x 3 sites;
+    # 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; 2*2 resblock pads + head
+    assert [c.launches - b for c, b in zip(counters, before)] == [9 + 12, 6, 13, 5, 1]
+    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
+    got = [p.grad.clone() if p.grad is not None else None for p in params]
+    for p in params:
+        p.grad = None
+    for mod, name, plain in ((kenc, "encode", kenc.encode_plain),
+                             (kenc, "encode_cond", kenc.encode_cond_plain),
+                             (kin, "instance_norm_act", kin.instance_norm_act_plain),
+                             (klosses, "mse_to_scalar", klosses.mse_to_scalar_plain),
+                             (klosses, "l1_to_scalar", klosses.l1_to_scalar_plain),
+                             (krp, "reflect_pad", krp.reflect_pad_plain)):
+        monkeypatch.setattr(mod, name, plain)
+    total_p, metrics_p, _ = model.losses(batch)
+    total_p.backward()
+    for k in metrics:
+        torch.testing.assert_close(metrics[k], metrics_p[k], rtol=1e-4, atol=0)
+    for a, p in zip(got, params):
+        if a is None:
+            assert p.grad is None
+            continue
+        assert (a - p.grad).abs().max() <= 1e-3 * p.grad.abs().max()
