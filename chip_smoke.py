@@ -3,7 +3,8 @@ CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
-Phases (any failure raises and the script exits non-zero):
+Phases, run in the order 1-4, 9, 5, 6, 10, 11, 7, 8, 12 (any failure raises
+and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source, all at once) and prints the -Xptxas -v register/smem
@@ -40,6 +41,24 @@ Phases (any failure raises and the script exits non-zero):
               images/s, peak memory, the plain path's ms/step; from the
               same parameters one step's loss terms and every G/D gradient
               leaf on the kernel path against the plain path
+  9. conv_in  the fused conv3x3 + IN kernel against its plain version, fp32
+              and bf16, at the generator bottleneck (1, 16, 32, 1024) with
+              and without residual and ReLU, an odd shape and the JAX test
+              shape; the same bits on a second run; its autograd gradient
+              against the plain one; times beside the bound, the plain
+              version and the library composition (reflect pad, cuDNN conv,
+              F.instance_norm: no single PyTorch call computes it)
+ 10. train CLI bf16  (main path 3) the train CLI at full width under --dtype
+              bfloat16 --pool_size 50 --display_freq 4 for one epoch, then
+              --continue_train from its latest for a second; counters zeroed
+              before and read after each run and held to the per-step counts
+              of the pooled step; web/index.html, iter.txt
+ 11. roofline (main path 4) the port's resblock roofline tool at bs 32
+              (tools/roofline_resblock.py, few iterations): counters zeroed
+              before and read after; the fused kernel must have launched
+ 12. step bf16  make_train_step in the bf16 tier at 512x256, bs 1 and 4:
+              ms/step, images/s, peak memory, per-step launches of every
+              kernel
 With --profile: torch.profiler tables of one serving forward and of train
 steps at 512x256 bs 1.
 The last two lines of standard output are the kernels' JSON summary and
@@ -51,6 +70,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,6 +92,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import synthetic_batch
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import _build
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
@@ -79,6 +100,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pa
 from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from neurips18_hierchical_image_manipulation_tpu_torch.models.pix2pixhd import Pix2PixHDModel
+from neurips18_hierchical_image_manipulation_tpu_torch.tools import roofline_resblock
 from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
 from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import make_train_step
 from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import restore_params
@@ -88,7 +110,7 @@ PKG = "neurips18_hierchical_image_manipulation_tpu_torch"
 JAX_PKG = "neurips18_hierchical_image_manipulation_tpu"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # kernel vs plain version on the card
 IN_FP32_ATOL = 1e-4         # Welford/Chan vs two-pass fp32 statistics
 IN_BF16_RTOL = 2.0**-7      # one bf16 rounding of the same fp32 value may
@@ -106,6 +128,18 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_TOL = 1e-4        # one backward kernel swapped for its plain version,
                             # of each gradient leaf's max |g| (measured <= 1e-5)
 STEP_SENS_FACTOR = 2.0      # the whole path, against the 1-ulp sensitivity
+# conv3x3_in_act vs its plain version: fp32, the same conv and two-pass
+# statistics summed in another order (the JAX Pallas test's tolerance);
+# bf16, two ulps of max(|y|, 1) against the plain version on the fp32 values
+# of the same bf16 inputs (the plain version in bf16 rounds the pre-norm
+# conv to bf16 before the statistics, which the kernel never does)
+CONV_IN_ATOL, CONV_IN_RTOL = 3e-5, 1e-4
+CONV_IN_BF16_ULPS = 2
+# (N, H, W, Cin, Cout): the bottleneck, an odd shape, the JAX test shape,
+# channel counts that are not multiples of 8 (the kernel's scalar loads)
+CONV_IN_SHAPES = [(1, 16, 32, 1024, 1024), (2, 9, 17, 96, 40), (2, 8, 16, 128, 128),
+                  (1, 5, 7, 12, 20)]
+ROOFLINE_ARGV = ["--batch", "32", "--iters", "5", "--warmup", "2"]
 SHAPES_512x256 = [(256, 512, 64), (128, 256, 128), (64, 128, 256), (32, 64, 512),
                   (16, 32, 1024)]
 # the IN sites of one D apply at 512x256 (scale 0, then scale 1)
@@ -181,8 +215,8 @@ def in_bytes(n, hw, c, itemsize, residual):
     return elems * itemsize * (2 + int(residual)) + 2 * n * c * 4, 8 * elems
 
 
-def bound(bytes_, ops):
-    tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(bytes_, ops, ops_per_s=FP32_OPS_PER_S):
+    tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -210,18 +244,15 @@ def cond_bytes(b, h, w, width, itemsize):
     return b * h * w * (8 + width * itemsize), b * h * w * width
 
 
-def conv_in_bound(n=1, h=16, w=32, c=1024, sites=18):
-    """Row 8 of the kernel table, not ported: the reckoned bound of
-    conv3x3_in_act (reflect-pad-1 3x3 conv + IN + residual/ReLU, one write)
-    over the resblock convs of one 512x256 forward, in fp32 and in TF32."""
-    elems = n * h * w * c
-    nbytes = sites * 4 * (3 * elems + 9 * c * c)   # x, residual, y; the weights
-    flops = sites * 2 * elems * 9 * c
-    return dict(sites=sites, shape=[n, h, w, c], bytes=nbytes, flops=flops,
-                bound_ms_fp32=max(nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S) * 1e3,
-                bound_ms_tf32=max(nbytes / HBM_BYTES_PER_S, flops / TF32_OPS_PER_S) * 1e3,
-                bound_by="operations" if flops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S
-                else "bytes")
+def conv_in_bound(shape, dtype, residual):
+    """x, w, b (fp32), the residual read once and y written once; the
+    conv's multiply-adds at the dtype's peak (bf16 tensor cores, fp32
+    outside them)."""
+    n, h, w, cin, cout = shape
+    item = 2 if dtype == torch.bfloat16 else 4
+    nbytes = item * (n * h * w * (cin + cout * (1 + int(residual))) + 9 * cin * cout) + 4 * cout
+    ops = 2 * n * h * w * 9 * cin * cout
+    return bound(nbytes, ops, BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S)
 
 
 def counters():
@@ -230,7 +261,7 @@ def counters():
         "encode": kenc.encode, "encode_cond": kenc.encode_cond,
         "instance_norm": kin.instance_norm, "instance_norm_bwd": kin.instance_norm_bwd,
         "mse_to_scalar": klosses.mse_to_scalar, "l1_to_scalar": klosses.l1_to_scalar,
-        "reflect_pad_bwd": krp.reflect_pad_bwd,
+        "reflect_pad_bwd": krp.reflect_pad_bwd, "conv3x3_in_act": kconv.conv3x3_in_act,
     }
 
 
@@ -508,6 +539,100 @@ def phase_train_kernels(dev, results):
     results["train_kernel_max_err"] = errs
 
 
+def two_bf16_ulps(got, want):
+    """|got - want| within CONV_IN_BF16_ULPS bf16 ulps of max(|want|, 1)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1.0))) - 7)
+    return bool(((got.float() - want.float()).abs() <= CONV_IN_BF16_ULPS * ulp).all())
+
+
+def library_conv_in(x, w3x3, b, relu=False, residual=None):
+    """The library composition (a yardstick only): reflect pad, cuDNN conv
+    and F.instance_norm on the channels-last NCHW view."""
+    y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
+                 w3x3.permute(3, 2, 0, 1), b.to(x.dtype))
+    y = F.instance_norm(y, eps=1e-5)
+    if residual is not None:
+        y = y + residual.permute(0, 3, 1, 2)
+    return F.relu(y) if relu else y
+
+
+def conv_in_inputs(shape, dt, dev, gen, residual):
+    n, h, w, cin, cout = shape
+    x = (torch.randn((n, h, w, cin), generator=gen, device=dev) * 0.5).to(dt)
+    w3 = (torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (9 * cin) ** -0.5).to(dt)
+    b = torch.randn((cout,), generator=gen, device=dev).to(dt)
+    r = torch.randn((n, h, w, cout), generator=gen, device=dev).to(dt) if residual else None
+    return x, w3, b, r
+
+
+def check_conv_in(x, w3, b, relu, r, what):
+    """Kernel vs plain (fp32) or vs the plain version on the fp32 values
+    (bf16), the same bits on a second run -> (max |kernel - gate|, max
+    |kernel - plain version in x's dtype|)."""
+    y = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
+    again = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
+    plain = kconv.conv3x3_in_act_plain(x, w3, b, relu=relu, residual=r)
+    torch.cuda.synchronize()
+    if not same_bits(y, again):
+        raise AssertionError(f"conv3x3_in_act {what}: two runs differ")
+    diff_plain = (y.float() - plain.float()).abs().max().item()
+    if x.dtype == torch.float32:
+        ok = bool(((y - plain).abs() <= CONV_IN_ATOL + CONV_IN_RTOL * plain.abs()).all())
+        return ok, diff_plain, diff_plain
+    f = [t.float() if t is not None else None for t in (x, w3, b, r)]
+    want = kconv.conv3x3_in_act_plain(f[0], f[1], f[2], relu=relu, residual=f[3])
+    return two_bf16_ulps(y, want.to(x.dtype)), (y.float() - want).abs().max().item(), diff_plain
+
+
+def phase_conv_in(dev, results):
+    """conv3x3_in_act against its plain version on the card, fp32 and bf16,
+    its gradient against the plain gradient, and its times."""
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, errs = [], {}
+    for shape in CONV_IN_SHAPES:
+        flags = ([(relu, res) for relu in (False, True) for res in (False, True)]
+                 if shape == CONV_IN_SHAPES[0] else [(True, False), (False, True)])
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt)[6:]
+            for relu, res in flags:
+                x, w3, b, r = conv_in_inputs(shape, dt, dev, gen, res)
+                with torch.no_grad():
+                    ok, err, diff_plain = check_conv_in(x, w3, b, relu, r, f"{shape} {name}")
+                if not ok:
+                    raise AssertionError(f"conv3x3_in_act {shape} {name} relu={relu} "
+                                         f"res={res}: max|diff| {err}")
+                errs[name] = max(errs.get(name, 0.0), err)
+                errs[f"{name} vs plain in {name}"] = max(
+                    errs.get(f"{name} vs plain in {name}", 0.0), diff_plain)
+            x, w3, b, r = conv_in_inputs(shape, dt, dev, gen, False)
+            bms, by = conv_in_bound(shape, dt, False)
+            with torch.no_grad():
+                row = dict(kernel="conv3x3_in_act", shape=list(shape), dtype=name, relu=True,
+                           ms=graph_ms(lambda: kconv.conv3x3_in_act(x, w3, b, relu=True)),
+                           plain_ms=graph_ms(
+                               lambda: kconv.conv3x3_in_act_plain(x, w3, b, relu=True)),
+                           composition_ms=graph_ms(lambda: library_conv_in(x, w3, b, True)),
+                           library_ms=None, bound_ms=bms, bound_by=by)
+            row["tflops"] = 2 * math.prod(shape[:3]) * 9 * shape[3] * shape[4] / row["ms"] / 1e9
+            rows.append(row)
+            log(f"[conv_in] {row}")
+    # the autograd.Function's gradient (the recomputed plain composition)
+    grads = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x, w3, b, r = conv_in_inputs(CONV_IN_SHAPES[1], dt, dev, gen, True)
+        leaves = [t.detach().requires_grad_() for t in (x, w3, b, r)]
+        gy = torch.randn(r.shape, generator=gen, device=dev).to(dt)
+        got, want = (torch.autograd.grad(fn(*leaves[:3], relu=True, residual=leaves[3]),
+                                         leaves, gy)
+                     for fn in (kconv.conv3x3_in_act, kconv.conv3x3_in_act_plain))
+        grads[str(dt)[6:]] = max(check_close(a, p, dt, 1e-4, "conv3x3_in_act gradient",
+                                             rtol=1e-4) for a, p in zip(got, want))
+    log(f"[conv_in] max|kernel - gate| {errs} (fp32 {CONV_IN_ATOL} + {CONV_IN_RTOL}|y|, "
+        f"bf16 {CONV_IN_BF16_ULPS} ulps); gradient vs plain max|diff| {grads}")
+    results["conv_in"] = dict(rows=rows, max_err=errs, grad_max_diff=grads)
+
+
 def site_inputs(kind, calls, dev, gen):
     """Fresh random inputs for each recorded call of one kernel, and the
     kernel / plain / library closures over the whole sequence with their
@@ -586,25 +711,25 @@ def time_sites(kind, calls, dev, seed):
 
 
 def train_per_step(g_sites, opt):
-    """Launches of each kernel in one train step of this architecture."""
+    """Launches of each kernel in one train step of this architecture. With
+    the image pool the D step encodes its conditioning again, and the G
+    step runs D on the real image for feature matching on its own."""
     d_sites = opt.n_layers_D * opt.num_D      # IN sites of one D apply
     in_sites = g_sites + 2 * d_sites          # G, D on the fake for G, D on [real; fake]
+    pooled = opt.pool_size > 0
     return {
-        "encode": 1, "encode_cond": 1, "instance_norm": in_sites,
+        "encode": 1, "encode_cond": 2 if pooled else 1,
+        "instance_norm": in_sites + (d_sites if pooled and not opt.no_ganFeat_loss else 0),
         "instance_norm_bwd": in_sites, "mse_to_scalar": 3 * opt.num_D,
         "l1_to_scalar": (opt.n_layers_D + 1) * opt.num_D + (0 if opt.no_vgg_loss else 5),
-        "reflect_pad_bwd": 2 * opt.n_blocks_global + 1,
+        "reflect_pad_bwd": 2 * opt.n_blocks_global + 1, "conv3x3_in_act": 0,
     }
 
 
-def phase_train_cli(tmp, results):
-    """Main path 2: the port's train CLI end to end on the card."""
-    root = os.path.join(tmp, "city_train")
-    write_dataroot(root, phase="train", seed=1)
-    ckpt = os.path.join(tmp, "ckpt")
-    argv = ["--name", "smoke_train", "--dataroot", root, "--checkpoints_dir", ckpt,
-            "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
-            "--save_epoch_freq", "1", "--nThreads", "2", *ARCH_ARGV]
+def drive_train_cli(argv):
+    """One run of the train CLI with the launch counters zeroed just before
+    and read just after -> (state, model, loss lines, wall s, launches,
+    per-step launches of its architecture)."""
     errors, models = [], []
     orig_print = Visualizer.print_current_errors
     orig_create = mask2image_train.create_model
@@ -619,23 +744,36 @@ def phase_train_cli(tmp, results):
 
     zero_launches()
     t = time.time()
-    with recording() as calls, \
-            mock.patch.object(Visualizer, "print_current_errors", record_errors), \
+    with mock.patch.object(Visualizer, "print_current_errors", record_errors), \
             mock.patch.object(mask2image_train, "create_model", create_and_keep):
         state = mask2image_train.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_launches()
-    model, steps = models[0], state.step
+    model = models[0]
     g = model.netG
     per_step = train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, model.opt)
+    bad = [e for e in errors if not all(np.isfinite(v) for v in e.values())]
+    if bad:
+        raise AssertionError(f"non-finite losses: {bad}")
+    return state, model, errors, wall, launches, per_step
+
+
+def phase_train_cli(tmp, results):
+    """Main path 2: the port's train CLI end to end on the card."""
+    root = os.path.join(tmp, "city_train")
+    write_dataroot(root, phase="train", seed=1)
+    ckpt = os.path.join(tmp, "ckpt")
+    argv = ["--name", "smoke_train", "--dataroot", root, "--checkpoints_dir", ckpt,
+            "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+            "--save_epoch_freq", "100", "--nThreads", "2", *ARCH_ARGV]
+    with recording() as calls:
+        state, model, errors, wall, launches, per_step = drive_train_cli(argv)
+    steps = state.step
     log(f"[train CLI] {steps} steps in {wall:.1f} s (incl. model init, data, checkpoint "
         f"writes); launches {launches}; per step {per_step}")
     if steps < 1 or len(errors) != steps:
         raise AssertionError(f"{steps} steps, {len(errors)} loss lines")
-    bad = [e for e in errors if not all(np.isfinite(v) for v in e.values())]
-    if bad:
-        raise AssertionError(f"non-finite losses: {bad}")
     for k, n in per_step.items():
         expect_launches(launches[k], n * steps, f"train CLI {k}")
     log(f"[train CLI] losses, first step {errors[0]}, last step {errors[-1]}")
@@ -657,9 +795,103 @@ def phase_train_cli(tmp, results):
     step_calls = {k: v[: len(v) // steps] for k, v in calls.items()}
     results["train_cli"] = dict(wall_s=wall, steps=steps, launches=launches,
                                 per_step=per_step, losses=errors, window=[h, w])
-    del model, serve, models[:]
+    del model, serve
     torch.cuda.empty_cache()
     return launches, step_calls
+
+
+def phase_train_cli_bf16(tmp, results):
+    """Main path 3: the train CLI in the bf16 tier with the image pool and
+    the HTML visuals for one epoch, then --continue_train from its latest
+    for a second."""
+    root = os.path.join(tmp, "city_train")
+    ckpt = os.path.join(tmp, "ckpt_bf16")
+    argv = ["--name", "smoke_bf16", "--dataroot", root, "--checkpoints_dir", ckpt,
+            "--gpu_ids", GPU_IDS, "--niter_decay", "0", "--print_freq", "1",
+            "--display_freq", "4", "--save_epoch_freq", "100", "--nThreads", "2",
+            "--dtype", "bfloat16", "--pool_size", "50", *ARCH_ARGV]
+    run_dir = os.path.join(ckpt, "smoke_bf16")
+    runs, total = [], {k: 0 for k in counters()}
+    done = 0
+    for niter, extra in (("1", []), ("2", ["--continue_train"])):
+        state, model, errors, wall, launches, per_step = drive_train_cli(
+            argv + ["--niter", niter, *extra])
+        steps = state.step - done
+        done = state.step
+        if steps < 1 or len(errors) != steps:
+            raise AssertionError(f"bf16 train CLI: {steps} steps, {len(errors)} loss lines")
+        for k, n in per_step.items():
+            expect_launches(launches[k], n * steps, f"bf16 train CLI {k}")
+        with open(os.path.join(run_dir, "web", "index.html")) as f:
+            html = f.read()
+        if f"epoch [{niter}]" not in html:
+            raise AssertionError(f"web/index.html lacks epoch {niter}")
+        with open(os.path.join(run_dir, "iter.txt")) as f:
+            it = f.read()
+        if it != f"{int(niter) + 1},0":
+            raise AssertionError(f"iter.txt {it!r} after epoch {niter}")
+        total = {k: total[k] + launches[k] for k in total}
+        run = dict(niter=int(niter), continue_train=bool(extra), steps=steps, wall_s=wall,
+                   launches=launches, per_step=per_step, losses_first=errors[0],
+                   losses_last=errors[-1])
+        runs.append(run)
+        log(f"[train CLI bf16] {run}")
+        del model
+        torch.cuda.empty_cache()
+    results["train_cli_bf16"] = dict(runs=runs, launches=total)
+    return total
+
+
+def phase_roofline(tmp, results):
+    """Main path 4: the port's resblock roofline tool; its JSON report."""
+    out = os.path.join(tmp, "roofline.json")
+    zero_launches()
+    report = roofline_resblock.main(ROOFLINE_ARGV + ["--out", out])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    # the fused kernel: warm-up, timed calls and one compared with the plain
+    # composition; the reflect-pad backward: the plain resblock's two pads
+    # in each warm-up and timed forward + backward
+    calls = report["iters"] + int(ROOFLINE_ARGV[ROOFLINE_ARGV.index("--warmup") + 1])
+    expect_launches(launches, dict({k: 0 for k in launches}, conv3x3_in_act=calls + 1,
+                                   reflect_pad_bwd=2 * calls), "roofline tool")
+    with open(out) as f:
+        if json.load(f)["kernel_conv_in_relu_fwd"]["ms"] != report["kernel_conv_in_relu_fwd"]["ms"]:
+            raise AssertionError("the roofline tool's --out differs from its report")
+    log(f"[roofline] launches {launches}; report {json.dumps(report)}")
+    results["roofline"] = dict(report=report, launches=launches)
+    return launches
+
+
+def conv_in_main_path_row(dev, results):
+    """The JSON row of conv3x3_in_act, timed on the roofline tool's inputs
+    (its shape, bf16, ReLU, no residual)."""
+    report = results["roofline"]["report"]
+    n, h, w, c = report["shape"]
+    shape = (n, h, w, c, c)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x, w3, b, _ = conv_in_inputs(shape, torch.bfloat16, dev, gen, False)
+    with torch.no_grad():
+        ok, err, diff_plain = check_conv_in(x, w3, b, True, None, f"{shape} bf16")
+        if not ok:
+            raise AssertionError(f"conv3x3_in_act at the roofline shape: max|diff| {err}")
+        bms, by = conv_in_bound(shape, torch.bfloat16, False)
+        row = dict(
+            name="conv3x3_in_act", route="cuda", source=f"{PKG}/csrc/conv_in.cu",
+            replaces=f"{JAX_PKG}/ops/pallas/conv_in.py:127",
+            launches=results["roofline"]["launches"]["conv3x3_in_act"], max_abs_err=err,
+            max_abs_diff_vs_plain_bf16=diff_plain,
+            ms=graph_ms(lambda: kconv.conv3x3_in_act(x, w3, b, relu=True)),
+            plain_ms=graph_ms(lambda: kconv.conv3x3_in_act_plain(x, w3, b, relu=True)),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            composition_ms=graph_ms(lambda: library_conv_in(x, w3, b, True)),
+            per=f"one roofline-tool call, {list(shape)} bf16, ReLU (library_ms: no single "
+                "PyTorch call computes it; composition_ms: reflect pad + cuDNN conv + "
+                "F.instance_norm + ReLU)",
+        )
+    row["max_abs_diff"], row["kernel_ms"] = row["max_abs_err"], row["ms"]
+    log(f"[main-path kernel] {row}")
+    return row
 
 
 def grads_of(model):
@@ -800,6 +1032,46 @@ def phase_train_step(dev, results):
     return calls
 
 
+def phase_train_step_bf16(dev, results):
+    """make_train_step in the bf16 tier at STEP_HW: times, peak memory and
+    the launches of every kernel per step."""
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype="bfloat16", **ARCH)
+    model = create_model(opt)
+    step = make_train_step(model, torch.bfloat16)
+    g = model.netG
+    per_step = train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, opt)
+    rows = []
+    for bs, iters in ((1, 10), (4, 4)):
+        batch = encode_inputs(bs, *STEP_HW, dev, seed=8)
+        state = make_optimizers(opt, model, 1000)
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_launches()
+        t = time.perf_counter()
+        for _ in range(iters):
+            metrics, fake = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / iters * 1e3
+        after = read_launches()
+        for k, n in per_step.items():
+            expect_launches(after[k] - before[k], n * iters, f"bf16 step bs {bs} {k}")
+        losses = {k: v.item() for k, v in metrics.items()}
+        if fake.dtype != torch.bfloat16 or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"bf16 step bs {bs}: fake {fake.dtype}, losses {losses}")
+        row = dict(bs=bs, hw=list(STEP_HW), dtype="bfloat16",
+                   precision=model.conv_precision_resolved, ms_per_step=ms,
+                   images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+                   launches_per_step=per_step)
+        rows.append(row)
+        log(f"[step bf16] {row}")
+    results["step_bf16"] = rows
+    del model
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "encode_cond": ("csrc/encode.cu", "ops/pallas/encode.py:104"),
     "instance_norm_bwd": ("csrc/instance_norm.cu", "ops/pallas/instance_norm.py:195"),
@@ -818,7 +1090,6 @@ def phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, resu
         src, tpu = SOURCES[name]
         row = dict(name=name, route="cuda", source=f"{PKG}/{src}",
                    replaces=f"{JAX_PKG}/{tpu}", launches=cli_launches[name],
-                   launches_by_path={"serving": 0, "train": cli_launches[name]},
                    **time_sites(name, cli_calls[name], dev, seed=20 + i))
         row["per"] = (f"the {row['launches_per_step']} calls one train-CLI step makes "
                       f"(bbox windows, bs 1, fp32)")
@@ -857,15 +1128,17 @@ def kernel_kind(name):
     return "other"
 
 
-def phase_profile_train(dev, results):
-    """Device time by kernel over train steps at STEP_HW bs 1, grouped by
-    kind; the idle share is that of the unprofiled step (phase 8)."""
+def phase_profile_train(dev, results, bf16=False):
+    """Device time by kernel over train steps at STEP_HW bs 1 (fp32, or the
+    bf16 tier), grouped by kind; the idle share is that of the unprofiled
+    step (phase 8 or 12)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **ARCH)
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype="bfloat16" if bf16 else "float32",
+                                  **ARCH)
     model = create_model(opt)
-    step = make_train_step(model)
+    step = make_train_step(model, torch.bfloat16 if bf16 else None)
     state = make_optimizers(opt, model, 1000)
     batch = encode_inputs(1, *STEP_HW, dev, seed=12)
     for _ in range(2):
@@ -885,15 +1158,16 @@ def phase_profile_train(dev, results):
             us = getattr(e, "self_device_time_total", 0) / n
             kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + us / 1e3
     dev_ms = sum(kinds.values())
-    step_ms = results["step"]["rows"][0]["ms_per_step"]
+    step_ms = (results["step_bf16"][0] if bf16 else results["step"]["rows"][0])["ms_per_step"]
     kinds = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
-    log(f"[profile train] device ms per step by kind: "
+    tag = "profile train bf16" if bf16 else "profile train"
+    log(f"[{tag}] device ms per step by kind: "
         f"{ {k: round(v, 4) for k, v in kinds.items()} }")
-    log(f"[profile train] device busy {dev_ms:.3f} ms per step; unprofiled step "
+    log(f"[{tag}] device busy {dev_ms:.3f} ms per step; unprofiled step "
         f"{step_ms:.3f} ms; idle share {max(0.0, 1 - dev_ms / step_ms):.3f}")
-    results["profile_train"] = dict(table=table, device_ms_per_step=dev_ms, by_kind=kinds,
-                                    unprofiled_step_ms=step_ms,
-                                    idle_share=max(0.0, 1 - dev_ms / step_ms))
+    results[tag.replace(" ", "_")] = dict(
+        table=table, device_ms_per_step=dev_ms, by_kind=kinds, unprofiled_step_ms=step_ms,
+        idle_share=max(0.0, 1 - dev_ms / step_ms))
     del model
     torch.cuda.empty_cache()
 
@@ -1212,23 +1486,29 @@ def main(argv=None):
     phase_build()
     phase_kernels(dev, results)
     phase_train_kernels(dev, results)
+    phase_conv_in(dev, results)
     with tempfile.TemporaryDirectory() as tmp:
         sites, out_shape = phase_serving(tmp, results)
         cli_launches, cli_calls = phase_train_cli(tmp, results)
+        bf16_launches = phase_train_cli_bf16(tmp, results)
+        roofline_launches = phase_roofline(tmp, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
-    for row in kernels:
-        row["launches_by_path"] = {"serving": row["launches"], "train": cli_launches[row["name"]]}
     phase_forward_sites(dev, results)
     phase_model(dev, results)
     step_calls = phase_train_step(dev, results)
+    phase_train_step_bf16(dev, results)
     kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, results)
+    kernels.append(conv_in_main_path_row(dev, results))
+    for row in kernels:
+        name = row["name"]
+        row["launches_by_path"] = {
+            "serving": results["launches"][name], "train": cli_launches[name],
+            "train_bf16_pool": bf16_launches[name], "roofline": roofline_launches[name]}
     if args.profile:
         phase_profile(dev, results)
         phase_profile_train(dev, results)
+        phase_profile_train(dev, results, bf16=True)
     results["kernels"] = kernels
-    results["not_ported"] = {"conv3x3_in_act": conv_in_bound()}
-    log(f"[not ported] conv3x3_in_act, {JAX_PKG}/ops/pallas/conv_in.py:127, reckoned: "
-        f"{results['not_ported']['conv3x3_in_act']}")
     results["seconds"] = time.time() - t0
     log(f"[done] {results['seconds']:.1f} s")
     if args.out:

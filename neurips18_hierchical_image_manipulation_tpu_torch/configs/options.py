@@ -116,7 +116,7 @@ class BaseOptions:
 @dataclass
 class TrainOptions(BaseOptions):
     # frequencies
-    display_freq: int = 100  # HTML visuals: not ported yet (noted at start)
+    display_freq: int = 100
     print_freq: int = 100
     save_latest_freq: int = 1000
     save_epoch_freq: int = 10
@@ -156,22 +156,18 @@ class TrainOptions(BaseOptions):
 # training flags whose path is not ported yet: (flag, is it set?, where it
 # is queued in ROADMAP.md)
 _TRAIN_NOT_PORTED = (
-    ("--dtype bfloat16 (or --data_type 16)", lambda o: o.dtype != "float32",
-     "the bf16 training tier, slice 3"),
-    ("--pool_size > 0", lambda o: o.pool_size > 0, "the image pool, slice 3"),
-    ("--continue_train", lambda o: o.continue_train,
-     "optimizer-state checkpoints and resume, slice 3"),
     ("--load_pretrain", lambda o: bool(o.load_pretrain), "the 1024p hand-off, slice 6"),
     ("--mesh_devices > 1", lambda o: o.mesh_devices > 1, "data parallel, slice 8"),
     ("--device_resident_data", lambda o: o.device_resident_data,
      "device-resident data, slice 9"),
     ("--device_prefetch > 0", lambda o: o.device_prefetch > 0, "prefetch, slice 9"),
-    ("--use_dropout", lambda o: o.use_dropout, "dropout in training, slice 3"),
+    ("--use_dropout", lambda o: o.use_dropout,
+     "dropout in training, whose mask has yet to be held against the JAX package's"),
     ("--remat / --remat_policy", lambda o: o.remat or o.remat_policy != "none",
      "recomputation, slice 11 (tooling)"),
     ("--debug_nans", lambda o: o.debug_nans, "tooling, slice 11"),
     ("--profile_dir", lambda o: bool(o.profile_dir), "torch.profiler tooling, slice 11"),
-    ("--tf_log", lambda o: o.tf_log, "the training visuals, slice 3"),
+    ("--tf_log", lambda o: o.tf_log, "TensorBoard scalars (TensorBoard is not installed)"),
 )
 
 

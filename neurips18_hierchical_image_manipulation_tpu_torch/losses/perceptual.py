@@ -13,7 +13,8 @@ VGG_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 
 
 def vgg_loss(vgg, fake, real):
-    """vgg: a ``Vgg19Features``; fake, real: (B,H,W,3) in [-1, 1]."""
+    """vgg: a ``Vgg19Features`` (or a function of an image to its taps);
+    fake, real: (B,H,W,3) in [-1, 1]."""
     taps_fake = vgg(fake)
     with torch.no_grad():
         taps_real = vgg(real)

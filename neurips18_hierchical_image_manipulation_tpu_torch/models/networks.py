@@ -11,7 +11,8 @@ VGG), so ``utils/checkpoint.py`` maps a JAX npz sidecar onto
 Init follows the reference's ``weights_init``: conv weights ~ N(0, 0.02),
 biases zero, batch-norm weight ~ N(1, 0.02), bias zero, drawn from an
 explicit ``torch.Generator`` (the same distribution as the JAX init, not
-the same bits).
+the same bits) by ``reset_parameters``. A module built without it holds
+zeros, never uninitialized memory.
 
 Dead biases: a conv followed by InstanceNorm(affine=False) keeps its bias
 as a parameter (the checkpoint layout is unchanged) but does not apply it
@@ -38,7 +39,7 @@ class Conv(nn.Module):
     def __init__(self, cin, cout, kernel, stride=1, padding=0, reflect=0,
                  dead_bias=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.weight = nn.Parameter(torch.zeros(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride, self.padding = stride, padding
         self.reflect, self.dead_bias = reflect, dead_bias
@@ -73,7 +74,7 @@ class ConvTranspose(nn.Module):
 
     def __init__(self, cin, cout, dead_bias=False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cin, cout, 3, 3))
+        self.weight = nn.Parameter(torch.zeros(cin, cout, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dead_bias = dead_bias
 

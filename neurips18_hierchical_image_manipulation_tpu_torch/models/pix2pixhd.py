@@ -1,7 +1,15 @@
 """mask2image model — PyTorch counterpart of ``models/pix2pixhd.py`` in the
 JAX package: ``generator_input_nc``, ``encode_input`` and ``inference``
 (serving) and, when ``opt.isTrain``, the multiscale discriminator, VGG19
-and the GAN objective ``losses`` / ``d_losses`` (training).
+and the GAN objective ``losses`` / ``d_losses`` (training; ``g_only`` is
+the G half of the image-pool split step, JAX ``losses(..., g_only=True)``,
+``pix2pixhd.py:313``).
+
+The objective runs each network under a ``{net: {name: tensor}}`` dict
+(``torch.func.functional_call``): the parameters themselves, or the bf16
+casts the train step makes of them (``train/steps.py``), so that the fp32
+masters take the gradients. G's terms see D through detached parameters
+(the JAX ``stop_gradient``), its input live.
 
 The generator is conditioned on the label one-hot, the instance edge
 plane and the box-masked RGB (the fork's change to pix2pixHD), all built
@@ -16,10 +24,10 @@ in one pass by the encode kernel (``kernels/encode.py``):
 
 from __future__ import annotations
 
-import contextlib
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch.func import functional_call
 
 from ..kernels import encode as kenc
 from ..losses import discriminator_loss, feature_matching_loss, gan_loss, vgg_loss
@@ -69,10 +77,12 @@ class Pix2PixHDModel:
         in [-1,1] float, or raw uint8 (--uint8_transfer), normalized here
         in the dtype the batch or the generator computes in; boxes (B,4).
         Returns the generator input: a NHWC tensor or a PaddedStemInput."""
-        return self._encode(batch, with_cond=False)[0]
+        return self._g_input(self._normalized(batch))
 
-    def _encode(self, batch, with_cond: bool):
-        """-> (generator input, D conditioning or None, real image)."""
+    def _normalized(self, batch, param_dtype: Optional[torch.dtype] = None):
+        """The batch with a uint8 image normalized to [-1, 1] in the dtype
+        of its float leaves, else ``param_dtype`` (the dtype the generator
+        computes in)."""
         batch = dict(batch)
         img = batch.get("image")
         if img is not None and img.dtype == torch.uint8:
@@ -84,12 +94,19 @@ class Pix2PixHDModel:
                     and torch.is_tensor(v)
                     and v.is_floating_point()
                 ),
-                next(self.netG.parameters()).dtype,
+                param_dtype or next(self.netG.parameters()).dtype,
             )
             batch["image"] = img.to(dt) / 127.5 - 1.0
-        dt = batch["image"].dtype if "image" in batch else torch.float32
+        return batch
+
+    def _ids(self, batch):
         label = batch["label"].to(torch.int32).contiguous()
         inst = None if self.opt.no_instance else batch["inst"].to(torch.int32).contiguous()
+        dt = batch["image"].dtype if "image" in batch else torch.float32
+        return label, inst, dt
+
+    def _g_input(self, batch):
+        label, inst, dt = self._ids(batch)
         image = boxes = None
         if getattr(self.opt, "use_masked_image", False):
             image = batch["image"].contiguous()
@@ -97,13 +114,14 @@ class Pix2PixHDModel:
         h, w = label.shape[1:3]
         nc = self.opt.label_nc
         if self._padded_stem(h, w):
-            g_input = PaddedStemInput(kenc.encode(label, inst, image, boxes, nc, pad=3, dtype=dt))
-        else:
-            g_input = kenc.encode(label, inst, image, boxes, nc, pad=0, dtype=dt)
-        # D's conditioning: one-hot ⊕ edge, no RGB (the JAX package's mode
-        # 2: D pools it for its coarser scale itself)
-        cond = kenc.encode_cond(label, inst, nc, dtype=dt) if with_cond else None
-        return g_input, cond, batch.get("image")
+            return PaddedStemInput(kenc.encode(label, inst, image, boxes, nc, pad=3, dtype=dt))
+        return kenc.encode(label, inst, image, boxes, nc, pad=0, dtype=dt)
+
+    def _cond(self, batch):
+        """D's conditioning: one-hot ⊕ edge, no RGB (the JAX package's mode
+        2: D pools it for its coarser scale itself)."""
+        label, inst, dt = self._ids(batch)
+        return kenc.encode_cond(label, inst, self.opt.label_nc, dtype=dt)
 
     @torch.inference_mode()
     def inference(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -112,40 +130,52 @@ class Pix2PixHDModel:
 
     # ---- training: the fused G + D objective ----
 
-    @contextlib.contextmanager
-    def _frozen_d(self):
-        """D's parameters take no gradient inside; its input still does."""
-        flags = [p.requires_grad for p in self.netD.parameters()]
-        self.netD.requires_grad_(False)
-        try:
-            yield
-        finally:
-            for p, f in zip(self.netD.parameters(), flags):
-                p.requires_grad_(f)
+    def nets(self) -> Dict[str, torch.nn.Module]:
+        """The networks by their JAX param-tree names: G, D and VGG."""
+        return {k: m for k, m in (("G", self.netG), ("D", self.netD), ("VGG", self.vgg))
+                if m is not None}
 
-    def _d_pair(self, cond, real, fake):
+    def _params(self, params, net):
+        return params[net] if params is not None else dict(self.nets()[net].named_parameters())
+
+    def _apply(self, params, net, *args):
+        """``net`` run under ``params[net]`` (its own parameters when
+        ``params`` is None)."""
+        return functional_call(self.nets()[net], self._params(params, net), args)
+
+    def _d_pair(self, params, cond, real, fake):
         """One batched D apply over [real; fake] with live D parameters
         (IN is per sample, so batching is exact; the conditioning's partial
         conv runs once and is tiled) -> (D(real), D(fake))."""
-        d_rf = self.netD(cond, torch.cat([real, fake], 0))
+        d_rf = self._apply(params, "D", cond, torch.cat([real, fake], 0))
         nb = real.shape[0]
         return [[f[:nb] for f in sc] for sc in d_rf], [[f[nb:] for f in sc] for sc in d_rf]
 
-    def losses(self, batch: Dict[str, torch.Tensor]):
-        """-> (total, metrics, fake). ``total.backward()`` gives both
-        gradients at the same (θG, θD), as the JAX package's one gradient
-        of its fused objective does: G's terms see D with its parameters
-        frozen but its input live; D's terms see one batched apply over
-        [real; fake.detach()] with live D parameters, whose D(real) the
-        feature-matching loss reuses, detached."""
+    def losses(self, batch: Dict[str, torch.Tensor], params=None, g_only: bool = False):
+        """-> (total, metrics, fake). ``params``: ``{G, D, VGG: {name:
+        tensor}}`` to run the networks under (None: their own parameters).
+        ``total.backward()`` gives both gradients at the same (θG, θD), as
+        the JAX package's one gradient of its fused objective does: G's
+        terms see D with its parameters detached but its input live; D's
+        terms see one batched apply over [real; fake.detach()] with live D
+        parameters, whose D(real) the feature-matching loss reuses,
+        detached. ``g_only``: G's terms alone (D's apply on real, for
+        feature matching, under the detached parameters)."""
         opt = self.opt
-        g_input, cond, real = self._encode(batch, with_cond=True)
-        fake = self.netG(g_input)
+        g_params = self._params(params, "G")
+        batch = self._normalized(batch, next(iter(g_params.values())).dtype)
+        real = batch.get("image")
+        g_input, cond = self._g_input(batch), self._cond(batch)
+        fake = functional_call(self.netG, g_params, (g_input,))
         use_lsgan = not opt.no_lsgan
-        with self._frozen_d():
-            d_fake_for_g = self.netD(cond, fake)
+        d_frozen = {k: v.detach() for k, v in self._params(params, "D").items()}
+        d_fake_for_g = functional_call(self.netD, d_frozen, (cond, fake))
         loss_g_gan = gan_loss(d_fake_for_g, True, use_lsgan)
-        d_real, d_fake = self._d_pair(cond, real, fake.detach())
+        d_real = d_fake = None
+        if not g_only:
+            d_real, d_fake = self._d_pair(params, cond, real, fake.detach())
+        elif not opt.no_ganFeat_loss:
+            d_real = functional_call(self.netD, d_frozen, (cond, real))
         loss_g_feat = 0.0
         if not opt.no_ganFeat_loss:
             loss_g_feat = feature_matching_loss(
@@ -154,24 +184,25 @@ class Pix2PixHDModel:
             )
         loss_g_vgg = 0.0
         if self.vgg is not None:
-            loss_g_vgg = opt.lambda_feat * vgg_loss(self.vgg, fake, real)
-        loss_d, loss_d_real, loss_d_fake = discriminator_loss(d_real, d_fake, use_lsgan)
-        total = loss_g_gan + loss_g_feat + loss_g_vgg + loss_d
-        metrics = {
-            "G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat, "G_VGG": loss_g_vgg,
-            "D_real": loss_d_real, "D_fake": loss_d_fake,
-        }
+            loss_g_vgg = opt.lambda_feat * vgg_loss(
+                lambda x: self._apply(params, "VGG", x), fake, real)
+        total = loss_g_gan + loss_g_feat + loss_g_vgg
+        metrics = {"G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat, "G_VGG": loss_g_vgg}
+        if not g_only:
+            loss_d, loss_d_real, loss_d_fake = discriminator_loss(d_real, d_fake, use_lsgan)
+            total = total + loss_d
+            metrics.update(D_real=loss_d_real, D_fake=loss_d_fake)
         return total, _detached(metrics, real.device), fake
 
-    def d_losses(self, batch: Dict[str, torch.Tensor], fake: torch.Tensor):
+    def d_losses(self, batch: Dict[str, torch.Tensor], fake: torch.Tensor, params=None):
         """D-only objective against a given (e.g. pool-replayed) fake ->
         (loss_d, {D_real, D_fake})."""
-        _, cond, real = self._encode(batch, with_cond=True)
-        d_real, d_fake = self._d_pair(cond, real, fake.detach())
+        batch = self._normalized(batch, next(iter(self._params(params, "D").values())).dtype)
+        d_real, d_fake = self._d_pair(params, self._cond(batch), batch["image"], fake.detach())
         loss_d, loss_d_real, loss_d_fake = discriminator_loss(
             d_real, d_fake, not self.opt.no_lsgan
         )
-        return loss_d, _detached({"D_real": loss_d_real, "D_fake": loss_d_fake}, real.device)
+        return loss_d, _detached({"D_real": loss_d_real, "D_fake": loss_d_fake}, fake.device)
 
 
 def _detached(metrics, device):

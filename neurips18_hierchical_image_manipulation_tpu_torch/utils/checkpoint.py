@@ -20,6 +20,15 @@ serves the discriminator (``D/params/scale{i}/layer{n}/{kernel,bias}``,
 one JAX ``{G, D, VGG}`` tree into the port's three ``state_dict``s.
 ``save_params`` writes ``{label}_params.npz`` in the JAX sidecar layout
 (G and D, as the JAX package saves its train state's params).
+
+``CheckpointManager`` is the counterpart of the JAX package's
+(``utils/checkpoint.py:21-135``), in its on-disk layout under
+``{checkpoints_dir}/{name}/``: ``ckpt/{label}/`` holds the resumable state
+(``state.pt``: G's and D's parameters, both Adams' and both schedules'
+state and the step, with ``torch.save``; the JAX package's is an orbax
+directory), ``ckpt/{label}_params.npz`` the params sidecar, and
+``iter.txt`` "epoch,iter" — the epoch to resume and the batches of it
+already done.
 """
 
 from __future__ import annotations
@@ -132,3 +141,47 @@ def restore_params(opt, model) -> bool:
         print(f"checkpoint partial load: {missing} leaves kept at init")
     print(f"restored checkpoint '{opt.which_epoch}'")
     return True
+
+
+class CheckpointManager:
+    def __init__(self, opt):
+        self.opt = opt
+        self.dir = os.path.abspath(os.path.join(opt.checkpoints_dir, opt.name, "ckpt"))
+        os.makedirs(self.dir, exist_ok=True)
+        self.iter_file = os.path.join(opt.checkpoints_dir, opt.name, "iter.txt")
+
+    def _state_path(self, label) -> str:
+        return os.path.join(self.dir, str(label), "state.pt")
+
+    def save(self, label, model, state, epoch: int, epoch_iter: int) -> None:
+        """label: 'latest' or an epoch number. (epoch, epoch_iter) go to
+        iter.txt: where a resumed run starts."""
+        path = self._state_path(label)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {"params": {"G": model.netG.state_dict(), "D": model.netD.state_dict()},
+                   **state.state_dict()}
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        save_params(self.opt, label, model)
+        with open(self.iter_file, "w") as f:
+            f.write(f"{epoch},{epoch_iter}")
+
+    def restore(self, label, model, state) -> None:
+        """Load G, D, the optimizers, the schedules and the step in place."""
+        payload = torch.load(self._state_path(label), map_location=model.device)
+        model.netG.load_state_dict(payload["params"]["G"])
+        model.netD.load_state_dict(payload["params"]["D"])
+        state.load_state_dict(payload)
+
+    def exists(self, label) -> bool:
+        return os.path.exists(self._state_path(label))
+
+    def read_iter(self):
+        """-> (start_epoch, epoch_iter) like the reference's iter.txt."""
+        try:
+            with open(self.iter_file) as f:
+                epoch, it = f.read().strip().split(",")
+                return int(epoch), int(it)
+        except (FileNotFoundError, ValueError):
+            return 1, 0

@@ -13,10 +13,11 @@ import os
 
 
 class HTML:
-    def __init__(self, web_dir, title):
+    def __init__(self, web_dir, title, refresh=0):
         self.web_dir = web_dir
         self.img_dir = os.path.join(web_dir, "images")
         self.title = title
+        self.refresh = refresh
         self.body = []
         os.makedirs(self.img_dir, exist_ok=True)
 
@@ -41,9 +42,14 @@ class HTML:
         )
 
     def save(self):
+        refresh = (
+            f"<meta http-equiv='refresh' content='{self.refresh}'>"
+            if self.refresh
+            else ""
+        )
         doc = (
             "<!DOCTYPE html><html><head>"
-            f"<title>{_html.escape(self.title)}</title></head><body>"
+            f"<title>{_html.escape(self.title)}</title>{refresh}</head><body>"
             + "\n".join(self.body)
             + "</body></html>"
         )

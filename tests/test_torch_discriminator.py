@@ -133,9 +133,11 @@ def test_vgg19_taps_match_jax(highest, tmp_path):
 
 def test_state_dicts_round_trip_bit_exact(tmp_path):
     opt = MaskToImageTrainOptions(label_nc=8, ndf=8, norm="batch")
+    vgg = pnet.Vgg19Features()
+    vgg.reset_parameters(torch.Generator().manual_seed(2))
     nets = {
         "D": pnet.define_D(opt, torch.Generator().manual_seed(1)).state_dict(),
-        "VGG": pnet.Vgg19Features().state_dict(),
+        "VGG": vgg.state_dict(),
     }
     flat = state_dicts_to_jax(nets)
     assert "D/params/scale1/layer0/kernel" in flat and "D/params/scale0/norm1/scale" in flat

@@ -39,14 +39,16 @@ def test_port_imports_no_jax(tmp_path):
     proc = run_script(SCRIPT, str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if " " in ln)
-    assert int(lines["COUNT"]) >= 25
+    assert int(lines["COUNT"]) >= 30
     assert lines["BAD"] == "", f"the port pulled in: {lines['BAD']}"
 
 
 @pytest.mark.parametrize(
     "module",
     ["chip_smoke", f"{PORT}.cli.mask2image_test", f"{PORT}.kernels.encode",
-     f"{PORT}.cli.mask2image_train", f"{PORT}.kernels.losses", f"{PORT}.kernels.reflect_pad"],
+     f"{PORT}.cli.mask2image_train", f"{PORT}.kernels.losses", f"{PORT}.kernels.reflect_pad",
+     f"{PORT}.kernels.conv_in", f"{PORT}.tools.roofline_resblock", f"{PORT}.train.loop",
+     f"{PORT}.utils.checkpoint", f"{PORT}.utils.image_pool"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

@@ -17,6 +17,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import syn
 from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTrainOptions,
 )
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
@@ -258,3 +259,64 @@ def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precisi
             assert p.grad is None
             continue
         assert (a - p.grad).abs().max() <= 1e-3 * p.grad.abs().max()
+
+
+def two_bf16_ulps(got, want):
+    """|got - want| within two bf16 ulps of max(|want|, 1)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1.0))) - 7)
+    return bool(((got.float() - want.float()).abs() <= 2 * ulp).all())
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu,residual", [(True, False), (False, True), (False, False)])
+# the JAX test shape, an odd shape, 4x4 (Cout 24), channel counts that are
+# not multiples of 8 (no 16-byte loads), the bottleneck
+@pytest.mark.parametrize("shape", [(2, 8, 16, 128, 128), (2, 9, 17, 96, 40),
+                                   (1, 4, 4, 8, 24), (1, 5, 7, 12, 20),
+                                   (1, 16, 32, 1024, 1024)])
+def test_conv_in_kernel_matches_plain(cuda_device, restore_torch_precision, dt, relu,
+                                      residual, shape):
+    torch.backends.cudnn.allow_tf32 = False  # the plain conv in full fp32
+    tdt = getattr(torch, dt)
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (torch.randn((n, h, w, cin), generator=g, device=cuda_device) * 0.5).to(tdt)
+    w3 = (torch.randn((3, 3, cin, cout), generator=g, device=cuda_device)
+          * (1.0 / (9 * cin) ** 0.5)).to(tdt)
+    b = torch.randn((cout,), generator=g, device=cuda_device).to(tdt)
+    r = torch.randn((n, h, w, cout), generator=g, device=cuda_device).to(tdt) if residual else None
+    before = kconv.conv3x3_in_act.launches
+    with torch.no_grad():
+        y = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
+        again = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
+        want = kconv.conv3x3_in_act_plain(x, w3, b, relu=relu, residual=r)
+        torch.cuda.synchronize()
+    assert kconv.conv3x3_in_act.launches == before + 2
+    assert bits_equal(y, again)  # no atomics: the same bits every run
+    if dt == "float32":
+        torch.testing.assert_close(y, want, atol=3e-5, rtol=1e-4)
+    else:
+        # the plain version in bf16 (the JAX _reference) rounds the pre-norm
+        # conv to bf16 before the statistics, which the kernel, like the TPU
+        # kernel, never does; so the kernel is held to the plain version on
+        # the fp32 values of the same bf16 inputs, rounded once
+        f = [t.float() if t is not None else None for t in (x, w3, b, r)]
+        want = kconv.conv3x3_in_act_plain(f[0], f[1], f[2], relu=relu, residual=f[3])
+        assert two_bf16_ulps(y, want.to(tdt)), (y.float() - want).abs().max()
+
+
+def test_conv_in_gradient_matches_plain(cuda_device, restore_torch_precision):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    shape = (2, 9, 17, 64)
+    x = torch.randn(shape, generator=g, device=cuda_device, requires_grad=True)
+    w3 = (torch.randn((3, 3, 64, 64), generator=g, device=cuda_device) * 0.05).requires_grad_()
+    b = torch.randn((64,), generator=g, device=cuda_device, requires_grad=True)
+    r = torch.randn(shape, generator=g, device=cuda_device, requires_grad=True)
+    gy = torch.randn(shape, generator=g, device=cuda_device)
+    grads = []
+    for fn in (kconv.conv3x3_in_act, kconv.conv3x3_in_act_plain):
+        y = fn(x, w3, b, relu=True, residual=r)
+        grads.append(torch.autograd.grad(y, (x, w3, b, r), gy))
+    for a, p in zip(*grads):
+        torch.testing.assert_close(a, p, atol=1e-4, rtol=1e-4)
