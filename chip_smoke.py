@@ -17,8 +17,11 @@ and the script exits non-zero):
               IN, the library call F.instance_norm (a yardstick only)
   4. kernels (train)  each training kernel against its plain version, fp32
               and bf16: the IN backward at the 5 generator and 6
-              discriminator shapes of a 512x256 step (N 1 and 2) x 3 acts x
-              residual, the reflect-pad backward at the resblock and head
+              discriminator shapes of a 512x256 step (N 1 and 2) and a tiny
+              odd one x 3 acts x residual, each call on the variant
+              kernels/instance_norm._bwd_plan picks (cluster or split) and
+              the same bits on a second run, and the wrapper's host time a
+              call (1000 calls); the reflect-pad backward at the resblock and head
               pads, MSE/L1 at the D-logit, FM-feature and VGG-tap sizes,
               encode_cond at 512x256; times beside the library call
   5. serving  (main path 1) the port's mask2image_test CLI end to end at
@@ -30,7 +33,9 @@ and the script exits non-zero):
               (G as above, 2-scale 3-layer PatchGAN, VGG19, LSGAN + FM +
               VGG, Adam) on the same kind of dataroot, bs 1, one epoch;
               counters zeroed before and read after, and held to the
-              per-step launch counts of the architecture; every loss
+              per-step launch counts of the architecture, the IN backward's
+              per variant to _bwd_plan's split of the recorded calls; every
+              loss
               finite; latest_params.npz loaded back into the serving model
               for one inference
   7. model    Pix2PixHDModel.inference at 512x256 fp32 (bs 1 and 8): kernel
@@ -43,8 +48,10 @@ and the script exits non-zero):
               leaf on the kernel path against the plain path
   9. conv_in  the fused conv3x3 + IN kernel against its plain version, fp32
               and bf16, at the generator bottleneck (1, 16, 32, 1024) with
-              and without residual and ReLU, an odd shape and the JAX test
-              shape; the same bits on a second run; its autograd gradient
+              and without residual and ReLU, an odd shape, the JAX test
+              shape and the wgmma kernel's cases (CONV_IN_SHAPES), each call
+              on the variant kernels/conv_in._plan picks; the same bits on a
+              second run; its autograd gradient
               against the plain one; times beside the bound, the plain
               version and the library composition (reflect pad, cuDNN conv,
               F.instance_norm: no single PyTorch call computes it)
@@ -55,10 +62,11 @@ and the script exits non-zero):
               of the pooled step; web/index.html, iter.txt
  11. roofline (main path 4) the port's resblock roofline tool at bs 32
               (tools/roofline_resblock.py, few iterations): counters zeroed
-              before and read after; the fused kernel must have launched
+              before and read after; the fused kernel must have launched,
+              every call as the wgmma variant
  12. step bf16  make_train_step in the bf16 tier at 512x256, bs 1 and 4:
               ms/step, images/s, peak memory, per-step launches of every
-              kernel
+              kernel (the IN backward's per variant)
 With --profile: torch.profiler tables of one serving forward and of train
 steps at 512x256 bs 1.
 The last two lines of standard output are the kernels' JSON summary and
@@ -135,10 +143,15 @@ STEP_SENS_FACTOR = 2.0      # the whole path, against the 1-ulp sensitivity
 # conv to bf16 before the statistics, which the kernel never does)
 CONV_IN_ATOL, CONV_IN_RTOL = 3e-5, 1e-4
 CONV_IN_BF16_ULPS = 2
-# (N, H, W, Cin, Cout): the bottleneck, an odd shape, the JAX test shape,
-# channel counts that are not multiples of 8 (the kernel's scalar loads)
+# (N, H, W, Cin, Cout): the bottleneck at bs 1 (the mma.sync kernel), an odd
+# shape, the JAX test shape, channel counts that are not multiples of 8 (the
+# mma kernel's scalar loads); for the wgmma kernel (kernels/conv_in._plan):
+# the bottleneck at bs 4 (a 4-block cluster), H*W not a multiple of 128 with
+# Cin not one of 64 (9x17, 96 -> 40: 2-block clusters), and H*W > 1024 (16
+# tiles: the two-launch epilogue). The roofline path checks bs 32.
 CONV_IN_SHAPES = [(1, 16, 32, 1024, 1024), (2, 9, 17, 96, 40), (2, 8, 16, 128, 128),
-                  (1, 5, 7, 12, 20)]
+                  (1, 5, 7, 12, 20), (4, 16, 32, 1024, 1024), (64, 9, 17, 96, 40),
+                  (16, 32, 48, 64, 64)]
 ROOFLINE_ARGV = ["--batch", "32", "--iters", "5", "--warmup", "2"]
 SHAPES_512x256 = [(256, 512, 64), (128, 256, 128), (64, 128, 256), (32, 64, 512),
                   (16, 32, 1024)]
@@ -269,9 +282,25 @@ def read_launches():
     return {k: f.launches for k, f in counters().items()}
 
 
+def read_variants():
+    """Launches per variant of the kernels that have several."""
+    return {k: dict(f.variants) for k, f in counters().items() if hasattr(f, "variants")}
+
+
 def zero_launches():
     for f in counters().values():
         f.launches = 0
+        for v in getattr(f, "variants", {}):
+            f.variants[v] = 0
+
+
+def bwd_variants(calls):
+    """The IN backward's launches per variant that kernels/instance_norm
+    ._bwd_plan reckons for recorded calls (shape, dtype, act, want_dres)."""
+    want = {v: 0 for v in kin.instance_norm_bwd.variants}
+    for shape, dt, _, _ in calls:
+        want[kin._bwd_plan(*shape, dt)["variant"]] += 1
+    return want
 
 
 def expect_launches(got, want, what):
@@ -303,6 +332,10 @@ def recording():
         @launches.setter
         def launches(self, n):
             self.orig.launches = n
+
+        @property
+        def variants(self):
+            return self.orig.variants
 
     def rec(mod, name, describe):
         return mock.patch.object(mod, name, Recorder(name, getattr(mod, name), describe))
@@ -440,6 +473,25 @@ def library_pad_bwd(dy, pad):
         dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), [pad] * 4)
 
 
+def in_bwd_host_us(dev, calls=1000):
+    """Host time of one IN backward call at the generator bottleneck (relu),
+    fp32 and bf16: the host clock over `calls` calls after a sync (the
+    enqueue rate; the kernel itself takes less)."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((1, 16, 32, 1024), device=dev).to(dt)
+        gy = torch.randn_like(x)
+        y, mean, rstd = kin.instance_norm(x, "relu")
+        kin.instance_norm_bwd(x, y, gy, mean, rstd, "relu")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            kin.instance_norm_bwd(x, y, gy, mean, rstd, "relu")
+        out[str(dt)[6:]] = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def phase_train_kernels(dev, results):
     """Each training kernel against its plain version on the card, fp32 and
     bf16, and its times beside the library call (one site at a time)."""
@@ -450,8 +502,11 @@ def phase_train_kernels(dev, results):
         key = f"{name}/{str(dt).split('.')[-1]}"
         errs[key] = max(errs.get(key, 0.0), err)
 
+    # the 5 generator sites (among them the cluster of 16 at 64x128x256 fp32
+    # and the split sites 256x512x64, 128x256x128), the 12 discriminator
+    # sites and a tiny odd one
     in_shapes = [(1, *sh) for sh in SHAPES_512x256] + [
-        (n, *sh) for n in (1, 2) for sh in D_SHAPES_512x256]
+        (n, *sh) for n in (1, 2) for sh in D_SHAPES_512x256] + [(1, 5, 7, 48)]
     for shape in in_shapes:
         x32 = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
         r32 = torch.randn(shape, generator=gen, device=dev)
@@ -461,9 +516,18 @@ def phase_train_kernels(dev, results):
             for act in ACTS:
                 for res in (None, r):
                     y, mean, rstd = kin.instance_norm(x, act, res)
+                    before = read_variants()["instance_norm_bwd"]
                     got = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None)
+                    again = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None)
+                    after = read_variants()["instance_norm_bwd"]
                     want = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, res is not None)
                     what = f"IN bwd {shape} {dt} {act} res={res is not None}"
+                    variant = kin._bwd_plan(*shape, dt)["variant"]
+                    if {k: after[k] - before[k] for k in after} != dict(
+                            {k: 0 for k in after}, **{variant: 2}):
+                        raise AssertionError(f"{what}: variants {before} -> {after}, plan {variant}")
+                    if not same_bits(got[0], again[0]):
+                        raise AssertionError(f"{what}: two runs differ")
                     keep("instance_norm_bwd", dt, check_close(got[0], want[0], dt,
                                                               IN_BWD_FP32_ATOL, what))
                     if res is not None:
@@ -477,8 +541,11 @@ def phase_train_kernels(dev, results):
                        plain_ms=graph_ms(
                            lambda: kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, "relu")),
                        library_ms=graph_ms(library_in_bwd(x, gy)), bound_ms=bms, bound_by=by)
+            row["variant"] = kin._bwd_plan(*shape, dt)
             rows.append(row)
             log(f"[kernels train] {row}")
+    results["in_bwd_host_us"] = in_bwd_host_us(dev)
+    log(f"[kernels train] IN backward wrapper, host time a call: {results['in_bwd_host_us']}")
     for shape, pad in (((1, 16, 32, 1024), 1), ((1, 256, 512, 64), 3), ((2, 2, 3, 8), 1),
                        ((1, 4, 5, 16), 3)):
         n, h, w, c = shape
@@ -569,12 +636,17 @@ def check_conv_in(x, w3, b, relu, r, what):
     """Kernel vs plain (fp32) or vs the plain version on the fp32 values
     (bf16), the same bits on a second run -> (max |kernel - gate|, max
     |kernel - plain version in x's dtype|)."""
+    before = read_variants()["conv3x3_in_act"]
     y = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
     again = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
+    after = read_variants()["conv3x3_in_act"]
     plain = kconv.conv3x3_in_act_plain(x, w3, b, relu=relu, residual=r)
     torch.cuda.synchronize()
     if not same_bits(y, again):
         raise AssertionError(f"conv3x3_in_act {what}: two runs differ")
+    variant = kconv._plan(*x.shape, w3.shape[3], x.dtype)["variant"]
+    if {k: after[k] - before[k] for k in after} != dict({k: 0 for k in after}, **{variant: 2}):
+        raise AssertionError(f"conv3x3_in_act {what}: variants {before} -> {after}, plan {variant}")
     diff_plain = (y.float() - plain.float()).abs().max().item()
     if x.dtype == torch.float32:
         ok = bool(((y - plain).abs() <= CONV_IN_ATOL + CONV_IN_RTOL * plain.abs()).all())
@@ -615,6 +687,7 @@ def phase_conv_in(dev, results):
                            composition_ms=graph_ms(lambda: library_conv_in(x, w3, b, True)),
                            library_ms=None, bound_ms=bms, bound_by=by)
             row["tflops"] = 2 * math.prod(shape[:3]) * 9 * shape[3] * shape[4] / row["ms"] / 1e9
+            row["plan"] = kconv._plan(*shape, dt)
             rows.append(row)
             log(f"[conv_in] {row}")
     # the autograd.Function's gradient (the recomputed plain composition)
@@ -776,7 +849,11 @@ def phase_train_cli(tmp, results):
         raise AssertionError(f"{steps} steps, {len(errors)} loss lines")
     for k, n in per_step.items():
         expect_launches(launches[k], n * steps, f"train CLI {k}")
-    log(f"[train CLI] losses, first step {errors[0]}, last step {errors[-1]}")
+    variants = read_variants()
+    expect_launches(variants["instance_norm_bwd"], bwd_variants(calls["instance_norm_bwd"]),
+                    "train CLI, instance_norm_bwd variants (_bwd_plan)")
+    log(f"[train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
+        f"IN backward variants {variants['instance_norm_bwd']}")
     # the checkpoint the CLI wrote, back into the serving model
     opt = MaskToImageTestOptions(gpu_ids=GPU_IDS, name="smoke_train", checkpoints_dir=ckpt,
                                  **ARCH)
@@ -794,10 +871,11 @@ def phase_train_cli(tmp, results):
     log(f"[train CLI] latest_params.npz served: output {tuple(out.shape)} finite")
     step_calls = {k: v[: len(v) // steps] for k, v in calls.items()}
     results["train_cli"] = dict(wall_s=wall, steps=steps, launches=launches,
-                                per_step=per_step, losses=errors, window=[h, w])
+                                per_step=per_step, losses=errors, window=[h, w],
+                                variants=variants)
     del model, serve
     torch.cuda.empty_cache()
-    return launches, step_calls
+    return launches, step_calls, variants
 
 
 def phase_train_cli_bf16(tmp, results):
@@ -814,8 +892,12 @@ def phase_train_cli_bf16(tmp, results):
     runs, total = [], {k: 0 for k in counters()}
     done = 0
     for niter, extra in (("1", []), ("2", ["--continue_train"])):
-        state, model, errors, wall, launches, per_step = drive_train_cli(
-            argv + ["--niter", niter, *extra])
+        with recording() as calls:
+            state, model, errors, wall, launches, per_step = drive_train_cli(
+                argv + ["--niter", niter, *extra])
+        variants = read_variants()
+        expect_launches(variants["instance_norm_bwd"], bwd_variants(calls["instance_norm_bwd"]),
+                        f"bf16 train CLI epoch {niter}, instance_norm_bwd variants (_bwd_plan)")
         steps = state.step - done
         done = state.step
         if steps < 1 or len(errors) != steps:
@@ -832,7 +914,8 @@ def phase_train_cli_bf16(tmp, results):
             raise AssertionError(f"iter.txt {it!r} after epoch {niter}")
         total = {k: total[k] + launches[k] for k in total}
         run = dict(niter=int(niter), continue_train=bool(extra), steps=steps, wall_s=wall,
-                   launches=launches, per_step=per_step, losses_first=errors[0],
+                   launches=launches, per_step=per_step, variants=variants,
+                   losses_first=errors[0],
                    losses_last=errors[-1])
         runs.append(run)
         log(f"[train CLI bf16] {run}")
@@ -855,11 +938,16 @@ def phase_roofline(tmp, results):
     calls = report["iters"] + int(ROOFLINE_ARGV[ROOFLINE_ARGV.index("--warmup") + 1])
     expect_launches(launches, dict({k: 0 for k in launches}, conv3x3_in_act=calls + 1,
                                    reflect_pad_bwd=2 * calls), "roofline tool")
+    # every call at bs 32 is the wgmma kernel (kernels/conv_in._plan)
+    variants = read_variants()["conv3x3_in_act"]
+    expect_launches(variants, dict({k: 0 for k in variants}, wgmma=calls + 1),
+                    "roofline tool, conv3x3_in_act variants")
     with open(out) as f:
         if json.load(f)["kernel_conv_in_relu_fwd"]["ms"] != report["kernel_conv_in_relu_fwd"]["ms"]:
             raise AssertionError("the roofline tool's --out differs from its report")
-    log(f"[roofline] launches {launches}; report {json.dumps(report)}")
-    results["roofline"] = dict(report=report, launches=launches)
+    log(f"[roofline] launches {launches}, conv3x3_in_act variants {variants}; "
+        f"report {json.dumps(report)}")
+    results["roofline"] = dict(report=report, launches=launches, variants=variants)
     return launches
 
 
@@ -1044,11 +1132,14 @@ def phase_train_step_bf16(dev, results):
     for bs, iters in ((1, 10), (4, 4)):
         batch = encode_inputs(bs, *STEP_HW, dev, seed=8)
         state = make_optimizers(opt, model, 1000)
-        for _ in range(3):
+        with recording() as calls:
+            step(state, batch)
+        bwd_per_step = bwd_variants(calls["instance_norm_bwd"])
+        for _ in range(2):
             step(state, batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = read_launches()
+        before, vbefore = read_launches(), read_variants()["instance_norm_bwd"]
         t = time.perf_counter()
         for _ in range(iters):
             metrics, fake = step(state, batch)
@@ -1057,6 +1148,10 @@ def phase_train_step_bf16(dev, results):
         after = read_launches()
         for k, n in per_step.items():
             expect_launches(after[k] - before[k], n * iters, f"bf16 step bs {bs} {k}")
+        vafter = read_variants()["instance_norm_bwd"]
+        expect_launches({k: vafter[k] - vbefore[k] for k in vafter},
+                        {k: n * iters for k, n in bwd_per_step.items()},
+                        f"bf16 step bs {bs}, instance_norm_bwd variants (_bwd_plan)")
         losses = {k: v.item() for k, v in metrics.items()}
         if fake.dtype != torch.bfloat16 or not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"bf16 step bs {bs}: fake {fake.dtype}, losses {losses}")
@@ -1064,7 +1159,7 @@ def phase_train_step_bf16(dev, results):
                    precision=model.conv_precision_resolved, ms_per_step=ms,
                    images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs,
                    peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
-                   launches_per_step=per_step)
+                   launches_per_step=per_step, in_bwd_variants_per_step=bwd_per_step)
         rows.append(row)
         log(f"[step bf16] {row}")
     results["step_bf16"] = rows
@@ -1489,7 +1584,7 @@ def main(argv=None):
     phase_conv_in(dev, results)
     with tempfile.TemporaryDirectory() as tmp:
         sites, out_shape = phase_serving(tmp, results)
-        cli_launches, cli_calls = phase_train_cli(tmp, results)
+        cli_launches, cli_calls, cli_variants = phase_train_cli(tmp, results)
         bf16_launches = phase_train_cli_bf16(tmp, results)
         roofline_launches = phase_roofline(tmp, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
@@ -1499,6 +1594,13 @@ def main(argv=None):
     phase_train_step_bf16(dev, results)
     kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, results)
     kernels.append(conv_in_main_path_row(dev, results))
+    # launches per variant on the main path of the row (the plan functions'
+    # split, checked in phases 6 and 11)
+    for row in kernels:
+        if row["name"] == "instance_norm_bwd":
+            row["variants"] = cli_variants["instance_norm_bwd"]
+        if row["name"] == "conv3x3_in_act":
+            row["variants"] = results["roofline"]["variants"]
     for row in kernels:
         name = row["name"]
         row["launches_by_path"] = {

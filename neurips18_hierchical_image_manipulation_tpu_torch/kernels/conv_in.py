@@ -9,10 +9,14 @@ is added before the statistics, IN takes eps 1e-5 and the biased variance
 from the fp32 sums, and y is written once in x's dtype.
 
 Bound: operations (9.66 GFLOP a call at the generator bottleneck, bs 1,
-16x32x1024). ``csrc/conv_in.cu`` runs the conv as an implicit GEMM with the
-reflect pad folded into its loads (fp32 FMA for fp32, ``mma.sync`` bf16
-tensor cores for bf16) and merges the per-tile IN statistics in a second
-launch that also normalizes — see the source. The TPU kernel's gates (Cout
+16x32x1024; 309 GFLOP at the roofline tool's bs 32). ``csrc/conv_in.cu``
+runs the conv as an implicit GEMM, one of three hand-written kernels that
+``_plan`` picks by shape: bf16 calls that fill the card take the Hopper
+kernel (TMA ring, ``wgmma``, the IN statistics merged across a thread-block
+cluster that holds the plane, one write of y); other bf16 calls the
+``mma.sync`` kernel and fp32 calls the FMA kernel, whose per-tile IN
+statistics a second launch merges while it normalizes — see the source.
+``conv3x3_in_act.variants`` counts the launches of each. The TPU kernel's gates (Cout
 % 128, a 10 MB VMEM plan) have no counterpart: every shape with H, W > 1 is
 served. The JAX ``use_pallas=False`` is the caller asking for
 ``conv3x3_in_act_plain`` by name.
@@ -27,6 +31,7 @@ network of the port calls this op: its path is the resblock roofline tool
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -70,6 +75,43 @@ def _check(x, w3x3, b, residual):
         raise ValueError("residual must be (N, H, W, Cout) in x's dtype, on x's device")
 
 
+_MIN_BLOCKS = 64     # wgmma blocks (one resident per SM): half of an H100's 132
+_MAX_CLUSTER = 8     # portable cluster size: the plane's tiles in one cluster
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(n: int, h: int, w: int, cin: int, cout: int, dtype) -> dict:
+    """Which hand-written kernel serves an (n, h, w, cin) -> cout call.
+
+    ``variant``: "fma" (fp32: the parity tier, no TF32); "wgmma" (bf16, Cin
+    and Cout multiples of 8, whose tiles of 256 output channels make at
+    least ``_MIN_BLOCKS`` blocks); "mma" (bf16 otherwise:
+    the ``mma.sync`` kernel, which serves bs 1 and any channel count).
+    ``tile``: (rows, columns) of the image a block owns: for "wgmma" whole
+    rows of up to 128 pixels (``128 // w`` rows of ``w`` columns, at most H,
+    or 128 columns of one row when w > 128), else 64 pixels of the flattened
+    H*W.
+    ``tiles``: blocks over one sample's plane. ``cluster``: blocks of a
+    thread-block cluster (the plane's tiles: one launch of the conv, the IN
+    statistics merged in the cluster) or 1 (two launches).
+    """
+    hw = h * w
+    variant = "fma" if dtype == torch.float32 else "mma"
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+        wt = min(w, 128)
+        rb = min(128 // wt, h)
+        tiles = -(-h // rb) * -(-w // wt)
+        if n * tiles * -(-cout // 256) >= _MIN_BLOCKS:
+            variant = "wgmma"
+    if variant != "wgmma":
+        rb, wt, tiles = None, None, -(-hw // 64)
+    cluster = tiles if variant == "wgmma" and tiles <= _MAX_CLUSTER else 1
+    return {"variant": variant, "tile": (rb, wt), "tiles": tiles, "cluster": cluster}
+
+
+_VARIANT_ID = {"fma": 0, "mma": 1, "wgmma": 2}
+
+
 def _launch(x, w3x3, b, residual, relu):
     """The kernel on a CUDA tensor: -> y in x's dtype."""
     n, h, w, cin = x.shape
@@ -77,20 +119,24 @@ def _launch(x, w3x3, b, residual, relu):
     if n > 65535 or -(-cout // 64) > 65535:
         raise ValueError(f"conv3x3_in_act grid limits: N {n}, Cout {cout}")
     lib = _lib()
+    plan = _plan(n, h, w, cin, cout, x.dtype)
+    variant, (rb, wt) = _VARIANT_ID[plan["variant"]], plan["tile"]
+    rb, wt, clustered = rb or 0, wt or 0, int(plan["cluster"] > 1)
     w3x3 = w3x3.contiguous()
     bias = b.to(torch.float32).contiguous()
     res = residual.contiguous() if residual is not None else None
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    ws = torch.empty(lib.himan_conv_in_workspace(n, h, w, cout), dtype=torch.float32,
-                     device=x.device)
+    ws = torch.empty(lib.himan_conv_in_workspace(n, h, w, cin, cout, variant, wt, rb, clustered),
+                     dtype=torch.uint8, device=x.device)
     err = lib.himan_conv3x3_in_act(
         x.data_ptr(), w3x3.data_ptr(), bias.data_ptr(),
         res.data_ptr() if res is not None else None, y.data_ptr(), ws.data_ptr(),
-        n, h, w, cin, cout, int(relu), EPS, int(x.dtype == torch.bfloat16),
+        n, h, w, cin, cout, int(relu), EPS, variant, wt, rb, clustered,
         _build.stream_for(x.device),
     )
     _build.check(err, "himan_conv3x3_in_act")
     conv3x3_in_act.launches += 1
+    conv3x3_in_act.variants[plan["variant"]] += 1
     return y
 
 
@@ -132,6 +178,7 @@ def conv3x3_in_act(x, w3x3, b, *, relu: bool = False,
 
 
 conv3x3_in_act.launches = 0
+conv3x3_in_act.variants = {"fma": 0, "mma": 0, "wgmma": 0}
 
 
 def _lib():
@@ -139,8 +186,8 @@ def _lib():
     fn = lib.himan_conv3x3_in_act
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.himan_conv_in_workspace.argtypes = [i, i, i, i]
+        lib.himan_conv_in_workspace.argtypes = [i] * 9
         lib.himan_conv_in_workspace.restype = ctypes.c_int64
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
         fn.restype = i
     return lib

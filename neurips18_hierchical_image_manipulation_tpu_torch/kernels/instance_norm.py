@@ -18,8 +18,12 @@ Backward: ``instance_norm_bwd`` replaces ``_run_bwd`` / ``_bwd_kernel``
 of the same file: dx = (gm - mean(gm) - x̂·mean(gm·x̂))·rstd with gm the
 cotangent after the activation's mask (relu y > 0; lrelu 1 where y >= 0,
 else 0.2, as ``nnops.leaky_relu``'s ``where(x >= 0, ...)``), and the
-residual's gradient gm itself. fp32 sums per HW split, merged per (n, c),
-no atomics (deterministic). ``instance_norm_act`` is the differentiable
+residual's gradient gm itself. ``_bwd_plan`` picks, by shape, one launch in
+which a thread-block cluster holds the (sample, channel tile) plane in
+shared memory and merges its blocks' sums through distributed shared memory,
+or, for planes too large for 16 blocks, a two-launch split form; fp32 sums in
+a fixed order, no atomics (deterministic); ``instance_norm_bwd.variants``
+counts the launches of each. ``instance_norm_act`` is the differentiable
 entry point: an ``autograd.Function`` whose forward is the forward kernel
 and whose backward is this one; ``instance_norm_act_plain`` is plain
 autograd through the plain version.
@@ -34,6 +38,7 @@ plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -136,6 +141,44 @@ def instance_norm_bwd_plain(x, y, g, mean, rstd, act="none", want_dres=False):
     return dx, (gm.to(x.dtype) if want_dres else None)
 
 
+_BWD_BLOCKS = 2 * 132     # two 256-thread blocks per SM of an H100
+_BWD_SLAB = 196_608        # shared memory a cluster block stages x, g, y in
+                           # (csrc/instance_norm.cu kBwdSlab)
+_BWD_MAX_CLUSTER = 16      # non-portable cluster size limit on Hopper
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(n: int, h: int, w: int, c: int, dtype) -> dict:
+    """The backward kernel's launch plan for an (n, h, w, c) site.
+
+    ``variant`` "cluster": one launch, the (sample, 32-channel) plane held by
+    the ``cluster`` blocks of one thread-block cluster, ``chunk`` rows each,
+    in shared memory (16-byte rows: c a multiple of 4 fp32 / 8 bf16
+    channels). The cluster is the smallest that holds the plane, grown (up
+    to 8, the portable size) while the grid is short of ``_BWD_BLOCKS`` and
+    each block keeps a full pass of its row lanes.
+    ``variant`` "split": two launches over ``splits`` blocks of ``chunk``
+    rows (a multiple of the row lanes) per (sample, channel tile), about
+    ``_BWD_BLOCKS`` blocks in all, each at least 4 passes of its row lanes.
+    """
+    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
+    vec = 16 // item
+    lanes = 256 // (32 // vec)          # row lanes of a block: 32 fp32, 64 bf16
+    tiles = n * -(-c // 32)
+    max_rows = _BWD_SLAB // (32 * item * 3)
+    cs = -(-hw // max_rows)
+    if c % vec or cs > _BWD_MAX_CLUSTER:
+        s = max(1, min(-(-_BWD_BLOCKS // tiles), hw // (4 * lanes)))
+        rows = -(-hw // s)
+        chunk = -(-rows // lanes) * lanes
+        return {"variant": "split", "cluster": 1, "splits": -(-hw // chunk), "chunk": chunk}
+    while cs < 8 and tiles * cs < _BWD_BLOCKS and -(-hw // (cs + 1)) >= lanes:
+        cs += 1
+    chunk = -(-hw // cs)
+    return {"variant": "cluster", "cluster": -(-hw // chunk), "splits": -(-hw // chunk),
+            "chunk": chunk}
+
+
 def instance_norm_bwd(x, y, g, mean, rstd, act: str = "none", want_dres: bool = False):
     """Backward of ``instance_norm``: x, y (its output; unused and may be
     None for act 'none'), g (the cotangent of y), mean, rstd (its fp32
@@ -159,23 +202,31 @@ def instance_norm_bwd(x, y, g, mean, rstd, act: str = "none", want_dres: bool = 
     if n > 65535 or h * w * c >= 2**30:
         raise ValueError(f"instance_norm grid limits: N {n} <= 65535, H*W*C {h * w * c} < 2^30")
     lib = _lib()
-    s, chunk = _splits(n, h * w, c)
-    dx = torch.empty_like(x)
-    dres = torch.empty_like(x) if want_dres else None
-    ws = torch.empty(2 * n * c + 2 * n * s * c, dtype=torch.float32, device=x.device)
+    plan = _bwd_plan(n, h, w, c, x.dtype)
+    split = plan["variant"] == "split"
+    # one allocation of x's shape a slot: dx, dres, then the split form's
+    # fp32 partials, 2 n splits c floats (one slot but at tiny H*W)
+    scratch = -(-8 * plan["splits"] // (h * w * x.element_size())) if split else 0
+    buf = torch.empty((1 + int(want_dres) + scratch, n, h, w, c), dtype=x.dtype,
+                      device=x.device)
+    dx = buf[0]
+    dres = buf[1] if want_dres else None
+    ws = buf[1 + int(want_dres)].data_ptr() if split else None
     err = lib.himan_instance_norm_bwd(
         x.data_ptr(), y.data_ptr() if act != "none" else None, g.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-        dres.data_ptr() if want_dres else None, ws.data_ptr(),
-        n, h * w, c, s, chunk, ACTS[act], int(x.dtype == torch.bfloat16),
-        _build.stream_for(x.device),
+        dres.data_ptr() if want_dres else None, ws,
+        n, h * w, c, plan["splits"], plan["chunk"], ACTS[act], int(not split),
+        int(x.dtype == torch.bfloat16), _build.stream_for(x.device),
     )
     _build.check(err, "himan_instance_norm_bwd")
     instance_norm_bwd.launches += 1
+    instance_norm_bwd.variants[plan["variant"]] += 1
     return dx, dres
 
 
 instance_norm_bwd.launches = 0
+instance_norm_bwd.variants = {"cluster": 0, "split": 0}
 
 
 class _InstanceNormAct(torch.autograd.Function):
@@ -224,6 +275,6 @@ def _lib():
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = i
         bwd = lib.himan_instance_norm_bwd
-        bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         bwd.restype = i
     return lib

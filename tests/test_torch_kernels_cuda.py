@@ -141,9 +141,12 @@ def close_bf16_ok(got, want, dt):
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["none", "relu", "lrelu"])
 @pytest.mark.parametrize("residual", [False, True])
-# a generator site, two odd discriminator sites, a tiny one
+# a generator site, two odd discriminator sites, a tiny one; the bottleneck
+# (a cluster of 5), a cluster of 16 (fp32), the 256x512x64 split site and a
+# channel count off the 16-byte vectors (split, scalar loads)
 @pytest.mark.parametrize("shape", [(1, 64, 128, 64), (2, 33, 65, 256), (1, 17, 33, 512),
-                                   (1, 5, 7, 48)])
+                                   (1, 5, 7, 48), (1, 16, 32, 1024), (1, 64, 128, 256),
+                                   (1, 256, 512, 64), (2, 5, 7, 3)])
 def test_in_backward_kernel_matches_plain(cuda_device, dt, act, residual, shape):
     tdt = getattr(torch, dt)
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -152,8 +155,11 @@ def test_in_backward_kernel_matches_plain(cuda_device, dt, act, residual, shape)
     gy = torch.randn(shape, generator=g, device=cuda_device).to(tdt)
     y, mean, rstd = kin.instance_norm(x, act, r)
     before = kin.instance_norm_bwd.launches
+    variant = kin._bwd_plan(*shape, tdt)["variant"]
+    v0 = kin.instance_norm_bwd.variants[variant]
     dx, dres = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, want_dres=residual)
     assert kin.instance_norm_bwd.launches == before + 1
+    assert kin.instance_norm_bwd.variants[variant] == v0 + 1
     dxp, dresp = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, want_dres=residual)
     torch.cuda.synchronize()
     close_bf16_ok(dx, dxp, tdt)
@@ -270,10 +276,15 @@ def two_bf16_ulps(got, want):
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu,residual", [(True, False), (False, True), (False, False)])
 # the JAX test shape, an odd shape, 4x4 (Cout 24), channel counts that are
-# not multiples of 8 (no 16-byte loads), the bottleneck
+# not multiples of 8 (no 16-byte loads), the bottleneck; the wgmma kernel
+# (kernels/conv_in._plan): bs 4 (a 4-block cluster), 9x17 with Cin 96 (a
+# 2-block cluster, H*W and Cin off the tile), 32x48 (16 tiles: the two-launch
+# epilogue), a row wider than a tile (300 columns), the roofline shape
 @pytest.mark.parametrize("shape", [(2, 8, 16, 128, 128), (2, 9, 17, 96, 40),
                                    (1, 4, 4, 8, 24), (1, 5, 7, 12, 20),
-                                   (1, 16, 32, 1024, 1024)])
+                                   (1, 16, 32, 1024, 1024), (4, 16, 32, 1024, 1024),
+                                   (64, 9, 17, 96, 40), (16, 32, 48, 64, 64),
+                                   (4, 6, 300, 64, 64), (32, 16, 32, 1024, 1024)])
 def test_conv_in_kernel_matches_plain(cuda_device, restore_torch_precision, dt, relu,
                                       residual, shape):
     torch.backends.cudnn.allow_tf32 = False  # the plain conv in full fp32
@@ -286,12 +297,15 @@ def test_conv_in_kernel_matches_plain(cuda_device, restore_torch_precision, dt, 
     b = torch.randn((cout,), generator=g, device=cuda_device).to(tdt)
     r = torch.randn((n, h, w, cout), generator=g, device=cuda_device).to(tdt) if residual else None
     before = kconv.conv3x3_in_act.launches
+    variant = kconv._plan(*shape, tdt)["variant"]
+    v0 = kconv.conv3x3_in_act.variants[variant]
     with torch.no_grad():
         y = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
         again = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
         want = kconv.conv3x3_in_act_plain(x, w3, b, relu=relu, residual=r)
         torch.cuda.synchronize()
     assert kconv.conv3x3_in_act.launches == before + 2
+    assert kconv.conv3x3_in_act.variants[variant] == v0 + 2
     assert bits_equal(y, again)  # no atomics: the same bits every run
     if dt == "float32":
         torch.testing.assert_close(y, want, atol=3e-5, rtol=1e-4)
