@@ -12,9 +12,13 @@ and the script exits non-zero):
   3. kernels  at the serving shapes (512x256, bs 1 and 8; fp32 and bf16)
               each serving kernel against its plain PyTorch version on the
               card: encode bit-exact in both pad modes, IN at the 5
-              generator shapes x 3 acts x residual within the stated
-              tolerance; CUDA-event times of kernel, plain version and, for
-              IN, the library call F.instance_norm (a yardstick only)
+              generator shapes (bs 1 and 8), the 6 discriminator shapes (N
+              1 and 2) and three odd ones x 3 acts x residual within the
+              stated tolerance, each call on the variant
+              kernels/instance_norm._fwd_plan picks (cluster or split) and
+              the same bits on a second run; CUDA-event times of kernel,
+              plain version and, for IN, the library call F.instance_norm
+              (a yardstick only)
   4. kernels (train)  each training kernel against its plain version, fp32
               and bf16: the IN backward at the 5 generator and 6
               discriminator shapes of a 512x256 step (N 1 and 2) and a tiny
@@ -22,20 +26,23 @@ and the script exits non-zero):
               kernels/instance_norm._bwd_plan picks (cluster or split) and
               the same bits on a second run, and the wrapper's host time a
               call (1000 calls); the reflect-pad backward at the resblock and head
-              pads, MSE/L1 at the D-logit, FM-feature and VGG-tap sizes,
+              pads, one tile with overlapping mirrors and two odd channel
+              counts, each on the variant kernels/reflect_pad._plan picks
+              (bulk or gather), the same bits on a second run; MSE/L1 at the D-logit, FM-feature and VGG-tap sizes,
               encode_cond at 512x256; times beside the library call
   5. serving  (main path 1) the port's mask2image_test CLI end to end at
               full width (label_nc 35, ngf 64, 4 downs, 9 resblocks at 1024
               channels, bbox-crop windows at fineSize 512) on a seeded
               synthetic PNG dataroot of 4 images at 1024x512; launch
-              counters are zeroed just before and read just after
+              counters are zeroed just before and read just after, the IN
+              forward's per variant held to _fwd_plan
   6. train CLI  (main path 2) the port's mask2image_train CLI at full width
               (G as above, 2-scale 3-layer PatchGAN, VGG19, LSGAN + FM +
               VGG, Adam) on the same kind of dataroot, bs 1, one epoch;
               counters zeroed before and read after, and held to the
-              per-step launch counts of the architecture, the IN backward's
-              per variant to _bwd_plan's split of the recorded calls; every
-              loss
+              per-step launch counts of the architecture, the IN forward's,
+              the IN backward's and the reflect-pad backward's per variant
+              to their plans' split of the recorded calls; every loss
               finite; latest_params.npz loaded back into the serving model
               for one inference
   7. model    Pix2PixHDModel.inference at 512x256 fp32 (bs 1 and 8): kernel
@@ -43,8 +50,9 @@ and the script exits non-zero):
               images/s, peak memory; one --norm batch forward at 256x128
               (the pad-0 encode mode)
   8. step     make_train_step at 512x256 fp32, bs 1 and 4: ms/step,
-              images/s, peak memory, the plain path's ms/step; from the
-              same parameters one step's loss terms and every G/D gradient
+              images/s, peak memory, the plain path's ms/step, per-variant
+              launches of one step against the plans; from the same
+              parameters one step's loss terms and every G/D gradient
               leaf on the kernel path against the plain path
   9. conv_in  the fused conv3x3 + IN kernel against its plain version, fp32
               and bf16, at the generator bottleneck (1, 16, 32, 1024) with
@@ -63,10 +71,13 @@ and the script exits non-zero):
  11. roofline (main path 4) the port's resblock roofline tool at bs 32
               (tools/roofline_resblock.py, few iterations): counters zeroed
               before and read after; the fused kernel must have launched,
-              every call as the wgmma variant
+              every call as the wgmma variant, every pad's backward as the
+              bulk variant
  12. step bf16  make_train_step in the bf16 tier at 512x256, bs 1 and 4:
               ms/step, images/s, peak memory, per-step launches of every
-              kernel (the IN backward's per variant)
+              kernel (per variant where a kernel has several); the IN
+              forward and the reflect-pad backward timed over the calls of
+              one bs-1 bf16 step
 With --profile: torch.profiler tables of one serving forward and of train
 steps at 512x256 bs 1.
 The last two lines of standard output are the kernels' JSON summary and
@@ -294,13 +305,48 @@ def zero_launches():
             f.variants[v] = 0
 
 
-def bwd_variants(calls):
-    """The IN backward's launches per variant that kernels/instance_norm
-    ._bwd_plan reckons for recorded calls (shape, dtype, act, want_dres)."""
-    want = {v: 0 for v in kin.instance_norm_bwd.variants}
-    for shape, dt, _, _ in calls:
-        want[kin._bwd_plan(*shape, dt)["variant"]] += 1
+def plan_variant(kind, call):
+    """The variant the kernel's plan picks for one recorded call."""
+    if kind == "reflect_pad_bwd":
+        (n, hp, wp, c), dt, pad = call
+        return krp._plan(n, hp - 2 * pad, wp - 2 * pad, c, pad, dt)["variant"]
+    shape, dt = call[:2]
+    plan = kin._fwd_plan if kind == "instance_norm" else kin._bwd_plan
+    return plan(*shape, dt)["variant"]
+
+
+def plan_variants(kind, calls):
+    """The launches per variant that the kernel's plan (kernels/instance_norm
+    ._fwd_plan, ._bwd_plan, kernels/reflect_pad._plan) reckons for recorded
+    calls of one kernel."""
+    want = {v: 0 for v in counters()[kind].variants}
+    for call in calls:
+        want[plan_variant(kind, call)] += 1
     return want
+
+
+def expect_variants(calls, what, since=None):
+    """Every kernel with variants launched as its plan reckons for its
+    recorded calls (per-variant counts since `since`, else since zero)."""
+    got = read_variants()
+    for kind, counts in got.items():
+        if kind not in calls:
+            continue
+        if since is not None:
+            counts = {k: v - since[kind][k] for k, v in counts.items()}
+        expect_launches(counts, plan_variants(kind, calls[kind]), f"{what}, {kind} variants")
+    return got
+
+
+def twice_on(kind, variant, fn, what):
+    """fn() twice -> both results, after checking that the two launches of
+    `kind` both went to `variant` (its plan's pick)."""
+    before = read_variants()[kind]
+    results = fn(), fn()
+    after = read_variants()[kind]
+    if {k: after[k] - before[k] for k in after} != dict({k: 0 for k in after}, **{variant: 2}):
+        raise AssertionError(f"{what}: variants {before} -> {after}, plan {variant}")
+    return results
 
 
 def expect_launches(got, want, what):
@@ -312,7 +358,7 @@ def expect_launches(got, want, what):
 def recording():
     """Record the arguments' shapes of every call of a training kernel's
     wrapper (a call on a CPU tensor too), by kernel name."""
-    calls = {k: [] for k in TRAIN_KERNELS}
+    calls = {k: [] for k in ("instance_norm",) + TRAIN_KERNELS}
 
     class Recorder:
         """Stands in for a wrapper; a wrapper finds its own launch counter
@@ -340,7 +386,10 @@ def recording():
     def rec(mod, name, describe):
         return mock.patch.object(mod, name, Recorder(name, getattr(mod, name), describe))
 
-    with rec(kin, "instance_norm_bwd",
+    with rec(kin, "instance_norm",
+             lambda x, act="none", residual=None, eps=kin.EPS:
+             (tuple(x.shape), x.dtype, act, residual is not None)), \
+            rec(kin, "instance_norm_bwd",
              lambda x, y, g, mean, rstd, act="none", want_dres=False:
              (tuple(x.shape), x.dtype, act, bool(want_dres))), \
             rec(krp, "reflect_pad_bwd", lambda dy, pad: (tuple(dy.shape), dy.dtype, pad)), \
@@ -397,40 +446,51 @@ def phase_kernels(dev, results):
                 log(f"[kernels] encode 512x256 {row}")
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    for bs in (1, 8):
-        for h, w, c in SHAPES_512x256:
-            x32 = torch.randn((bs, h, w, c), generator=gen, device=dev) * 2 + 0.5
-            r32 = torch.randn((bs, h, w, c), generator=gen, device=dev)
-            for dt in (torch.float32, torch.bfloat16):
-                x, r = x32.to(dt), r32.to(dt)
-                name = str(dt).split(".")[-1]
-                for act in ("none", "relu", "lrelu"):
-                    for res in (None, r):
-                        y, mean, rstd = kin.instance_norm(x, act, res)
-                        yp, mp, rp = kin.instance_norm_plain(x, act, res)
-                        torch.cuda.synchronize()
-                        torch.testing.assert_close(mean, mp, atol=1e-5, rtol=1e-5)
-                        torch.testing.assert_close(rstd, rp, atol=1e-5, rtol=1e-5)
-                        err = (y.float() - yp.float()).abs().max().item()
-                        if dt == torch.float32:
-                            ok = err <= IN_FP32_ATOL
-                        else:
-                            ok = bool(((y.float() - yp.float()).abs()
-                                       <= IN_BF16_ATOL + IN_BF16_RTOL * yp.float().abs()).all())
-                        if not ok:
-                            raise AssertionError(
-                                f"IN mismatch {(bs, h, w, c)} {name} {act} "
-                                f"res={res is not None}: max|diff| {err}")
-                        max_err[name] = max(max_err[name], err)
-                ms = graph_ms(lambda: kin.instance_norm(x, "relu"))
-                pms = graph_ms(lambda: kin.instance_norm_plain(x, "relu"))
-                lms = graph_ms(lambda: F.instance_norm(x.permute(0, 3, 1, 2), eps=1e-5))
-                nbytes, ops = in_bytes(bs, h * w, c, x.element_size(), False)
-                bms, by = bound(nbytes, ops)
-                row = dict(shape=[bs, h, w, c], dtype=name, act="relu", ms=ms, plain_ms=pms,
-                           library_ms=lms, bound_ms=bms, bound_by=by)
-                in_rows.append(row)
-                log(f"[kernels] instance_norm {row}")
+    # the generator's sites at bs 1 and 8 (timed), the discriminator's at N
+    # 1 and 2, a tiny one and channel counts off the 16-byte vectors
+    shapes = [(bs, *sh) for bs in (1, 8) for sh in SHAPES_512x256] + [
+        (n, *sh) for n in (1, 2) for sh in D_SHAPES_512x256] + [(1, 5, 7, 48), (2, 5, 7, 3),
+                                                                 (1, 9, 11, 100)]
+    for shape in shapes:
+        bs, h, w, c = shape
+        x32 = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+        r32 = torch.randn(shape, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x, r = x32.to(dt), r32.to(dt)
+            name = str(dt).split(".")[-1]
+            variant = kin._fwd_plan(*shape, dt)["variant"]
+            for act in ("none", "relu", "lrelu"):
+                for res in (None, r):
+                    what = f"IN {shape} {name} {act} res={res is not None}"
+                    (y, mean, rstd), again = twice_on(
+                        "instance_norm", variant, lambda: kin.instance_norm(x, act, res), what)
+                    yp, mp, rp = kin.instance_norm_plain(x, act, res)
+                    torch.cuda.synchronize()
+                    if not all(same_bits(a, b) for a, b in zip((y, mean, rstd), again)):
+                        raise AssertionError(f"{what}: two runs differ")
+                    torch.testing.assert_close(mean, mp, atol=1e-5, rtol=1e-5)
+                    torch.testing.assert_close(rstd, rp, atol=1e-5, rtol=1e-5)
+                    err = (y.float() - yp.float()).abs().max().item()
+                    if dt == torch.float32:
+                        ok = err <= IN_FP32_ATOL
+                    else:
+                        ok = bool(((y.float() - yp.float()).abs()
+                                   <= IN_BF16_ATOL + IN_BF16_RTOL * yp.float().abs()).all())
+                    if not ok:
+                        raise AssertionError(f"{what}: max|diff| {err}")
+                    max_err[name] = max(max_err[name], err)
+            if shape[1:] not in SHAPES_512x256 or bs not in (1, 8):
+                continue
+            ms = graph_ms(lambda: kin.instance_norm(x, "relu"))
+            pms = graph_ms(lambda: kin.instance_norm_plain(x, "relu"))
+            lms = graph_ms(lambda: F.instance_norm(x.permute(0, 3, 1, 2), eps=1e-5))
+            nbytes, ops = in_bytes(bs, h * w, c, x.element_size(), False)
+            bms, by = bound(nbytes, ops)
+            row = dict(shape=[bs, h, w, c], dtype=name, act="relu", ms=ms, plain_ms=pms,
+                       library_ms=lms, bound_ms=bms, bound_by=by,
+                       plan=kin._fwd_plan(*shape, dt))
+            in_rows.append(row)
+            log(f"[kernels] instance_norm {row}")
     log(f"[kernels] IN max|kernel - plain|: {max_err} (fp32 limit {IN_FP32_ATOL})")
     results["kernel_rows"] = {"encode": enc_rows, "instance_norm": in_rows}
     results["in_max_err"] = max_err
@@ -516,16 +576,12 @@ def phase_train_kernels(dev, results):
             for act in ACTS:
                 for res in (None, r):
                     y, mean, rstd = kin.instance_norm(x, act, res)
-                    before = read_variants()["instance_norm_bwd"]
-                    got = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None)
-                    again = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None)
-                    after = read_variants()["instance_norm_bwd"]
-                    want = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, res is not None)
                     what = f"IN bwd {shape} {dt} {act} res={res is not None}"
-                    variant = kin._bwd_plan(*shape, dt)["variant"]
-                    if {k: after[k] - before[k] for k in after} != dict(
-                            {k: 0 for k in after}, **{variant: 2}):
-                        raise AssertionError(f"{what}: variants {before} -> {after}, plan {variant}")
+                    got, again = twice_on(
+                        "instance_norm_bwd", kin._bwd_plan(*shape, dt)["variant"],
+                        lambda: kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None),
+                        what)
+                    want = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, res is not None)
                     if not same_bits(got[0], again[0]):
                         raise AssertionError(f"{what}: two runs differ")
                     keep("instance_norm_bwd", dt, check_close(got[0], want[0], dt,
@@ -546,18 +602,26 @@ def phase_train_kernels(dev, results):
             log(f"[kernels train] {row}")
     results["in_bwd_host_us"] = in_bwd_host_us(dev)
     log(f"[kernels train] IN backward wrapper, host time a call: {results['in_bwd_host_us']}")
+    # the resblock and head pads (bulk), one tile with overlapping mirrors
+    # (h <= 2p), and channel counts whose pixels are not 16-byte multiples
+    # (gather), h <= 2p too
     for shape, pad in (((1, 16, 32, 1024), 1), ((1, 256, 512, 64), 3), ((2, 2, 3, 8), 1),
-                       ((1, 4, 5, 16), 3)):
+                       ((1, 4, 5, 16), 3), ((1, 5, 7, 3), 1), ((1, 4, 5, 3), 3)):
         n, h, w, c = shape
         dy32 = torch.randn((n, h + 2 * pad, w + 2 * pad, c), generator=gen, device=dev)
         for dt in (torch.float32, torch.bfloat16):
             dy = dy32.to(dt)
-            got, want = krp.reflect_pad_bwd(dy, pad), krp.reflect_pad_bwd_plain(dy, pad)
-            keep("reflect_pad_bwd", dt, check_close(got, want, dt, PAD_FP32_ATOL,
-                                                    f"reflect-pad bwd {shape} p{pad} {dt}"))
+            what = f"reflect-pad bwd {shape} p{pad} {dt}"
+            got, again = twice_on("reflect_pad_bwd", krp._plan(*shape, pad, dt)["variant"],
+                                  lambda: krp.reflect_pad_bwd(dy, pad), what)
+            want = krp.reflect_pad_bwd_plain(dy, pad)
+            if not same_bits(got, again):
+                raise AssertionError(f"{what}: two runs differ")
+            keep("reflect_pad_bwd", dt, check_close(got, want, dt, PAD_FP32_ATOL, what))
             bms, by = bound(*pad_bwd_bytes(tuple(dy.shape), pad, dy.element_size()))
             row = dict(kernel="reflect_pad_bwd", shape=list(shape), pad=pad,
-                       dtype=str(dt)[6:], ms=graph_ms(lambda: krp.reflect_pad_bwd(dy, pad)),
+                       dtype=str(dt)[6:], plan=krp._plan(*shape, pad, dt),
+                       ms=graph_ms(lambda: krp.reflect_pad_bwd(dy, pad)),
                        plain_ms=graph_ms(lambda: krp.reflect_pad_bwd_plain(dy, pad)),
                        library_ms=graph_ms(library_pad_bwd(dy, pad)), bound_ms=bms, bound_by=by)
             rows.append(row)
@@ -636,17 +700,13 @@ def check_conv_in(x, w3, b, relu, r, what):
     """Kernel vs plain (fp32) or vs the plain version on the fp32 values
     (bf16), the same bits on a second run -> (max |kernel - gate|, max
     |kernel - plain version in x's dtype|)."""
-    before = read_variants()["conv3x3_in_act"]
-    y = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
-    again = kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r)
-    after = read_variants()["conv3x3_in_act"]
+    y, again = twice_on("conv3x3_in_act", kconv._plan(*x.shape, w3.shape[3], x.dtype)["variant"],
+                        lambda: kconv.conv3x3_in_act(x, w3, b, relu=relu, residual=r),
+                        f"conv3x3_in_act {what}")
     plain = kconv.conv3x3_in_act_plain(x, w3, b, relu=relu, residual=r)
     torch.cuda.synchronize()
     if not same_bits(y, again):
         raise AssertionError(f"conv3x3_in_act {what}: two runs differ")
-    variant = kconv._plan(*x.shape, w3.shape[3], x.dtype)["variant"]
-    if {k: after[k] - before[k] for k in after} != dict({k: 0 for k in after}, **{variant: 2}):
-        raise AssertionError(f"conv3x3_in_act {what}: variants {before} -> {after}, plan {variant}")
     diff_plain = (y.float() - plain.float()).abs().max().item()
     if x.dtype == torch.float32:
         ok = bool(((y - plain).abs() <= CONV_IN_ATOL + CONV_IN_RTOL * plain.abs()).all())
@@ -712,7 +772,17 @@ def site_inputs(kind, calls, dev, gen):
     bound and max |kernel - plain|."""
     kern, plain, lib, nbytes, ops, err = [], [], [], 0, 0, 0.0
     for call in calls:
-        if kind == "instance_norm_bwd":
+        if kind == "instance_norm":
+            shape, dt, act, has_res = call
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+            r = torch.randn(shape, generator=gen, device=dev).to(dt) if has_res else None
+            a = (x, act, r)
+            kern.append(lambda a=a: kin.instance_norm(*a))
+            plain.append(lambda a=a: kin.instance_norm_plain(*a))
+            lib.append(lambda x=x: F.instance_norm(x.permute(0, 3, 1, 2), eps=kin.EPS))
+            b, o = in_bytes(shape[0], shape[1] * shape[2], shape[3], x.element_size(), has_res)
+            e = (kern[-1]()[0].float() - plain[-1]()[0].float()).abs().max().item()
+        elif kind == "instance_norm_bwd":
             shape, dt, act, want_dres = call
             x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
             gy = torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -849,11 +919,9 @@ def phase_train_cli(tmp, results):
         raise AssertionError(f"{steps} steps, {len(errors)} loss lines")
     for k, n in per_step.items():
         expect_launches(launches[k], n * steps, f"train CLI {k}")
-    variants = read_variants()
-    expect_launches(variants["instance_norm_bwd"], bwd_variants(calls["instance_norm_bwd"]),
-                    "train CLI, instance_norm_bwd variants (_bwd_plan)")
+    variants = expect_variants(calls, "train CLI")
     log(f"[train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
-        f"IN backward variants {variants['instance_norm_bwd']}")
+        f"variants {variants}")
     # the checkpoint the CLI wrote, back into the serving model
     opt = MaskToImageTestOptions(gpu_ids=GPU_IDS, name="smoke_train", checkpoints_dir=ckpt,
                                  **ARCH)
@@ -895,9 +963,7 @@ def phase_train_cli_bf16(tmp, results):
         with recording() as calls:
             state, model, errors, wall, launches, per_step = drive_train_cli(
                 argv + ["--niter", niter, *extra])
-        variants = read_variants()
-        expect_launches(variants["instance_norm_bwd"], bwd_variants(calls["instance_norm_bwd"]),
-                        f"bf16 train CLI epoch {niter}, instance_norm_bwd variants (_bwd_plan)")
+        variants = expect_variants(calls, f"bf16 train CLI epoch {niter}")
         steps = state.step - done
         done = state.step
         if steps < 1 or len(errors) != steps:
@@ -929,7 +995,8 @@ def phase_roofline(tmp, results):
     """Main path 4: the port's resblock roofline tool; its JSON report."""
     out = os.path.join(tmp, "roofline.json")
     zero_launches()
-    report = roofline_resblock.main(ROOFLINE_ARGV + ["--out", out])
+    with recording() as rec:
+        report = roofline_resblock.main(ROOFLINE_ARGV + ["--out", out])
     torch.cuda.synchronize()
     launches = read_launches()
     # the fused kernel: warm-up, timed calls and one compared with the plain
@@ -942,12 +1009,17 @@ def phase_roofline(tmp, results):
     variants = read_variants()["conv3x3_in_act"]
     expect_launches(variants, dict({k: 0 for k in variants}, wgmma=calls + 1),
                     "roofline tool, conv3x3_in_act variants")
+    # every pad of the plain resblock folds through the bulk form
+    pads = expect_variants(rec, "roofline tool")["reflect_pad_bwd"]
+    expect_launches(pads, dict({k: 0 for k in pads}, bulk=2 * calls),
+                    "roofline tool, reflect_pad_bwd variants")
     with open(out) as f:
         if json.load(f)["kernel_conv_in_relu_fwd"]["ms"] != report["kernel_conv_in_relu_fwd"]["ms"]:
             raise AssertionError("the roofline tool's --out differs from its report")
-    log(f"[roofline] launches {launches}, conv3x3_in_act variants {variants}; "
-        f"report {json.dumps(report)}")
-    results["roofline"] = dict(report=report, launches=launches, variants=variants)
+    log(f"[roofline] launches {launches}, conv3x3_in_act variants {variants}, "
+        f"reflect_pad_bwd variants {pads}; report {json.dumps(report)}")
+    results["roofline"] = dict(report=report, launches=launches, variants=variants,
+                               pad_variants=pads)
     return launches
 
 
@@ -1110,11 +1182,15 @@ def phase_train_step(dev, results):
         log(f"[step] {row}")
     batch = encode_inputs(1, *STEP_HW, dev, seed=10)
     cmp = compare_step(model, batch)
+    state = make_optimizers(opt, model, 1000)
+    since = read_variants()
     with recording() as calls:
-        state = make_optimizers(opt, model, 1000)
         step(state, batch)
     torch.cuda.synchronize()
-    results["step"] = dict(rows=rows, kernel_vs_plain=cmp)
+    got = expect_variants(calls, "fp32 step", since)
+    variants = {k: {v: n - since[k][v] for v, n in c.items()} for k, c in got.items()}
+    log(f"[step] variants per step {variants}")
+    results["step"] = dict(rows=rows, kernel_vs_plain=cmp, variants_per_step=variants)
     del model
     torch.cuda.empty_cache()
     return calls
@@ -1134,12 +1210,15 @@ def phase_train_step_bf16(dev, results):
         state = make_optimizers(opt, model, 1000)
         with recording() as calls:
             step(state, batch)
-        bwd_per_step = bwd_variants(calls["instance_norm_bwd"])
+        if bs == 1:
+            step_calls = calls
+        per_variant = {k: plan_variants(k, calls[k])
+                       for k in ("instance_norm", "instance_norm_bwd", "reflect_pad_bwd")}
         for _ in range(2):
             step(state, batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before, vbefore = read_launches(), read_variants()["instance_norm_bwd"]
+        before, vbefore = read_launches(), read_variants()
         t = time.perf_counter()
         for _ in range(iters):
             metrics, fake = step(state, batch)
@@ -1148,10 +1227,11 @@ def phase_train_step_bf16(dev, results):
         after = read_launches()
         for k, n in per_step.items():
             expect_launches(after[k] - before[k], n * iters, f"bf16 step bs {bs} {k}")
-        vafter = read_variants()["instance_norm_bwd"]
-        expect_launches({k: vafter[k] - vbefore[k] for k in vafter},
-                        {k: n * iters for k, n in bwd_per_step.items()},
-                        f"bf16 step bs {bs}, instance_norm_bwd variants (_bwd_plan)")
+        vafter = read_variants()
+        for kind, want in per_variant.items():
+            expect_launches({k: vafter[kind][k] - vbefore[kind][k] for k in want},
+                            {k: n * iters for k, n in want.items()},
+                            f"bf16 step bs {bs}, {kind} variants")
         losses = {k: v.item() for k, v in metrics.items()}
         if fake.dtype != torch.bfloat16 or not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"bf16 step bs {bs}: fake {fake.dtype}, losses {losses}")
@@ -1159,12 +1239,20 @@ def phase_train_step_bf16(dev, results):
                    precision=model.conv_precision_resolved, ms_per_step=ms,
                    images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs,
                    peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
-                   launches_per_step=per_step, in_bwd_variants_per_step=bwd_per_step)
+                   launches_per_step=per_step, variants_per_step=per_variant)
         rows.append(row)
         log(f"[step bf16] {row}")
     results["step_bf16"] = rows
     del model
     torch.cuda.empty_cache()
+    # the IN forward and the reflect-pad backward over the calls of one bs-1
+    # bf16 step
+    table = []
+    for i, name in enumerate(("instance_norm", "reflect_pad_bwd")):
+        trow = dict(name=name, **time_sites(name, step_calls[name], dev, seed=60 + i))
+        table.append(trow)
+        log(f"[step bf16 {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
+    results["train_step_kernels_bf16"] = table
 
 
 SOURCES = {
@@ -1194,14 +1282,18 @@ def phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, resu
         trow = dict(name=name, **time_sites(name, step_calls[name], dev, seed=40 + i))
         table.append(trow)
         log(f"[step {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
+    # the IN forward over the sites of the same step (library_ms: IN alone)
+    trow = dict(name="instance_norm", **time_sites("instance_norm", step_calls["instance_norm"],
+                                                    dev, seed=50))
+    table.append(trow)
+    log(f"[step {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
     results["train_step_kernels"] = table
     return rows
 
 
 # device-kernel names by kind, first match wins (the profile breakdown)
 KERNEL_KINDS = (
-    ("port kernels", ("in_partial_kernel", "in_finalize_kernel", "in_normalize_kernel",
-                      "in_bwd_", "reflect_pad_bwd_kernel", "reduce_partial_kernel",
+    ("port kernels", ("in_fwd_", "in_bwd_", "reflect_pad_bwd_", "reduce_partial_kernel",
                       "reduce_finish_kernel", "encode_kernel")),
     ("conv weight gradient", ("wgrad",)),
     ("conv data gradient", ("dgrad",)),
@@ -1335,11 +1427,13 @@ def phase_serving(tmp, results):
     zero_launches()
     t = time.time()
     with mock.patch.object(Pix2PixHDModel, "inference", checked_inference), \
-            mock.patch.object(mask2image_test, "create_model", create_and_hook):
+            mock.patch.object(mask2image_test, "create_model", create_and_hook), \
+            recording() as calls:
         mask2image_test.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_launches()
+    variants = expect_variants(calls, "serving CLI")["instance_norm"]
     for h in hooks:
         h.remove()
     web = os.path.join(tmp, "results", "smoke", "test_latest")
@@ -1350,7 +1444,8 @@ def phase_serving(tmp, results):
     synth = [n for n in os.listdir(os.path.join(web, "images"))
              if n.endswith("_synthesized_image.png")]
     log(f"[serving] CLI wall {wall:.1f} s (incl. model init + data), outputs {outputs}")
-    log(f"[serving] launches {launches}; {rows} gallery rows, {len(synth)} image files")
+    log(f"[serving] launches {launches}, IN forward variants {variants}; {rows} gallery rows, "
+        f"{len(synth)} image files")
     if rows != 4 or not synth:
         raise AssertionError(f"gallery incomplete: {rows} rows, files {synth}")
     if len(outputs) != 4 or not all(f for _, f in outputs):
@@ -1362,7 +1457,7 @@ def phase_serving(tmp, results):
         raise AssertionError(f"expected {per_forward[0]} IN sites per forward, saw {len(sites)}")
     if sites != generator_sites(*outputs[0][0][:3], **arch):
         raise AssertionError(f"IN sites off the architecture: {sites}")
-    results["serving"] = dict(wall_s=wall, outputs=outputs, launches=launches)
+    results["serving"] = dict(wall_s=wall, outputs=outputs, launches=launches, variants=variants)
     results["launches"] = launches
     results["sites"] = sites
     return sites, outputs[0][0]
@@ -1597,8 +1692,10 @@ def main(argv=None):
     # launches per variant on the main path of the row (the plan functions'
     # split, checked in phases 6 and 11)
     for row in kernels:
-        if row["name"] == "instance_norm_bwd":
-            row["variants"] = cli_variants["instance_norm_bwd"]
+        if row["name"] == "instance_norm":
+            row["variants"] = results["serving"]["variants"]
+        if row["name"] in ("instance_norm_bwd", "reflect_pad_bwd"):
+            row["variants"] = cli_variants[row["name"]]
         if row["name"] == "conv3x3_in_act":
             row["variants"] = results["roofline"]["variants"]
     for row in kernels:

@@ -7,32 +7,45 @@
 // Replaces the forward TPU kernel of ops/pallas/instance_norm.py in the
 // JAX package (fused_instance_norm -> _run_fwd / _fwd_kernel).
 //
-// Bound: bytes. The statistics read x once and the normalize reads x (and
-// the residual) once and writes y once; the arithmetic is a few operations
-// per byte. The TPU kernel walks the HW axis SEQUENTIALLY inside one grid
-// cell, carrying sum / sum-of-squares in VMEM from one step to the next.
-// Blocks on this card run in parallel and in no order, so nothing can be
-// carried between them; and at the generator stem (HW = 131072, C = 64) a
-// block per (n, channel tile) would give 2 blocks for 132 SMs. So the HW
-// axis is split across blocks and the statistics are merged in a second
-// launch:
+// Bound: bytes. x (and the residual) read once, y written once, a few
+// operations an element: 0.105 ms at 3.35 TB/s over the 27 sites of a bs-1
+// 512x256 fp32 forward (chip_smoke.in_bytes). The TPU kernel walks the HW
+// axis SEQUENTIALLY inside one grid cell, carrying sum / sum-of-squares in
+// VMEM from one step to the next, then walks it again to normalize. Blocks
+// on this card run in parallel and in no order, so nothing can be carried
+// between them; instead the (sample, 32-channel) plane is split over the
+// blocks of a thread-block cluster that together hold it in shared memory:
 //
-//   launch 1  grid (split, channel tile of 32, n), block 32 x 8. Each warp
-//             reads 32 consecutive channels of one pixel (coalesced); each
-//             thread folds its rows in, four at a time (the four values'
-//             exact mean and M2, merged into the running ones with Chan's
-//             formula), the 8 row lanes are merged with Chan's formula,
-//             and one (count, mean, M2) partial per (n, split, c) goes to
-//             the workspace.
-//   launch 2  one warp per (n, c): merges the split partials with Chan's
-//             formula (lanes, then a shuffle tree) and writes mean and
-//             rstd = 1 / sqrt(M2 / HW + eps).
-//   launch 3  elementwise: y = (x - mean) * rstd [+ residual], then the
-//             activation, stored in x's dtype.
-//
-// Form used: Welford / Chan throughout. No one-pass E[x^2] - E[x]^2 is
-// taken over a long run of values in fp32 (it cancels catastrophically
-// when |mean| >> std).
+//   cluster form (one launch; kernels/instance_norm._fwd_plan picks it where
+//             a plane's rows fit 16 blocks' shared memory, <= 192 KB of x a
+//             block): grid (cs, C / 32, N), cluster (cs, 1, 1), 256 threads.
+//             Block `rank` copies x of its `chunk` rows x 32 channels into
+//             shared memory with 16-byte cp.async, the only read of x. Exact
+//             two-pass statistics from there: each thread sums its rows in
+//             order, a shuffle tree and the 8 warps in order give the
+//             block's sums, which the cs blocks exchange through distributed
+//             shared memory, every block adding them in rank order 0..cs-1
+//             (so all blocks hold the same mean bits); after a cluster
+//             barrier the same for the sums of (x - mean)^2. Rank 0 writes
+//             mean and rstd; every block normalizes its rows from shared
+//             memory, reads the residual with 16-byte loads and writes y
+//             once with 16-byte stores.
+//   split form (planes too large for 16 blocks: at 512x256 the G stem, first
+//             down and last two ups; channel counts off the 16-byte vectors,
+//             with scalar accesses): two launches over the same (split,
+//             channel tile, n) blocks. Launch 1 writes each block's Chan
+//             partial (mean, M2) of its rows: each thread folds in four rows
+//             at a time (their exact mean and M2, one Chan merge, one
+//             division for its channels), then lanes and warps merge in a
+//             fixed order. Launch 2 visits the blocks in reverse order, so
+//             that its first reads find the rows launch 1 read last in L2;
+//             each block merges its channels' S partials itself in a fixed
+//             order (eight strided runs, then the eight in order: no
+//             finalize launch, the same bits in every block), the lowest
+//             split writes mean and rstd, and it normalizes its rows,
+//             reading x a second time.
+// Welford / Chan or exact two-pass sums throughout: no one-pass E[x^2] -
+// E[x]^2 over a long run of values (it cancels when |mean| >> std).
 //
 // Backward (himan_instance_norm_bwd), replacing ops/pallas/instance_norm.py
 // _run_bwd / _bwd_kernel of the JAX package. From the saved x, y, mean and
@@ -43,9 +56,8 @@
 // Bound: bytes. x, g (and y) read once, dx (and dres) written once, a few
 // operations an element: 0.24 ms at 3.35 TB/s over the 39 sites of a bs-1
 // 512x256 fp32 train step (chip_smoke.in_bwd_bytes). The TPU kernel keeps
-// one (sample, channel tile) plane in VMEM and walks it twice; here the
-// plane is split over the blocks of a thread-block cluster that together
-// hold it in shared memory:
+// one (sample, channel tile) plane in VMEM and walks it twice; here, as in
+// the forward, the plane is split over the blocks of a cluster:
 //
 //   cluster form (one launch; kernels/instance_norm._bwd_plan picks it where
 //             a plane's rows fit 16 blocks' shared memory): grid (cs, C /
@@ -82,10 +94,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 32;  // channels per block (one per lane)
-constexpr int kRows = 8;   // row lanes per block
-constexpr int kBwdSlab = 196608;  // the backward's shared-memory slab, at most
-                                  // (kernels/instance_norm._BWD_SLAB)
+constexpr int kTile = 32;        // channels per block (one per lane)
+constexpr int kSlab = 196608;    // a cluster block's shared-memory slab, at most
+                                 // (kernels/instance_norm._SLAB)
 
 template <typename T>
 __device__ __forceinline__ float to_f(T v);
@@ -123,139 +134,21 @@ __device__ __forceinline__ void chan_merge(float& na, float& ma, float& qa,
   na = n;
 }
 
-template <typename T>
-__global__ void in_partial_kernel(const T* __restrict__ x,
-                                  float* __restrict__ part, int HW, int C,
-                                  int S, int chunk) {
-  const int s = blockIdx.x, n = blockIdx.z;
-  const int c = blockIdx.y * kTile + threadIdx.x;
-  const int hw0 = s * chunk;
-  const int hw1 = min(hw0 + chunk, HW);
-  float cnt = 0.0f, mean = 0.0f, m2 = 0.0f;
-  if (c < C) {
-    const T* xp = x + (int64_t)n * HW * C + c;
-    int hw = hw0 + threadIdx.y;
-    // four independent loads in flight per thread; their exact two-pass
-    // (mean, M2) joins the running one by one Chan merge, so there is one
-    // division per four values instead of Welford's one per value
-    for (; hw + 3 * kRows < hw1; hw += 4 * kRows) {
-      float v[4];
+// The same for NV channels that share their counts: one division for all
+// (with na == 0 it gives mb and qb exactly)
+template <int NV>
+__device__ __forceinline__ void chan_merge_v(float& na, float (&ma)[NV], float (&qa)[NV],
+                                             float nb, const float (&mb)[NV],
+                                             const float (&qb)[NV]) {
+  if (nb == 0.0f) return;
+  const float n = na + nb, fb = nb / n, w = na * fb;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = to_f<T>(xp[(int64_t)(hw + j * kRows) * C]);
-      const float mb = (v[0] + v[1] + v[2] + v[3]) * 0.25f;
-      float qb = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) qb += (v[j] - mb) * (v[j] - mb);
-      chan_merge(cnt, mean, m2, 4.0f, mb, qb);
-    }
-    for (; hw < hw1; hw += kRows) {
-      const float v = to_f<T>(xp[(int64_t)hw * C]);
-      cnt += 1.0f;
-      const float d = v - mean;
-      mean += d / cnt;
-      m2 += d * (v - mean);
-    }
+  for (int j = 0; j < NV; ++j) {
+    const float d = mb[j] - ma[j];
+    ma[j] += d * fb;
+    qa[j] += qb[j] + d * d * w;
   }
-  __shared__ float sc[kRows][kTile], sm[kRows][kTile], sq[kRows][kTile];
-  sc[threadIdx.y][threadIdx.x] = cnt;
-  sm[threadIdx.y][threadIdx.x] = mean;
-  sq[threadIdx.y][threadIdx.x] = m2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-#pragma unroll
-    for (int j = 1; j < kRows; ++j)
-      chan_merge(cnt, mean, m2, sc[j][threadIdx.x], sm[j][threadIdx.x],
-                 sq[j][threadIdx.x]);
-    const int64_t o = ((int64_t)n * S + s) * C + c;
-    const int64_t plane = (int64_t)gridDim.z * S * C;
-    part[o] = cnt;
-    part[plane + o] = mean;
-    part[2 * plane + o] = m2;
-  }
-}
-
-__global__ void in_finalize_kernel(const float* __restrict__ part,
-                                   float* __restrict__ mean_out,
-                                   float* __restrict__ rstd_out, int N, int HW,
-                                   int C, int S, float eps) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= N * C) return;  // whole warps exit together
-  const int n = warp / C, c = warp % C;
-  const int64_t plane = (int64_t)N * S * C;
-  float cnt = 0.0f, mean = 0.0f, m2 = 0.0f;
-  for (int s = lane; s < S; s += 32) {
-    const int64_t o = ((int64_t)n * S + s) * C + c;
-    chan_merge(cnt, mean, m2, part[o], part[plane + o], part[2 * plane + o]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float nb = __shfl_down_sync(0xffffffffu, cnt, off);
-    const float mb = __shfl_down_sync(0xffffffffu, mean, off);
-    const float qb = __shfl_down_sync(0xffffffffu, m2, off);
-    chan_merge(cnt, mean, m2, nb, mb, qb);
-  }
-  if (lane == 0) {
-    const float var = m2 / (float)HW;
-    mean_out[warp] = mean;
-    rstd_out[warp] = 1.0f / sqrtf(var + eps);
-  }
-}
-
-// grid (tiles, n). The launch makes the stride gridDim.x * blockDim.x a
-// multiple of C, so each thread meets one channel only: its mean and rstd
-// sit in registers and the loop does no index division.
-template <typename T>
-__global__ void in_normalize_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ res,
-                                    const float* __restrict__ mean,
-                                    const float* __restrict__ rstd,
-                                    T* __restrict__ y, int hwc, int C,
-                                    int act) {
-  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-  const int nc = blockIdx.y * C + i0 % C;
-  const float mu = mean[nc], rs = rstd[nc];
-  const int64_t base = (int64_t)blockIdx.y * hwc;
-  for (int i = i0; i < hwc; i += stride) {
-    float v = (to_f<T>(x[base + i]) - mu) * rs;
-    if (res != nullptr) v += to_f<T>(res[base + i]);
-    if (act == 1) {
-      v = fmaxf(v, 0.0f);
-    } else if (act == 2) {
-      v = v >= 0.0f ? v : v * 0.2f;
-    }
-    y[base + i] = from_f<T>(v);
-  }
-}
-
-int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
-
-template <typename T>
-int launch(const void* x, const void* res, void* y, float* mean, float* rstd,
-           float* part, int N, int HW, int C, int S, int chunk, int act,
-           float eps, cudaStream_t s) {
-  const dim3 block(kTile, kRows);
-  const dim3 grid1(S, (C + kTile - 1) / kTile, N);
-  in_partial_kernel<T><<<grid1, block, 0, s>>>((const T*)x, part, HW, C, S,
-                                               chunk);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const int warps = N * C;
-  in_finalize_kernel<<<(warps + 7) / 8, 256, 0, s>>>(part, mean, rstd, N, HW,
-                                                     C, S, eps);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  // about 132 * 16 blocks in all, no more than the elements need, rounded
-  // up so that the stride is a multiple of C
-  const int hwc = HW * C;
-  const int g = C / gcd(C, 256);
-  int tiles = (132 * 16 + N - 1) / N;
-  if (tiles > (hwc + 255) / 256) tiles = (hwc + 255) / 256;
-  tiles = (tiles + g - 1) / g * g;
-  in_normalize_kernel<T><<<dim3(tiles, N), 256, 0, s>>>(
-      (const T*)x, (const T*)res, mean, rstd, (T*)y, hwc, C, act);
-  return (int)cudaGetLastError();
+  na = n;
 }
 
 // d act(v) / dv from the activation's output y = act(v)
@@ -316,12 +209,13 @@ __device__ __forceinline__ void store_v(T* p, int n, bool vec, const float (&v)[
     if (j < n) p[j] = from_f<T>(v[j]);
 }
 
-// The backward's thread layout: a block owns 32 channels (kTile) of one
-// sample and a run of rows. Thread t takes the VEC channels (t % G) * VEC..
-// of rows t / G, t / G + RP, ...: G = 32 / VEC vectors a row, RP = 256 / G
-// row lanes (fp32 8 x 32, bf16 4 x 64). A warp covers 4 (8) whole rows.
+// The thread layout of both directions: a block owns 32 channels (kTile)
+// of one sample and a run of rows. Thread t takes the VEC channels (t % G)
+// * VEC.. of rows t / G, t / G + RP, ...: G = 32 / VEC vectors a row, RP =
+// 256 / G row lanes (fp32 8 x 32, bf16 4 x 64). A warp covers 4 (8) whole
+// rows.
 template <typename T>
-struct BwdLayout {
+struct Layout {
   static constexpr int VEC = V<T>::N;
   static constexpr int G = kTile / VEC;
   static constexpr int RP = 256 / G;
@@ -335,7 +229,7 @@ template <typename T, typename Rows>
 __device__ __forceinline__ void bwd_block_sums(int nrows, float mu[], float rs[],
                                                int act, Rows rows,
                                                float (*out)[kTile]) {
-  using L = BwdLayout<T>;
+  using L = Layout<T>;
   __shared__ float red[2][8][kTile];
   const int tid = threadIdx.x, grp = tid % L::G;
   float sg[L::VEC], sgx[L::VEC];
@@ -382,7 +276,7 @@ __device__ __forceinline__ void bwd_block_dx(int nrows, const float mu[],
                                              const float b[], int act, Rows rows,
                                              T* dx, T* dres, int64_t row0, int C,
                                              int nvalid, bool vec) {
-  using L = BwdLayout<T>;
+  using L = Layout<T>;
   for (int r = threadIdx.x / L::G; r < nrows; r += L::RP) {
     float xv[L::VEC], yv[L::VEC], gv[L::VEC], d[L::VEC], gmv[L::VEC];
     rows(r, xv, yv, gv);
@@ -430,6 +324,311 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
+__device__ __forceinline__ float act_fwd(float v, int act) {
+  if (act == 1) return fmaxf(v, 0.0f);
+  if (act == 2) return v >= 0.0f ? v : v * 0.2f;
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The block's per-channel sums of each thread's VEC partial sums s: lanes
+// that share channels by a shuffle tree, then the 8 warps in order, into
+// out[32] (written by the first 32 threads). red: [8][kTile] scratch.
+template <typename T>
+__device__ __forceinline__ void fwd_block_sum(float (&s)[V<T>::N], float (*red)[kTile],
+                                              float* out) {
+  using L = Layout<T>;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int off = L::G; off < 32; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < L::VEC; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+  if (tid % 32 < L::G)
+#pragma unroll
+    for (int j = 0; j < L::VEC; ++j) red[tid / 32][(tid % L::G) * L::VEC + j] = s[j];
+  __syncthreads();
+  if (tid < kTile) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += red[w][tid];
+    out[tid] = t;
+  }
+}
+
+// act((v - mu) * rs + res) of one row's vector, stored at yp
+template <typename T>
+__device__ __forceinline__ void fwd_store(T* yp, const T* rp, float (&v)[V<T>::N],
+                                          const float (&mu)[V<T>::N], const float (&rs)[V<T>::N],
+                                          int act, int nvalid, bool vec) {
+  float rv[V<T>::N];
+  if (rp != nullptr) load_v<T>(rp, nvalid, vec, rv);
+#pragma unroll
+  for (int j = 0; j < V<T>::N; ++j) {
+    float o = (v[j] - mu[j]) * rs[j];
+    if (rp != nullptr) o += rv[j];
+    v[j] = act_fwd(o, act);
+  }
+  store_v<T>(yp, nvalid, vec, v);
+}
+
+// Cluster form: one launch, grid (cluster size, channel tiles, N), cluster
+// (cs, 1, 1), 256 threads. Block `rank` owns rows [rank * chunk, ...) of
+// its (sample, 32 channels) and holds x of those rows in shared memory.
+// C % VEC == 0.
+template <typename T>
+__global__ void __launch_bounds__(256)
+in_fwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__ y,
+                      float* __restrict__ mean, float* __restrict__ rstd, int HW, int C,
+                      int chunk, int act, float eps) {
+  using L = Layout<T>;
+  extern __shared__ uint4 slab[];
+  __shared__ float part[2][kTile];  // this block's sums of x, then of (x - mean)^2
+  __shared__ float stat[2][kTile];  // the plane's mean and rstd
+  __shared__ float red[8][kTile];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), cs = (int)cluster.num_blocks();
+  const int n = blockIdx.z, c0 = blockIdx.y * kTile, tid = threadIdx.x;
+  const int r0 = rank * chunk, nrows = min(chunk, HW - r0);
+  T* sx = reinterpret_cast<T*>(slab);
+  const int64_t base = ((int64_t)n * HW + r0) * C + c0;
+  for (int i = tid; i < nrows * L::G; i += 256) {
+    const int r = i / L::G, v = (i % L::G) * L::VEC;
+    if (c0 + v < C) cp_async16(sx + r * kTile + v, x + base + (int64_t)r * C + v);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const int v0 = (tid % L::G) * L::VEC;
+  const int rows = c0 + v0 < C ? nrows : 0;  // a live vector is whole
+  float s[L::VEC], v[L::VEC], mu[L::VEC], rs[L::VEC];
+#pragma unroll
+  for (int j = 0; j < L::VEC; ++j) s[j] = 0.0f;
+  for (int r = tid / L::G; r < rows; r += L::RP) {
+    unpack<T>(*reinterpret_cast<const uint4*>(sx + r * kTile + v0), v);
+#pragma unroll
+    for (int j = 0; j < L::VEC; ++j) s[j] += v[j];
+  }
+  fwd_block_sum<T>(s, red, part[0]);
+  cluster_sync_all();
+  if (tid < kTile) {
+    float t = 0.0f;
+    for (int q = 0; q < cs; ++q) t += cluster.map_shared_rank(&part[0][0], q)[tid];
+    stat[0][tid] = t / (float)HW;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < L::VEC; ++j) {
+    mu[j] = stat[0][v0 + j];
+    s[j] = 0.0f;
+  }
+  for (int r = tid / L::G; r < rows; r += L::RP) {
+    unpack<T>(*reinterpret_cast<const uint4*>(sx + r * kTile + v0), v);
+#pragma unroll
+    for (int j = 0; j < L::VEC; ++j) s[j] += (v[j] - mu[j]) * (v[j] - mu[j]);
+  }
+  fwd_block_sum<T>(s, red, part[1]);
+  cluster_sync_all();
+  if (tid < kTile) {
+    float t = 0.0f;
+    for (int q = 0; q < cs; ++q) t += cluster.map_shared_rank(&part[1][0], q)[tid];
+    stat[1][tid] = 1.0f / sqrtf(t / (float)HW + eps);
+  }
+  cluster_arrive();  // no other block's shared memory is read from here on
+  __syncthreads();
+  if (rank == 0 && tid < kTile && c0 + tid < C) {
+    mean[n * C + c0 + tid] = stat[0][tid];
+    rstd[n * C + c0 + tid] = stat[1][tid];
+  }
+#pragma unroll
+  for (int j = 0; j < L::VEC; ++j) rs[j] = stat[1][v0 + j];
+  const int64_t o0 = base + v0;
+#pragma unroll 4
+  for (int r = tid / L::G; r < rows; r += L::RP) {
+    unpack<T>(*reinterpret_cast<const uint4*>(sx + r * kTile + v0), v);
+    const int64_t o = o0 + (int64_t)r * C;
+    fwd_store<T>(y + o, res != nullptr ? res + o : nullptr, v, mu, rs, act, L::VEC, true);
+  }
+  cluster_wait();  // no block leaves while another may still read its sums
+}
+
+// Split form, launch 1: grid (S, channel tiles, N), 256 threads; the
+// block's Chan partial (mean, M2) of its `chunk` rows to part (2 planes of
+// N * S * C), read from device memory (16-byte loads where C allows).
+template <typename T>
+__global__ void __launch_bounds__(256)
+in_fwd_split_stats_kernel(const T* __restrict__ x, float* __restrict__ part, int HW, int C,
+                          int S, int chunk) {
+  using L = Layout<T>;
+  constexpr int NV = L::VEC;
+  __shared__ float wc[8], wm[8][kTile], wq[8][kTile];
+  const int s = blockIdx.x, n = blockIdx.z, c0 = blockIdx.y * kTile, tid = threadIdx.x;
+  const int r0 = s * chunk, nrows = min(chunk, HW - r0);
+  const int v0 = (tid % L::G) * NV, c = c0 + v0;
+  const int nvalid = min(NV, C - c);
+  const bool vec = C % NV == 0;
+  const T* xp = x + ((int64_t)n * HW + r0) * C + c;
+  float cnt = 0.0f, m[NV], q[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) m[j] = q[j] = 0.0f;
+  // four rows a group (eight took 108-120 registers a thread and two
+  // resident blocks an SM on H100)
+  constexpr int GR = 4;
+  for (int r = tid / L::G; r < nrows; r += GR * L::RP) {
+    // rows r, r + RP, r + 2 RP, r + 3 RP (those below nrows): their exact
+    // mean and M2 join the running ones by one Chan merge
+    int k = 0;
+    float v[GR][NV], mb[NV], qb[NV];
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      if (r + i * L::RP < nrows) {
+        load_v<T>(xp + (int64_t)(r + i * L::RP) * C, nvalid, vec, v[i]);
+        ++k;
+      } else {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) v[i][j] = 0.0f;
+      }
+    }
+    const float inv = 1.0f / (float)k;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float t = 0.0f;
+#pragma unroll
+      for (int i = 0; i < GR; ++i) t += v[i][j];
+      mb[j] = t * inv;
+      qb[j] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < GR; ++i)
+        if (i < k) qb[j] += (v[i][j] - mb[j]) * (v[i][j] - mb[j]);
+    }
+    chan_merge_v<NV>(cnt, m, q, (float)k, mb, qb);
+  }
+  // lanes that share channels: lane l takes lane l + off, down to the G
+  // lanes of the first row lane (only lanes whose result is taken next are
+  // read)
+#pragma unroll
+  for (int off = 16; off >= L::G; off >>= 1) {
+    float mb[NV], qb[NV];
+    const float nb = __shfl_down_sync(0xffffffffu, cnt, off);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      mb[j] = __shfl_down_sync(0xffffffffu, m[j], off);
+      qb[j] = __shfl_down_sync(0xffffffffu, q[j], off);
+    }
+    chan_merge_v<NV>(cnt, m, q, nb, mb, qb);
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane < L::G) {
+    if (lane == 0) wc[warp] = cnt;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      wm[warp][v0 + j] = m[j];
+      wq[warp][v0 + j] = q[j];
+    }
+  }
+  __syncthreads();
+  if (tid < kTile && c0 + tid < C) {
+    float nt = 0.0f, mt = 0.0f, qt = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) chan_merge(nt, mt, qt, wc[w], wm[w][tid], wq[w][tid]);
+    const int64_t o = ((int64_t)n * S + s) * C + c0 + tid;
+    part[o] = mt;
+    part[(int64_t)gridDim.z * S * C + o] = qt;
+  }
+}
+
+// Split form, launch 2: the same blocks in reverse order (the last blocks
+// of launch 1 ran last, so their rows are the likeliest still in L2). Each
+// block merges the S partials of its channels in a fixed order, then
+// normalizes its rows, reading x a second time.
+template <typename T>
+__global__ void __launch_bounds__(256)
+in_fwd_split_norm_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                         const float* __restrict__ part, T* __restrict__ y,
+                         float* __restrict__ mean, float* __restrict__ rstd, int HW, int C,
+                         int S, int chunk, int act, float eps) {
+  using L = Layout<T>;
+  constexpr int NV = L::VEC;
+  __shared__ float pc[8][kTile], pm[8][kTile], pq[8][kTile];
+  __shared__ float stat[2][kTile];
+  const int s = gridDim.x - 1 - blockIdx.x, n = gridDim.z - 1 - blockIdx.z;
+  const int c0 = (gridDim.y - 1 - blockIdx.y) * kTile, tid = threadIdx.x;
+  {
+    // 8 threads a channel take every 8th split in order (their loads 8 at a
+    // time in flight), then the 8 are merged in order
+    const int cc = tid % kTile, q0 = tid / kTile;
+    float nt = 0.0f, mt = 0.0f, qt = 0.0f;
+    if (c0 + cc < C) {
+      const int64_t plane = (int64_t)gridDim.z * S * C;
+      const float* p = part + (int64_t)n * S * C + c0 + cc;
+      for (int q = q0; q < S; q += 64) {
+        float pm[8], pq[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (q + 8 * i < S) {
+            pm[i] = p[(int64_t)(q + 8 * i) * C];
+            pq[i] = p[plane + (int64_t)(q + 8 * i) * C];
+          }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (q + 8 * i < S)
+            chan_merge(nt, mt, qt, (float)min(chunk, HW - (q + 8 * i) * chunk), pm[i], pq[i]);
+      }
+    }
+    pc[q0][cc] = nt;
+    pm[q0][cc] = mt;
+    pq[q0][cc] = qt;
+  }
+  __syncthreads();
+  if (tid < kTile) {
+    float nt = 0.0f, mt = 0.0f, qt = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) chan_merge(nt, mt, qt, pc[w][tid], pm[w][tid], pq[w][tid]);
+    stat[0][tid] = mt;
+    stat[1][tid] = 1.0f / sqrtf(qt / (float)HW + eps);
+    if (s == 0 && c0 + tid < C) {
+      mean[n * C + c0 + tid] = mt;
+      rstd[n * C + c0 + tid] = stat[1][tid];
+    }
+  }
+  __syncthreads();
+  const int v0 = (tid % L::G) * NV, c = c0 + v0;
+  const int nvalid = min(NV, C - c);
+  if (nvalid <= 0) return;
+  const bool vec = C % NV == 0;
+  float mu[NV], rs[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    mu[j] = stat[0][v0 + j];
+    rs[j] = stat[1][v0 + j];
+  }
+  const int r0 = s * chunk, nrows = min(chunk, HW - r0);
+  const int64_t o0 = ((int64_t)n * HW + r0) * C + c;
+  constexpr int GR = 4;
+  for (int r = tid / L::G; r < nrows; r += GR * L::RP) {
+    float v[GR][NV];  // four rows' loads in flight
+#pragma unroll
+    for (int i = 0; i < GR; ++i)
+      if (r + i * L::RP < nrows) load_v<T>(x + o0 + (int64_t)(r + i * L::RP) * C, nvalid, vec, v[i]);
+#pragma unroll
+    for (int i = 0; i < GR; ++i) {
+      if (r + i * L::RP >= nrows) break;
+      const int64_t o = o0 + (int64_t)(r + i * L::RP) * C;
+      fwd_store<T>(y + o, res != nullptr ? res + o : nullptr, v[i], mu, rs, act, nvalid, vec);
+    }
+  }
+}
+
 // This thread's channels: valid count, mean and rstd (zeros past C).
 template <typename T>
 __device__ __forceinline__ int bwd_stats(const float* mean, const float* rstd,
@@ -457,7 +656,7 @@ in_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ y,
                       const T* __restrict__ g, const float* __restrict__ mean,
                       const float* __restrict__ rstd, T* __restrict__ dx,
                       T* __restrict__ dres, int HW, int C, int chunk, int act) {
-  using L = BwdLayout<T>;
+  using L = Layout<T>;
   extern __shared__ uint4 slab[];
   __shared__ float sums[2][kTile];
   __shared__ float means[2][kTile];
@@ -513,7 +712,7 @@ in_bwd_split_sums_kernel(const T* __restrict__ x, const T* __restrict__ y,
                          const T* __restrict__ g, const float* __restrict__ mean,
                          const float* __restrict__ rstd, float* __restrict__ part,
                          int HW, int C, int S, int chunk, int act) {
-  using L = BwdLayout<T>;
+  using L = Layout<T>;
   __shared__ float sums[2][kTile];
   const int s = blockIdx.x, n = blockIdx.z, c0 = blockIdx.y * kTile;
   const int r0 = s * chunk, nrows = min(chunk, HW - r0);
@@ -543,7 +742,7 @@ in_bwd_split_dx_kernel(const T* __restrict__ x, const T* __restrict__ y,
                        const float* __restrict__ rstd, const float* __restrict__ part,
                        T* __restrict__ dx, T* __restrict__ dres, int HW, int C, int S,
                        int chunk, int act) {
-  using L = BwdLayout<T>;
+  using L = Layout<T>;
   __shared__ float means[2][kTile];
   __shared__ float quarter[4][2 * kTile];
   const int s = gridDim.x - 1 - blockIdx.x, n = gridDim.z - 1 - blockIdx.z;
@@ -582,41 +781,62 @@ in_bwd_split_dx_kernel(const T* __restrict__ x, const T* __restrict__ y,
                   (int64_t)n * HW + r0, C, nvalid, vec);
 }
 
+// Launches a cluster-form kernel on grid (cs, channel tiles, N) in clusters
+// of (cs, 1, 1) with `smem` bytes of dynamic shared memory. The first call
+// for each kernel allows it kSlab bytes and non-portable cluster sizes (up
+// to 16 on Hopper).
+template <typename... P, typename... A>
+int launch_cluster(void (*kern)(P...), dim3 grid, int smem, cudaStream_t s, A... args) {
+  static int attrs = -1;  // one per kernel
+  if (attrs < 0) {
+    attrs = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSlab);
+    if (!attrs)
+      attrs = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (attrs) return attrs;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* res, void* y, float* mean, float* rstd, float* ws,
+               int N, int HW, int C, int S, int chunk, int act, float eps, int cluster,
+               cudaStream_t s) {
+  const dim3 grid(S, (C + kTile - 1) / kTile, N);
+  if (cluster)
+    return launch_cluster(in_fwd_cluster_kernel<T>, grid, chunk * kTile * (int)sizeof(T), s,
+                          (const T*)x, (const T*)res, (T*)y, mean, rstd, HW, C, chunk, act, eps);
+  in_fwd_split_stats_kernel<T><<<grid, 256, 0, s>>>((const T*)x, ws, HW, C, S, chunk);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  in_fwd_split_norm_kernel<T><<<grid, 256, 0, s>>>((const T*)x, (const T*)res, ws, (T*)y, mean,
+                                                   rstd, HW, C, S, chunk, act, eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* y, const void* g, const float* mean,
                const float* rstd, void* dx, void* dres, float* ws, int N, int HW,
                int C, int S, int chunk, int act, int cluster, cudaStream_t s) {
-  const int ctiles = (C + kTile - 1) / kTile;
-  if (cluster) {
-    auto kern = in_bwd_cluster_kernel<T>;
-    const int smem = chunk * kTile * (int)sizeof(T) * (y != nullptr ? 3 : 2);
-    static int attrs = -1;  // set once per dtype: the largest slab, clusters of 16
-    if (attrs < 0) {
-      attrs = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        kBwdSlab);
-      if (!attrs)
-        attrs = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
-    if (attrs) return attrs;
-    int err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(S, ctiles, N);
-    cfg.blockDim = dim3(256);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = S;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = (int)cudaLaunchKernelEx(&cfg, kern, (const T*)x, (const T*)y, (const T*)g, mean,
-                                  rstd, (T*)dx, (T*)dres, HW, C, chunk, act);
-    if (err) return err;
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid(S, ctiles, N);
+  const dim3 grid(S, (C + kTile - 1) / kTile, N);
+  if (cluster)
+    return launch_cluster(in_bwd_cluster_kernel<T>, grid,
+                          chunk * kTile * (int)sizeof(T) * (y != nullptr ? 3 : 2), s,
+                          (const T*)x, (const T*)y, (const T*)g, mean, rstd, (T*)dx, (T*)dres,
+                          HW, C, chunk, act);
   in_bwd_split_sums_kernel<T><<<grid, 256, 0, s>>>((const T*)x, (const T*)y, (const T*)g,
                                                    mean, rstd, ws, HW, C, S, chunk, act);
   int err = (int)cudaGetLastError();
@@ -647,18 +867,19 @@ extern "C" int himan_instance_norm_bwd(const void* x, const void* y, const void*
                            (float*)ws, N, HW, C, S, chunk, act, cluster, s);
 }
 
-// x, res (nullable), y: NHWC contiguous (N, HW, C) in fp32 or bf16.
-// mean, rstd: fp32 (N, C). part: fp32 workspace of 3 * N * S * C.
-// S splits of `chunk` rows each cover HW. act: 0 none, 1 relu, 2 lrelu 0.2.
-extern "C" int himan_instance_norm_fwd(const void* x, const void* res,
-                                       void* y, void* mean, void* rstd,
-                                       void* part, int N, int HW, int C,
-                                       int S, int chunk, int act, float eps,
+// Forward. x, res (nullable), y: NHWC contiguous (N, HW, C) in fp32 or
+// bf16, 16-byte aligned; mean, rstd: fp32 (N, C). act: 0 none, 1 relu, 2
+// lrelu 0.2. cluster 1: one launch, S = the cluster size (<= 16) and C %
+// (16 / sizeof(dtype)) == 0, ws unused; cluster 0: the split form, S splits,
+// ws fp32 of 2 * N * S * C. Rows: `chunk` a block (S * chunk >= HW).
+extern "C" int himan_instance_norm_fwd(const void* x, const void* res, void* y, void* mean,
+                                       void* rstd, void* ws, int N, int HW, int C, int S,
+                                       int chunk, int act, float eps, int cluster,
                                        int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, res, y, (float*)mean, (float*)rstd,
-                                 (float*)part, N, HW, C, S, chunk, act, eps, s);
-  return launch<float>(x, res, y, (float*)mean, (float*)rstd, (float*)part, N,
-                       HW, C, S, chunk, act, eps, s);
+    return launch_fwd<__nv_bfloat16>(x, res, y, (float*)mean, (float*)rstd, (float*)ws, N, HW,
+                                     C, S, chunk, act, eps, cluster, s);
+  return launch_fwd<float>(x, res, y, (float*)mean, (float*)rstd, (float*)ws, N, HW, C, S,
+                           chunk, act, eps, cluster, s);
 }

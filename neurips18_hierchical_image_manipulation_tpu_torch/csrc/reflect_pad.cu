@@ -5,25 +5,41 @@
 // (reflect_pad_bwd / _bwd_kernel): a read-modify-write fold of the mirrored
 // strips into a VMEM block, one padded sample per grid step.
 //
-// Here it is a GATHER: one thread per dx element sums the dy entries that
-// map onto it. Padded row i maps to input row reflect(i - p); the rows that
-// map onto input row y are
-//   core    i = y + p                          always
+// Padded row i maps to input row reflect(i - p); the rows that map onto
+// input row y, in increasing order, are
 //   top     i = p - y                          when 1 <= y <= p
+//   core    i = y + p                          always
 //   bottom  i = 2h - 2 - y + p                 when h-1-p <= y <= h-2
 // and the same for columns, so a dx element sums 1 to 9 entries (9 only
 // when a mirror strip overlaps both borders: h <= 2p; the TPU kernel refused
-// those sizes, this one takes any h, w > p). Each thread writes its own
-// element: no atomics, and the sum order is fixed (rows, then columns).
+// those sizes, this one takes any h, w > p). Every sum is in fp32 in a fixed
+// order, rows first, then columns, each in increasing padded index (the
+// order of kernels/reflect_pad.reflect_pad_bwd_plain), rounded once.
 //
-// Bound: bytes. dy is read once and dx written once (the border strips are
-// a few rows of a tensor hundreds of rows tall, and their second read hits
-// the cache); at the head pad of the 512x256 generator (1, 262, 518, 64)
-// fp32 that is 34.7 MB read + 33.6 MB written, ~20 us at 3.35 TB/s.
-// Design: grid.x = one block row per (n, y) output row, grid.y = tiles of
-// the row's W*C elements; consecutive threads take consecutive channels of
-// a pixel, so every load and store of a warp is coalesced. A row index is
-// decoded once per block, the column by one 32-bit division per element.
+// Bound: bytes. dy is read once and dx written once; at the head pad of the
+// 512x256 generator (1, 262, 518, 64) fp32 that is 34.7 MB read + 33.6 MB
+// written, ~20 us at 3.35 TB/s; the 18 resblock pads (1, 18, 34, 1024) are
+// 4.6 MB each, 1.4 us, and launch-bound.
+//
+// bulk form (C * itemsize a multiple of 16; every pad of the networks): a
+// persistent grid of ~132 blocks walks the work items, an item being one
+// dx row's tile of `tp` pixels (kernels/reflect_pad._plan picks tp so that
+// the left mirror targets, columns 1..p, fall in a row's first tile and the
+// right ones, W-1-p..W-2, in its last). In NHWC everything an item needs of
+// one source row is one contiguous segment of dy: the tile's core pixels,
+// extended to the row's edge on the first and last tiles. One thread moves
+// the 1-3 segments into shared memory with 1-D TMA bulk copies
+// (cp.async.bulk, completion on the stage's mbarrier; no tensor map, so no
+// host-side encode per call) into a ring of 3 stages, so that one item's
+// fold overlaps the next items' loads. The block folds the rows, then the
+// columns, from shared memory into the stage's output tile, and the thread
+// writes it back with a cp.async.bulk store; an interior tile of a row with
+// one source is stored straight from its loaded segment. Pixels and vectors
+// are walked by a thread layout fixed once per block: no per-element
+// division.
+// gather form (C * itemsize not a multiple of 16, where bulk copies cannot
+// be aligned): one thread per dx element sums the dy entries that map onto
+// it, coalesced across the channels of a pixel.
 //
 // Limits, checked by the wrapper: N*H < 2^31, (W+2p)*C < 2^31.
 
@@ -51,15 +67,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// the padded indices (at most 3) whose reflection is input index y of n
+// the padded indices (at most 3) whose reflection is input index y of n,
+// in increasing order
 __device__ __forceinline__ int sources(int y, int n, int p, int* idx) {
   int k = 0;
-  idx[k++] = y + p;
   if (y >= 1 && y <= p) idx[k++] = p - y;
+  idx[k++] = y + p;
   if (y >= n - 1 - p && y <= n - 2) idx[k++] = 2 * n - 2 - y + p;
   return k;
 }
 
+// gather form: one thread per dx element; grid.x = one block row per (n,
+// y) output row, grid.y = tiles of the row's W*C elements; consecutive
+// threads take consecutive channels of a pixel. The row is decoded once per
+// block, the column by one 32-bit division per element.
 template <typename T>
 __global__ void reflect_pad_bwd_kernel(const T* __restrict__ dy,
                                        T* __restrict__ dx, int H, int W,
@@ -78,22 +99,231 @@ __global__ void reflect_pad_bwd_kernel(const T* __restrict__ dy,
     int cols[3];
     const int nc = sources(x, W, p, cols);
     float acc = 0.0f;
-    for (int a = 0; a < nr; ++a) {
-      const T* r = src + (int64_t)rows[a] * Wp * C + c;
-      for (int b = 0; b < nc; ++b) acc += to_f<T>(r[cols[b] * C]);
+    for (int b = 0; b < nc; ++b) {
+      float r = 0.0f;
+      for (int a = 0; a < nr; ++a) r += to_f<T>(src[((int64_t)rows[a] * Wp + cols[b]) * C + c]);
+      acc += r;
     }
     dst[i] = from_f<T>(acc);
   }
 }
 
+// ---------------------------------------------------------------- bulk form
+
+constexpr int kStages = 3;      // the ring's stages (kernels/reflect_pad._STAGES)
+constexpr int kSmem = 204800;   // a block's shared memory, at most (_SMEM)
+constexpr int kBars = 128;      // the stages' mbarriers, before the stages (_BARS)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t addr, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred P;\nmbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// waits for the phase of `bar` with this parity; a wait of more than 2 s
+// (a copy that never lands) traps, so a fault fails the launch instead of
+// holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try(a, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try(a, parity))
+    if (global_ns() - t0 > 2000000000ull) __trap();
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device to shared memory; completes on `bar` as transaction bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 1-D bulk copy from shared to device memory, one bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               "cp.async.bulk.commit_group;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[16 / sizeof(T)]);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// One work item: dx row (n, y), pixels [x0, x1); its source rows in
+// increasing order; the padded columns [lo, hi) of each source row it needs
+// (one contiguous segment of dy).
+struct Item {
+  int n, y, x0, x1, lo, hi, nr;
+  int rows[3];
+};
+
+__device__ __forceinline__ Item decode(int it, int H, int W, int p, int tp, int tiles) {
+  Item t;
+  const int row = it / tiles, k = it - row * tiles;
+  t.n = row / H;
+  t.y = row - t.n * H;
+  t.x0 = k * tp;
+  t.x1 = min(t.x0 + tp, W);
+  t.lo = t.x0 == 0 ? 0 : t.x0 + p;
+  t.hi = t.x1 == W ? W + 2 * p : t.x1 + p;
+  t.nr = sources(t.y, H, p, t.rows);
+  return t;
+}
+
+// Persistent: block b takes items b, b + gridDim.x, ... Thread 0 keeps the
+// loads of the next kStages - 1 items in flight and stores each finished
+// tile; all 256 threads fold.
+template <typename T>
+__global__ void __launch_bounds__(256)
+reflect_pad_bwd_bulk_kernel(const T* __restrict__ dy, T* __restrict__ dx, int H, int W, int C,
+                            int p, int tp, int tiles, int items) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  T* const stage0 = reinterpret_cast<T*>(smem + kBars);
+  const int Wp = W + 2 * p, Hp = H + 2 * p, tid = threadIdx.x;
+  const int cap = (tp + 2 * p) * C;            // one source segment's room
+  const int stage = 3 * cap + tp * C;          // three segments, then the output tile
+  const int mine = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  // the fold's thread layout, fixed for the block: CV vectors a pixel,
+  // `par` pixels at once
+  const int CV = C / VEC;
+  const int par = CV >= 256 ? 1 : 256 / CV;
+  const int tx = CV >= 256 ? 0 : tid / CV, tc = tid - tx * CV;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&full[s])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_item = [&](int k) {  // thread 0: item k's loads into stage k % kStages
+    const Item t = decode(blockIdx.x + k * gridDim.x, H, W, p, tp, tiles);
+    const int st = k % kStages;
+    const uint32_t bytes = (uint32_t)((t.hi - t.lo) * C * (int)sizeof(T));
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_u32(&full[st])), "r"(bytes * t.nr) : "memory");
+    for (int a = 0; a < t.nr; ++a)
+      bulk_load(stage0 + st * stage + a * cap,
+                dy + (((int64_t)t.n * Hp + t.rows[a]) * Wp + t.lo) * C, bytes, &full[st]);
+  };
+  if (tid == 0)
+    for (int k = 0; k < kStages - 1 && k < mine; ++k) load_item(k);
+  for (int k = 0; k < mine; ++k) {
+    const int st = k % kStages;
+    if (tid == 0) {
+      // item k + kStages - 1 loads into the stage of item k - 1, whose
+      // store may be reading it
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      if (k + kStages - 1 < mine) load_item(k + kStages - 1);
+    }
+    mbar_wait(&full[st], (k / kStages) & 1);
+    const Item t = decode(blockIdx.x + k * gridDim.x, H, W, p, tp, tiles);
+    const T* in = stage0 + st * stage;
+    const T* out = in;  // an interior tile with one source row is its segment
+    if (t.nr > 1 || t.x0 == 0 || t.x1 == W) {
+      T* o = stage0 + st * stage + 3 * cap;
+      for (int xl = tx; tx < par && xl < t.x1 - t.x0; xl += par) {
+        const int x = t.x0 + xl;
+        int js[3], nj = 0;  // its padded columns, in increasing order, in the segment
+        if (x >= 1 && x <= p) js[nj++] = p - x - t.lo;
+        js[nj++] = x + p - t.lo;
+        if (x >= W - 1 - p && x <= W - 2) js[nj++] = 2 * W - 2 - x + p - t.lo;
+        for (int cv = tc; cv < CV; cv += 256) {
+          float acc[VEC], v[VEC];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
+          for (int b = 0; b < nj; ++b) {
+            float r[VEC];
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) r[j] = 0.0f;
+            for (int a = 0; a < t.nr; ++a) {
+              unpack<T>(*reinterpret_cast<const uint4*>(in + a * cap + js[b] * C + cv * VEC), v);
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) r[j] += v[j];
+            }
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc[j] += r[j];
+          }
+          __align__(16) T packed[VEC];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) packed[j] = from_f<T>(acc[j]);
+          *reinterpret_cast<uint4*>(o + xl * C + cv * VEC) = *reinterpret_cast<const uint4*>(packed);
+        }
+      }
+      // the tile's generic-proxy writes, before the bulk store reads them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      out = o;
+    }
+    __syncthreads();
+    if (tid == 0)
+      bulk_store(dx + (((int64_t)t.n * H + t.y) * W + t.x0) * C, out,
+                 (uint32_t)((t.x1 - t.x0) * C * (int)sizeof(T)));
+  }
+  // the shared memory stays until the last store has read it
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+template <typename T>
+int launch_bulk(const void* dy, void* dx, int N, int H, int W, int C, int p, int tp, int blocks,
+                cudaStream_t s) {
+  auto kern = reflect_pad_bwd_bulk_kernel<T>;
+  static int attr = -1;  // once per dtype: the largest ring
+  if (attr < 0)
+    attr = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr) return attr;
+  const int tiles = (W + tp - 1) / tp;
+  const int smem = kBars + kStages * (4 * tp + 6 * p) * C * (int)sizeof(T);
+  kern<<<blocks, 256, smem, s>>>((const T*)dy, (T*)dx, H, W, C, p, tp, tiles, N * H * tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dy: (N, H+2p, W+2p, C), dx: (N, H, W, C), both contiguous NHWC in fp32
-// or bf16; H, W > p.
+// or bf16; H, W > p. tile > 0: the bulk form with tiles of `tile` pixels on
+// `blocks` blocks (kernels/reflect_pad._plan; C * itemsize a multiple of
+// 16, dy and dx 16-byte aligned); tile 0: the gather form.
 extern "C" int himan_reflect_pad_bwd(const void* dy, void* dx, int N, int H,
-                                     int W, int C, int p, int is_bf16,
-                                     void* stream) {
+                                     int W, int C, int p, int tile, int blocks,
+                                     int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (tile > 0)
+    return is_bf16 ? launch_bulk<__nv_bfloat16>(dy, dx, N, H, W, C, p, tile, blocks, s)
+                   : launch_bulk<float>(dy, dx, N, H, W, C, p, tile, blocks, s);
   const int wc = W * C;
   int tiles = (wc + 255) / 256;
   // enough blocks in all to fill the card a few times, at least one a row

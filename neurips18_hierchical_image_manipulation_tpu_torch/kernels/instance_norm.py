@@ -7,12 +7,15 @@ package): ``fused_instance_norm`` -> ``_run_fwd`` / ``_fwd_kernel``. eps
 also returns the per-(n, c) mean and rstd (fp32, (N, C)) for a backward.
 
 Bound: bytes (a few operations per byte). The TPU kernel carries its sums
-across a sequential grid axis; blocks on this card run in parallel, and
-at the stem (HW 131072, C 64) one block per (n, channel tile) would fill 2
-of 132 SMs. So ``csrc/instance_norm.cu`` splits HW across blocks (Welford
-partials), merges them with Chan's formula, then normalizes elementwise —
-see the source. ``_splits`` picks the split so the first launch fills the
-card about once.
+across a sequential grid axis; blocks on this card run in parallel. So
+``_fwd_plan`` picks, by shape, one launch in which a thread-block cluster
+holds the (sample, 32-channel) plane of x in shared memory (read once,
+exact two-pass statistics exchanged through distributed shared memory in
+rank order), or, for planes too large for 16 blocks and channel counts off
+the 16-byte vectors, a two-launch split form (Chan partials, then each
+block merges them itself and normalizes) — see ``csrc/instance_norm.cu``.
+No atomics, every sum in a fixed order; ``instance_norm.variants`` counts
+the launches of each.
 
 Backward: ``instance_norm_bwd`` replaces ``_run_bwd`` / ``_bwd_kernel``
 of the same file: dx = (gm - mean(gm) - x̂·mean(gm·x̂))·rstd with gm the
@@ -48,8 +51,12 @@ from . import _build
 
 EPS = 1e-5
 ACTS = {"none": 0, "relu": 1, "lrelu": 2}
-_TARGET_BLOCKS = 132 * 8  # resident 256-thread blocks on an H100
-_MIN_ROWS = 64            # at least 8 rows for each of a block's 8 row lanes
+_BLOCKS = 2 * 132          # two 256-thread blocks per SM of an H100
+_SLAB = 196_608            # shared memory a cluster block stages its rows in,
+                           # at most (csrc/instance_norm.cu kSlab)
+_FWD_SLAB = 98_304         # the forward's: a larger slab a block was slower
+                           # than a larger cluster or the split form on H100
+_MAX_CLUSTER = 16          # non-portable cluster size limit on Hopper
 
 
 def instance_norm_plain(x, act="none", residual=None, eps=EPS):
@@ -60,13 +67,44 @@ def instance_norm_plain(x, act="none", residual=None, eps=EPS):
     return y, mean.reshape(n, c), rstd.reshape(n, c)
 
 
-def _splits(n: int, hw: int, c: int):
-    """(splits, rows per split) of the HW axis for the statistics launch."""
+def _plan(n: int, h: int, w: int, c: int, dtype, slab: int, grow: int) -> dict:
+    """The launch plan of an (n, h, w, c) site for a kernel pair whose
+    cluster form stages ``slab`` bytes of a block's rows in shared memory.
+
+    ``variant`` "cluster": one launch, the (sample, 32-channel) plane held by
+    the ``cluster`` blocks of one thread-block cluster, ``chunk`` rows each,
+    in shared memory (16-byte rows: c a multiple of 4 fp32 / 8 bf16
+    channels). The cluster is the smallest that holds the plane, grown (up
+    to ``grow``) while the grid is short of ``_BLOCKS`` and each block keeps
+    a full pass of its row lanes.
+    ``variant`` "split": two launches over ``splits`` blocks of ``chunk``
+    rows (a multiple of the row lanes) per (sample, channel tile), about
+    ``_BLOCKS`` blocks in all, each at least 4 passes of its row lanes.
+    """
+    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
+    vec = 16 // item
+    lanes = 256 // (32 // vec)          # row lanes of a block: 32 fp32, 64 bf16
     tiles = n * -(-c // 32)
-    s = max(1, min(-(-_TARGET_BLOCKS // tiles), hw // _MIN_ROWS))
-    chunk = -(-hw // s)
-    chunk = -(-chunk // 8) * 8
-    return -(-hw // chunk), chunk
+    max_rows = slab // (32 * item)
+    cs = -(-hw // max_rows)
+    if c % vec or cs > _MAX_CLUSTER:
+        s = max(1, min(-(-_BLOCKS // tiles), hw // (4 * lanes)))
+        rows = -(-hw // s)
+        chunk = -(-rows // lanes) * lanes
+        return {"variant": "split", "cluster": 1, "splits": -(-hw // chunk), "chunk": chunk}
+    while cs < grow and tiles * cs < _BLOCKS and -(-hw // (cs + 1)) >= lanes:
+        cs += 1
+    chunk = -(-hw // cs)
+    return {"variant": "cluster", "cluster": -(-hw // chunk), "splits": -(-hw // chunk),
+            "chunk": chunk}
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_plan(n: int, h: int, w: int, c: int, dtype) -> dict:
+    """The forward kernel's launch plan (``_plan``): its cluster form stages
+    x alone, up to 768 rows a block in fp32, 1536 in bf16, in clusters of up
+    to 16."""
+    return _plan(n, h, w, c, dtype, _FWD_SLAB, _MAX_CLUSTER)
 
 
 def _check(x, act, residual):
@@ -99,24 +137,31 @@ def instance_norm(x, act: str = "none", residual: Optional[torch.Tensor] = None,
     if n > 65535 or h * w * c >= 2**30:
         raise ValueError(f"instance_norm grid limits: N {n} <= 65535, H*W*C {h * w * c} < 2^30")
     lib = _lib()
-    s, chunk = _splits(n, h * w, c)
+    plan = _fwd_plan(n, h, w, c, x.dtype)
+    split = plan["variant"] == "split"
+    # y, and one fp32 tensor of mean, rstd and the split form's (2, n,
+    # splits, c) partials (two allocations cost the host less than views
+    # of one)
     y = torch.empty_like(x)
-    # one fp32 allocation: mean, rstd, then the (3, n, s, c) split partials
-    ws = torch.empty(2 * n * c + 3 * n * s * c, dtype=torch.float32, device=x.device)
-    mean, rstd = ws[: n * c].view(n, c), ws[n * c : 2 * n * c].view(n, c)
+    ws = torch.empty((2 + 2 * plan["splits"] * split, n, c), dtype=torch.float32,
+                     device=x.device)
+    mean, rstd = ws[0], ws[1]
     err = lib.himan_instance_norm_fwd(
         x.data_ptr(),
         residual.data_ptr() if residual is not None else None,
-        y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), ws[2 * n * c :].data_ptr(),
-        n, h * w, c, s, chunk, ACTS[act], eps,
+        y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        ws.data_ptr() + 8 * n * c if split else None,
+        n, h * w, c, plan["splits"], plan["chunk"], ACTS[act], eps, int(not split),
         int(x.dtype == torch.bfloat16), _build.stream_for(x.device),
     )
     _build.check(err, "himan_instance_norm_fwd")
     instance_norm.launches += 1
+    instance_norm.variants[plan["variant"]] += 1
     return y, mean, rstd
 
 
 instance_norm.launches = 0
+instance_norm.variants = {"cluster": 0, "split": 0}
 
 
 def _mask(g, y, act):
@@ -141,42 +186,11 @@ def instance_norm_bwd_plain(x, y, g, mean, rstd, act="none", want_dres=False):
     return dx, (gm.to(x.dtype) if want_dres else None)
 
 
-_BWD_BLOCKS = 2 * 132     # two 256-thread blocks per SM of an H100
-_BWD_SLAB = 196_608        # shared memory a cluster block stages x, g, y in
-                           # (csrc/instance_norm.cu kBwdSlab)
-_BWD_MAX_CLUSTER = 16      # non-portable cluster size limit on Hopper
-
-
 @functools.lru_cache(maxsize=1024)
 def _bwd_plan(n: int, h: int, w: int, c: int, dtype) -> dict:
-    """The backward kernel's launch plan for an (n, h, w, c) site.
-
-    ``variant`` "cluster": one launch, the (sample, 32-channel) plane held by
-    the ``cluster`` blocks of one thread-block cluster, ``chunk`` rows each,
-    in shared memory (16-byte rows: c a multiple of 4 fp32 / 8 bf16
-    channels). The cluster is the smallest that holds the plane, grown (up
-    to 8, the portable size) while the grid is short of ``_BWD_BLOCKS`` and
-    each block keeps a full pass of its row lanes.
-    ``variant`` "split": two launches over ``splits`` blocks of ``chunk``
-    rows (a multiple of the row lanes) per (sample, channel tile), about
-    ``_BWD_BLOCKS`` blocks in all, each at least 4 passes of its row lanes.
-    """
-    hw, item = h * w, torch.empty((), dtype=dtype).element_size()
-    vec = 16 // item
-    lanes = 256 // (32 // vec)          # row lanes of a block: 32 fp32, 64 bf16
-    tiles = n * -(-c // 32)
-    max_rows = _BWD_SLAB // (32 * item * 3)
-    cs = -(-hw // max_rows)
-    if c % vec or cs > _BWD_MAX_CLUSTER:
-        s = max(1, min(-(-_BWD_BLOCKS // tiles), hw // (4 * lanes)))
-        rows = -(-hw // s)
-        chunk = -(-rows // lanes) * lanes
-        return {"variant": "split", "cluster": 1, "splits": -(-hw // chunk), "chunk": chunk}
-    while cs < 8 and tiles * cs < _BWD_BLOCKS and -(-hw // (cs + 1)) >= lanes:
-        cs += 1
-    chunk = -(-hw // cs)
-    return {"variant": "cluster", "cluster": -(-hw // chunk), "splits": -(-hw // chunk),
-            "chunk": chunk}
+    """The backward kernel's launch plan (``_plan``): its cluster form
+    stages x, g and y, in clusters grown up to 8 (the portable size)."""
+    return _plan(n, h, w, c, dtype, _SLAB // 3, 8)
 
 
 def instance_norm_bwd(x, y, g, mean, rstd, act: str = "none", want_dres: bool = False):
@@ -272,7 +286,7 @@ def _lib():
     fn = lib.himan_instance_norm_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = i
         bwd = lib.himan_instance_norm_bwd
         bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]

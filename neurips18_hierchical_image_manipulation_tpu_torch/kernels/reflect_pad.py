@@ -6,14 +6,21 @@ where it is ``jnp.pad``. The backward replaces the TPU kernel of
 ``reflect_pad_bwd`` / ``_bwd_kernel``, which folds the mirrored border
 strips of the padded cotangent back into the input's gradient.
 
-Bound: bytes (one read of dy, one write of dx). ``csrc/reflect_pad.cu`` is
-a gather: one thread per dx element sums the 1-9 dy entries that reflect
-onto it, so no atomics are needed and any H, W > pad is taken — the
-overlapping-mirror sizes the TPU kernel refused included, so no site needs
-a gate. The JAX package gates its kernel off (``ops/pallas/config.py``
-``_PAD_BWD_KERNEL = False``), a TPU measurement that does not carry over:
-on the card every pad with a gradient (the 18 resblock pads and the head
-pad of the generator) folds through this kernel.
+Bound: bytes (one read of dy, one write of dx). ``_plan`` picks, by
+shape, one of two forms of ``csrc/reflect_pad.cu``: "bulk" (C * itemsize a
+multiple of 16 bytes: every pad of the networks), where a persistent grid
+moves each dx row tile's contiguous source segments into a 3-stage
+shared-memory ring with 1-D TMA bulk copies, folds the mirrors there and
+writes the tile back with a bulk store; or "gather", one thread per dx
+element summing the 1-9 dy entries that reflect onto it.
+``reflect_pad_bwd.variants`` counts the launches of each. Both sum in fp32
+in the plain version's order, with no atomics, and take any H, W > pad —
+the overlapping-mirror sizes the TPU kernel refused included, so no site
+needs a gate. The JAX package gates its kernel off
+(``ops/pallas/config.py`` ``_PAD_BWD_KERNEL = False``), a TPU measurement
+that does not carry over: on the card every pad with a gradient (the 18
+resblock pads and the head pad of the generator) folds through this
+kernel.
 
 ``reflect_pad_bwd`` takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors (or raises).
@@ -22,6 +29,7 @@ the kernel for CUDA tensors (or raises).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +64,49 @@ def reflect_pad_bwd_plain(dy, pad: int):
     return dx.to(dy.dtype)
 
 
+_STAGES = 3            # the bulk form's ring (csrc/reflect_pad.cu kStages)
+_SMEM = 204_800        # its shared memory a block, at most (kSmem)
+_BARS = 128            # bytes of mbarriers before the stages (kBars)
+_SM_SMEM = 233_472     # shared memory of an H100 SM
+_SMS = 132
+_ITEMS = 2 * _SMS      # work items wanted, at least, where the rows allow
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(n: int, h: int, w: int, c: int, pad: int, dtype) -> dict:
+    """The backward kernel's launch plan for dy of (n, h + 2 pad, w + 2
+    pad, c).
+
+    ``variant`` "bulk" (16-byte pixels): the work items are the ``tiles``
+    tiles of ``tile`` pixels of each of the n * h dx rows, walked by
+    ``blocks`` persistent blocks of ``smem`` bytes (``_SMS`` times as many
+    as fit an SM). A tile's source segments (its pixels, extended to the
+    row's edge on the first and last tile; up to 3 source rows) and the
+    output tile fit a stage of the ring: 3 (tile + 2 pad) + tile pixels. The tile is the largest that fits and leaves at least
+    ``_ITEMS`` items where the rows allow, such that the left mirror
+    targets (columns 1..pad) fall in the first tile and the right ones
+    (w-1-pad..w-2) in the last: a tile of more than ``pad`` pixels and a
+    last tile of more than ``pad`` (or one tile).
+    ``variant`` "gather": C * itemsize not a multiple of 16, or a pixel too
+    large for a stage.
+    """
+    px = c * torch.empty((), dtype=dtype).element_size()
+    gather = {"variant": "gather", "tile": 0, "tiles": 0, "blocks": 0, "smem": 0}
+    if px % 16:
+        return gather
+    fit = ((_SMEM - _BARS) // _STAGES // px - 6 * pad) // 4
+    want = -(-w // -(-_ITEMS // (n * h)))
+    top = min(w, fit, max(want, pad + 1))
+    tp = next((t for t in range(top, pad, -1) if w % t == 0 or w % t > pad),
+              w if w <= fit else 0)
+    if tp == 0:
+        return gather
+    tiles = -(-w // tp)
+    smem = _BARS + _STAGES * (4 * tp + 6 * pad) * px
+    blocks = min(n * h * tiles, _SMS * max(1, _SM_SMEM // (smem + 1024)))
+    return {"variant": "bulk", "tile": tp, "tiles": tiles, "blocks": blocks, "smem": smem}
+
+
 def reflect_pad_bwd(dy, pad: int):
     """dy (N, H+2p, W+2p, C), the cotangent of the padded tensor ->
     dx (N, H, W, C)."""
@@ -71,21 +122,26 @@ def reflect_pad_bwd(dy, pad: int):
         return reflect_pad_bwd_plain(dy, pad)
     if dy.device.type != "cuda":
         raise ValueError(f"unsupported device {dy.device}")
-    if n * h >= 2**31 or wp * c >= 2**31:
+    plan = _plan(n, h, w, c, pad, dy.dtype)
+    if n * h * max(1, plan["tiles"]) >= 2**31 or wp * c >= 2**31:
         raise ValueError(f"reflect_pad_bwd grid limits: N*H {n * h}, (W+2p)*C {wp * c} < 2^31")
+    if plan["variant"] == "bulk" and dy.data_ptr() % 16:
+        raise ValueError("reflect_pad_bwd: dy must be 16-byte aligned for the bulk copies")
     dx = torch.empty((n, h, w, c), dtype=dy.dtype, device=dy.device)
     if dx.numel() == 0:
         return dx
     err = _lib().himan_reflect_pad_bwd(
-        dy.data_ptr(), dx.data_ptr(), n, h, w, c, pad,
+        dy.data_ptr(), dx.data_ptr(), n, h, w, c, pad, plan["tile"], plan["blocks"],
         int(dy.dtype == torch.bfloat16), _build.stream_for(dy.device),
     )
     _build.check(err, "himan_reflect_pad_bwd")
     reflect_pad_bwd.launches += 1
+    reflect_pad_bwd.variants[plan["variant"]] += 1
     return dx
 
 
 reflect_pad_bwd.launches = 0
+reflect_pad_bwd.variants = {"bulk": 0, "gather": 0}
 
 
 class _ReflectPad(torch.autograd.Function):
@@ -110,6 +166,6 @@ def _lib():
     fn = lib.himan_reflect_pad_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return lib

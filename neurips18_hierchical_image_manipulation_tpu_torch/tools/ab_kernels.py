@@ -19,7 +19,16 @@ and compare. It measures, on that tree's public entry points only:
      device time by CUDA-graph replay;
   3. the host time of one ``instance_norm_bwd`` call at the bottleneck
      (relu): the host clock over 1000 calls after a sync;
-  4. the bf16 train step (``make_train_step``) at 512x256, full width, bs 1
+  4. ``instance_norm`` (the forward) over the 27 sites of one 512x256
+     generator forward at bs 1 and 8 (fp32), and over the 39 sites of one
+     bs-1 step (the acts and residuals of the networks), fp32 and bf16,
+     each site with its own inputs, device time by CUDA-graph replay; its
+     host time a call at the bottleneck (relu);
+  5. ``reflect_pad_bwd`` over the 19 pads of one bs-1 step (18 resblock pads
+     of dy (1, 18, 34, 1024), the head pad of dy (1, 262, 518, 64)), fp32
+     and bf16, device time by CUDA-graph replay; its host time a call at a
+     resblock pad;
+  6. the bf16 train step (``make_train_step``) at 512x256, full width, bs 1
      and 4: host clock per step after a sync.
 
 Prints one JSON object (and writes it to ``--out``) with the card's name and
@@ -58,6 +67,7 @@ def main(argv=None):
     from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import synthetic_batch
     from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
     from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
+    from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
     from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
     from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
     from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import make_train_step
@@ -80,6 +90,16 @@ def main(argv=None):
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
+
+    def host_us(fn, calls=1000):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
 
     def graph_ms(fn, iters=20):
         side = torch.cuda.Stream()
@@ -121,14 +141,41 @@ def main(argv=None):
         bwd[str(dt)[6:]] = graph_ms(lambda: [kin.instance_norm_bwd(*c) for c in calls])
         x, y, gy, mean, rstd, _ = calls[13]  # a bottleneck site, relu
         assert tuple(x.shape) == (1, 16, 32, 1024)
-        kin.instance_norm_bwd(x, y, gy, mean, rstd, "relu")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(1000):
-            kin.instance_norm_bwd(x, y, gy, mean, rstd, "relu")
-        bwd[f"host_us_{str(dt)[6:]}"] = (time.perf_counter() - t) / 1000 * 1e6
-        torch.cuda.synchronize()
+        bwd[f"host_us_{str(dt)[6:]}"] = host_us(
+            lambda: kin.instance_norm_bwd(x, y, gy, mean, rstd, "relu"))
     report["instance_norm_bwd_39_sites_ms"] = bwd
+
+    def fwd_sites(sites, dt):
+        """(shape, act) sites -> one graph of the forward over all of them;
+        the resblocks' second IN ("none") adds the residual, as the
+        networks do."""
+        calls = []
+        for shape, act in sites:
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+            r = torch.randn(shape, generator=gen, device=dev).to(dt) if act == "none" else None
+            calls.append((x, act, r))
+        return graph_ms(lambda: [kin.instance_norm(*c) for c in calls])
+
+    fwd = {}
+    for bs in (1, 8):
+        fwd[f"forward_27_sites_bs{bs}_float32"] = fwd_sites(
+            [((bs, *s[1:]), a) for s, a in g_sites], torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        fwd[f"step_39_sites_{str(dt)[6:]}"] = fwd_sites(sites, dt)
+        x = torch.randn((1, 16, 32, 1024), generator=gen, device=dev).to(dt)
+        fwd[f"host_us_{str(dt)[6:]}"] = host_us(lambda: kin.instance_norm(x, "relu"))
+    report["instance_norm_fwd_ms"] = fwd
+
+    pads = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dys = [(torch.randn((1, 18, 34, 1024), generator=gen, device=dev).to(dt), 1)
+               for _ in range(18)]
+        dys.append((torch.randn((1, 262, 518, 64), generator=gen, device=dev).to(dt), 3))
+        pads[f"step_19_pads_{str(dt)[6:]}"] = graph_ms(
+            lambda: [krp.reflect_pad_bwd(dy, p) for dy, p in dys])
+        pads[f"head_pad_{str(dt)[6:]}"] = graph_ms(lambda: krp.reflect_pad_bwd(*dys[-1]))
+        pads[f"host_us_{str(dt)[6:]}"] = host_us(lambda: krp.reflect_pad_bwd(*dys[0]))
+    report["reflect_pad_bwd_ms"] = pads
 
     opt = MaskToImageTrainOptions(gpu_ids="0", dtype="bfloat16")
     model = create_model(opt)

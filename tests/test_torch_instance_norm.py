@@ -121,10 +121,16 @@ def test_in_stats_match_float64():
      (8, 131072, 64)],
 )
 def test_in_splits_cover_hw(n, hw, c):
-    s, chunk = kin._splits(n, hw, c)
-    assert chunk % 8 == 0 and s >= 1
+    """The forward plan's blocks cover the HW rows once: no block empty, no
+    row left; a split block takes whole passes of its 32 row lanes."""
+    plan = kin._fwd_plan(n, 1, hw, c, torch.float32)
+    s, chunk = plan["splits"], plan["chunk"]
+    assert s >= 1
     assert (s - 1) * chunk < hw <= s * chunk
-    assert chunk >= min(hw, kin._MIN_ROWS) or s == 1
+    if plan["variant"] == "split":
+        assert chunk % 32 == 0
+    else:
+        assert plan["cluster"] == s <= 16
 
 
 def test_in_rejects_bad_inputs():

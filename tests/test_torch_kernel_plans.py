@@ -112,7 +112,7 @@ def test_bwd_plan_covers_rows_once(dt, shape):
     if plan["variant"] == "cluster":
         assert plan["cluster"] == blocks and 1 <= blocks <= 16
         assert c % (16 // item) == 0
-        assert chunk * 32 * item * 3 <= kin._BWD_SLAB
+        assert chunk * 32 * item * 3 <= kin._SLAB
     else:
         assert plan["cluster"] == 1
 

@@ -67,18 +67,35 @@ def test_encode_kernel_without_image_or_instance(cuda_device):
     assert bits_equal(got, want)
 
 
+# the forward's two variants (kernels/instance_norm._fwd_plan): clusters at
+# a 64x96 site, the bottleneck and 64x128x256, the first D layer at N 2, a
+# tiny one; the split form at 128x256x128 and the stem; channel counts off
+# the 16-byte vectors (split, scalar accesses: 3 in both dtypes, 100 in bf16)
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("act", ["none", "relu", "lrelu"])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("shape", [(2, 64, 96, 64), (1, 8, 16, 1024), (1, 5, 7, 48)])
+@pytest.mark.parametrize("shape", [(2, 64, 96, 64), (1, 8, 16, 1024), (1, 5, 7, 48),
+                                   (1, 16, 32, 1024), (1, 64, 128, 256), (2, 65, 129, 128),
+                                   (1, 128, 256, 128), (1, 256, 512, 64), (2, 5, 7, 3),
+                                   (1, 9, 11, 100)])
 def test_in_kernel_matches_plain(cuda_device, dt, act, residual, shape):
+    """Each variant against the plain version, one launch counted per call
+    on the variant the plan picks, and the same bits on a second call."""
     tdt = getattr(torch, dt)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(tdt)
     r = torch.randn(shape, generator=g, device=cuda_device).to(tdt) if residual else None
+    variant = kin._fwd_plan(*shape, tdt)["variant"]
+    before, v0 = kin.instance_norm.launches, dict(kin.instance_norm.variants)
     y, mean, rstd = kin.instance_norm(x, act, r)
+    again = kin.instance_norm(x, act, r)
+    assert kin.instance_norm.launches == before + 2
+    assert {k: n - v0[k] for k, n in kin.instance_norm.variants.items()} == dict(
+        {k: 0 for k in v0}, **{variant: 2})
     yp, meanp, rstdp = kin.instance_norm_plain(x, act, r)
     torch.cuda.synchronize()
+    for a, b in zip((y, mean, rstd), again):
+        assert bits_equal(a, b)  # no atomics: the same bits every run
     torch.testing.assert_close(mean, meanp, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, rstdp, atol=1e-5, rtol=1e-5)
     if dt == "float32":
@@ -181,19 +198,33 @@ def test_in_autograd_through_kernels_matches_plain(cuda_device):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+# (N, H, W, C), pad, the variant kernels/reflect_pad._plan picks: bulk at
+# p 1 (the resblock pads at bs 1 and 32) and p 3 (the head pad, a 64x128
+# one), and at h <= 2p (one tile, mirrors overlapping); gather at channel
+# counts whose pixels are not 16-byte multiples, at h <= 2p too
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,pad", [((1, 16, 32, 1024), 1), ((1, 64, 128, 64), 3),
-                                       ((2, 2, 3, 8), 1), ((1, 4, 5, 16), 3)])
-def test_reflect_pad_backward_kernel_matches_plain(cuda_device, dt, shape, pad):
+@pytest.mark.parametrize("shape,pad,variant", [
+    ((1, 16, 32, 1024), 1, "bulk"), ((32, 16, 32, 1024), 1, "bulk"),
+    ((1, 256, 512, 64), 3, "bulk"), ((1, 64, 128, 64), 3, "bulk"), ((2, 2, 3, 8), 1, "bulk"),
+    ((1, 4, 5, 16), 3, "bulk"), ((1, 5, 7, 3), 1, "gather"), ((1, 4, 5, 3), 3, "gather"),
+    ((2, 6, 9, 6), 1, "gather")])
+def test_reflect_pad_backward_kernel_matches_plain(cuda_device, dt, shape, pad, variant):
+    """Each variant against the plain version, its launches counted per
+    variant, and the same bits on a second call."""
     tdt = getattr(torch, dt)
     n, h, w, c = shape
+    assert krp._plan(n, h, w, c, pad, tdt)["variant"] == variant
     g = torch.Generator(device=cuda_device).manual_seed(4)
     dy = torch.randn((n, h + 2 * pad, w + 2 * pad, c), generator=g, device=cuda_device).to(tdt)
-    before = krp.reflect_pad_bwd.launches
+    before, v0 = krp.reflect_pad_bwd.launches, dict(krp.reflect_pad_bwd.variants)
     dx = krp.reflect_pad_bwd(dy, pad)
-    assert krp.reflect_pad_bwd.launches == before + 1
+    again = krp.reflect_pad_bwd(dy, pad)
+    assert krp.reflect_pad_bwd.launches == before + 2
+    assert {k: m - v0[k] for k, m in krp.reflect_pad_bwd.variants.items()} == dict(
+        {k: 0 for k in v0}, **{variant: 2})
     want = krp.reflect_pad_bwd_plain(dy, pad)
     torch.cuda.synchronize()
+    assert bits_equal(dx, again)
     close_bf16_ok(dx, want, tdt)
 
 
