@@ -28,8 +28,9 @@ and the script exits non-zero):
               call (1000 calls); the reflect-pad backward at the resblock and head
               pads, one tile with overlapping mirrors and two odd channel
               counts, each on the variant kernels/reflect_pad._plan picks
-              (bulk or gather), the same bits on a second run; MSE/L1 at the D-logit, FM-feature and VGG-tap sizes,
-              encode_cond at 512x256; times beside the library call
+              (bulk or gather), the same bits on a second run; MSE/L1 at the D-logit,
+              FM-feature and VGG-tap sizes (each a group of one), encode_cond
+              at 512x256; times beside the library call
   5. serving  (main path 1) the port's mask2image_test CLI end to end at
               full width (label_nc 35, ngf 64, 4 downs, 9 resblocks at 1024
               channels, bbox-crop windows at fineSize 512) on a seeded
@@ -40,9 +41,10 @@ and the script exits non-zero):
               (G as above, 2-scale 3-layer PatchGAN, VGG19, LSGAN + FM +
               VGG, Adam) on the same kind of dataroot, bs 1, one epoch;
               counters zeroed before and read after, and held to the
-              per-step launch counts of the architecture, the IN forward's,
-              the IN backward's and the reflect-pad backward's per variant
-              to their plans' split of the recorded calls; every loss
+              per-step launch counts of the architecture (the loss kernel:
+              terms reduced, and group launches, one a loss), the IN
+              forward's, the IN backward's and the reflect-pad backward's
+              per variant to their plans' split of the recorded calls; every loss
               finite; latest_params.npz loaded back into the serving model
               for one inference
   7. model    Pix2PixHDModel.inference at 512x256 fp32 (bs 1 and 8): kernel
@@ -51,7 +53,8 @@ and the script exits non-zero):
               (the pad-0 encode mode)
   8. step     make_train_step at 512x256 fp32, bs 1 and 4: ms/step,
               images/s, peak memory, the plain path's ms/step, per-variant
-              launches of one step against the plans; from the same
+              launches of one step against the plans (the loss groups
+              against the architecture's count); from the same
               parameters one step's loss terms and every G/D gradient
               leaf on the kernel path against the plain path
   9. conv_in  the fused conv3x3 + IN kernel against its plain version, fp32
@@ -67,7 +70,8 @@ and the script exits non-zero):
               bfloat16 --pool_size 50 --display_freq 4 for one epoch, then
               --continue_train from its latest for a second; counters zeroed
               before and read after each run and held to the per-step counts
-              of the pooled step; web/index.html, iter.txt
+              of the pooled step, the loss groups among them; web/index.html,
+              iter.txt
  11. roofline (main path 4) the port's resblock roofline tool at bs 32
               (tools/roofline_resblock.py, few iterations): counters zeroed
               before and read after; the fused kernel must have launched,
@@ -76,8 +80,8 @@ and the script exits non-zero):
  12. step bf16  make_train_step in the bf16 tier at 512x256, bs 1 and 4:
               ms/step, images/s, peak memory, per-step launches of every
               kernel (per variant where a kernel has several); the IN
-              forward and the reflect-pad backward timed over the calls of
-              one bs-1 bf16 step
+              forward, the reflect-pad backward and the loss groups timed
+              over the calls of one bs-1 bf16 step
 With --profile: torch.profiler tables of one serving forward and of train
 steps at 512x256 bs 1.
 The last two lines of standard output are the kernels' JSON summary and
@@ -154,15 +158,18 @@ STEP_SENS_FACTOR = 2.0      # the whole path, against the 1-ulp sensitivity
 # conv to bf16 before the statistics, which the kernel never does)
 CONV_IN_ATOL, CONV_IN_RTOL = 3e-5, 1e-4
 CONV_IN_BF16_ULPS = 2
-# (N, H, W, Cin, Cout): the bottleneck at bs 1 (the mma.sync kernel), an odd
-# shape, the JAX test shape, channel counts that are not multiples of 8 (the
-# mma kernel's scalar loads); for the wgmma kernel (kernels/conv_in._plan):
-# the bottleneck at bs 4 (a 4-block cluster), H*W not a multiple of 128 with
-# Cin not one of 64 (9x17, 96 -> 40: 2-block clusters), and H*W > 1024 (16
-# tiles: the two-launch epilogue). The roofline path checks bs 32.
+# (N, H, W, Cin, Cout): the bottleneck at bs 1 (bf16: the mma.sync kernel;
+# fp32: K split 8 ways, three launches), an odd shape (fp32: 2 tiles, the
+# two-launch epilogue), the JAX test shape, channel counts that are
+# not multiples of 8 (the mma kernel's scalar loads); for the wgmma kernel
+# (kernels/conv_in._plan): the bottleneck at bs 4 (a 4-block cluster), H*W
+# not a multiple of 128 with Cin not one of 64 (9x17, 96 -> 40: 2-block
+# clusters), and H*W > 1024 (16 tiles: the two-launch epilogue, in fp32 too);
+# channel counts that are not multiples of 4 (the fp32 kernel's 4-byte
+# copies, a plane of one tile). The roofline path checks bs 32.
 CONV_IN_SHAPES = [(1, 16, 32, 1024, 1024), (2, 9, 17, 96, 40), (2, 8, 16, 128, 128),
                   (1, 5, 7, 12, 20), (4, 16, 32, 1024, 1024), (64, 9, 17, 96, 40),
-                  (16, 32, 48, 64, 64)]
+                  (16, 32, 48, 64, 64), (1, 6, 9, 7, 10)]
 ROOFLINE_ARGV = ["--batch", "32", "--iters", "5", "--warmup", "2"]
 SHAPES_512x256 = [(256, 512, 64), (128, 256, 128), (64, 128, 256), (32, 64, 512),
                   (16, 32, 1024)]
@@ -207,7 +214,7 @@ def cuda_ms(fn, iters, warmup=2):
 
 def graph_ms(fn, iters=20):
     """Device time of fn() without host gaps: fn is captured once into a
-    CUDA graph (after a warm-up on a side stream) and the replay is timed."""
+    CUDA graph (on the side stream of its warm-up) and the replay is timed."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -215,7 +222,7 @@ def graph_ms(fn, iters=20):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=side):
         fn()
     return cuda_ms(g.replay, iters)
 
@@ -315,26 +322,35 @@ def plan_variant(kind, call):
     return plan(*shape, dt)["variant"]
 
 
-def plan_variants(kind, calls):
+def plan_variants(kind, calls, groups=()):
     """The launches per variant that the kernel's plan (kernels/instance_norm
     ._fwd_plan, ._bwd_plan, kernels/reflect_pad._plan) reckons for recorded
-    calls of one kernel."""
+    calls of one kernel; for the loss kernel, the recorded groups that hold
+    a term of its mode."""
+    if kind in ("mse_to_scalar", "l1_to_scalar"):
+        mode = "mse" if kind == "mse_to_scalar" else "l1"
+        return {"group": sum(any(t[0] == mode for t in g) for g in groups)}
     want = {v: 0 for v in counters()[kind].variants}
     for call in calls:
         want[plan_variant(kind, call)] += 1
     return want
 
 
+PLANNED = ("instance_norm", "instance_norm_bwd", "reflect_pad_bwd")
+
+
 def expect_variants(calls, what, since=None):
-    """Every kernel with variants launched as its plan reckons for its
-    recorded calls (per-variant counts since `since`, else since zero)."""
+    """Every kernel with a plan launched as its plan reckons for its
+    recorded calls (per-variant counts since `since`, else since zero); the
+    loss kernel's group launches, one for each recorded group."""
     got = read_variants()
     for kind, counts in got.items():
         if kind not in calls:
             continue
         if since is not None:
             counts = {k: v - since[kind][k] for k, v in counts.items()}
-        expect_launches(counts, plan_variants(kind, calls[kind]), f"{what}, {kind} variants")
+        expect_launches(counts, plan_variants(kind, calls[kind], calls.get("loss_group", ())),
+                        f"{what}, {kind} variants")
     return got
 
 
@@ -358,7 +374,7 @@ def expect_launches(got, want, what):
 def recording():
     """Record the arguments' shapes of every call of a training kernel's
     wrapper (a call on a CPU tensor too), by kernel name."""
-    calls = {k: [] for k in ("instance_norm",) + TRAIN_KERNELS}
+    calls = {k: [] for k in ("instance_norm", "loss_group") + TRAIN_KERNELS}
 
     class Recorder:
         """Stands in for a wrapper; a wrapper finds its own launch counter
@@ -386,6 +402,21 @@ def recording():
     def rec(mod, name, describe):
         return mock.patch.object(mod, name, Recorder(name, getattr(mod, name), describe))
 
+    reduce_group = klosses.reduce_group
+
+    def rec_group(terms):
+        """One loss launch: its terms (mode, shape, dtype, scalar target or
+        None), and each term as a call of mse_to_scalar / l1_to_scalar."""
+        table = [(m, tuple(a.shape), a.dtype, None if torch.is_tensor(t) else float(t))
+                 for m, a, t in terms]
+        calls["loss_group"].append(table)
+        for m, shape, dt, t in table:
+            if m == "mse":
+                calls["mse_to_scalar"].append((shape, dt, t))
+            else:
+                calls["l1_to_scalar"].append((shape, dt))
+        return reduce_group(terms)
+
     with rec(kin, "instance_norm",
              lambda x, act="none", residual=None, eps=kin.EPS:
              (tuple(x.shape), x.dtype, act, residual is not None)), \
@@ -393,8 +424,7 @@ def recording():
              lambda x, y, g, mean, rstd, act="none", want_dres=False:
              (tuple(x.shape), x.dtype, act, bool(want_dres))), \
             rec(krp, "reflect_pad_bwd", lambda dy, pad: (tuple(dy.shape), dy.dtype, pad)), \
-            rec(klosses, "mse_to_scalar", lambda pred, t: (tuple(pred.shape), pred.dtype, float(t))), \
-            rec(klosses, "l1_to_scalar", lambda a, b: (tuple(a.shape), a.dtype)), \
+            mock.patch.object(klosses, "reduce_group", rec_group), \
             rec(kenc, "encode_cond",
                 lambda label, inst, nc, dtype=torch.float32:
                 (tuple(label.shape), inst is not None, nc, dtype)):
@@ -801,24 +831,6 @@ def site_inputs(kind, calls, dev, gen):
             lib.append(library_pad_bwd(dy, pad))
             b, o = pad_bwd_bytes(shape, pad, dy.element_size())
             e = (kern[-1]().float() - plain[-1]().float()).abs().max().item()
-        elif kind == "mse_to_scalar":
-            shape, dt, t = call
-            pred = torch.randn(shape, generator=gen, device=dev).to(dt)
-            tt = torch.full((), t, dtype=dt, device=dev).expand_as(pred)
-            kern.append(lambda p=pred, t=t: klosses.mse_to_scalar(p, t))
-            plain.append(lambda p=pred, t=t: klosses.mse_to_scalar_plain(p, t))
-            lib.append(lambda p=pred, tt=tt: F.mse_loss(p, tt))
-            b, o = loss_bytes(pred.numel(), pred.element_size(), False)
-            e = abs(kern[-1]().item() - plain[-1]().item())
-        elif kind == "l1_to_scalar":
-            shape, dt = call
-            a = torch.randn(shape, generator=gen, device=dev).to(dt)
-            bb = torch.randn(shape, generator=gen, device=dev).to(dt)
-            kern.append(lambda a=a, b=bb: klosses.l1_to_scalar(a, b))
-            plain.append(lambda a=a, b=bb: klosses.l1_to_scalar_plain(a, b))
-            lib.append(lambda a=a, b=bb: F.l1_loss(a, b))
-            b, o = loss_bytes(a.numel(), a.element_size(), True)
-            e = abs(kern[-1]().item() - plain[-1]().item())
         elif kind == "encode_cond":
             shape, has_inst, nc, dt = call
             inp = encode_inputs(shape[0], shape[1], shape[2], dev, seed=len(kern))
@@ -853,6 +865,46 @@ def time_sites(kind, calls, dev, seed):
                 bound_ms=bms, bound_by=by, bytes=nbytes)
 
 
+def time_loss_groups(kind, groups, dev, seed):
+    """Device time of the loss kernel over the launches of one mode that one
+    step made (each recorded group replayed as one reduce_group, on fresh
+    random operands of its terms' shapes), beside the plain version over
+    the same groups, the library call (F.mse_loss / F.l1_loss) per term and
+    the bound; each group the same bits as its terms alone, and within
+    LOSS_RTOL of the plain version."""
+    mode = "mse" if kind == "mse_to_scalar" else "l1"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables, lib, nbytes, ops, err = [], [], 0, 0, 0.0
+    for table in groups:
+        if not any(m == mode for m, *_ in table):
+            continue
+        terms = []
+        for m, shape, dt, t in table:
+            a = torch.randn(shape, generator=gen, device=dev).to(dt)
+            b = torch.randn(shape, generator=gen, device=dev).to(dt) if t is None else None
+            terms.append((m, a, b if t is None else t))
+            tt = b if t is None else torch.full((), t, dtype=dt, device=dev).expand_as(a)
+            fn = F.mse_loss if m == "mse" else F.l1_loss
+            lib.append(lambda a=a, tt=tt, fn=fn: fn(a, tt))
+            nb, o = loss_bytes(a.numel(), a.element_size(), t is None)
+            nbytes, ops = nbytes + nb, ops + o
+        got, want = klosses.reduce_group(terms), klosses.reduce_group_plain(terms)
+        alone = torch.cat([klosses.reduce_group([term]) for term in terms])
+        torch.cuda.synchronize()
+        if not same_bits(got, alone):
+            raise AssertionError(f"{kind}: a term's bits differ alone and in its group {table}")
+        check_close(got, want, torch.float32, 0.0, f"{kind} group {table}", rtol=LOSS_RTOL)
+        err = max(err, (got - want).abs().max().item())
+        tables.append(terms)
+    bms, by = bound(nbytes, ops)
+    return dict(
+        launches_per_step=len(tables), terms_per_step=sum(len(t) for t in tables),
+        max_abs_err=err, ms=graph_ms(lambda: [klosses.reduce_group(t) for t in tables]),
+        plain_ms=graph_ms(lambda: [klosses.reduce_group_plain(t) for t in tables]),
+        library_ms=graph_ms(lambda: [f() for f in lib]), bound_ms=bms, bound_by=by,
+        bytes=nbytes)
+
+
 def train_per_step(g_sites, opt):
     """Launches of each kernel in one train step of this architecture. With
     the image pool the D step encodes its conditioning again, and the G
@@ -867,6 +919,24 @@ def train_per_step(g_sites, opt):
         "l1_to_scalar": (opt.n_layers_D + 1) * opt.num_D + (0 if opt.no_vgg_loss else 5),
         "reflect_pad_bwd": 2 * opt.n_blocks_global + 1, "conv3x3_in_act": 0,
     }
+
+
+def loss_groups_per_step(opt):
+    """Loss-kernel launches of one train step (kernels/losses.reduce_group,
+    one a loss): G's GAN term and D's real + fake terms (LSGAN), feature
+    matching and VGG; the image pool splits the step, not a loss."""
+    lsgan = not opt.no_lsgan
+    return {"mse_to_scalar": 2 if lsgan else 0,
+            "l1_to_scalar": int(not opt.no_ganFeat_loss) + int(not opt.no_vgg_loss)}
+
+
+def expect_groups(groups, per_step, steps, what):
+    """The loss groups launched (variants["group"] of each mode since
+    zero or since `groups`) against the per-step count."""
+    got = read_variants()
+    for kind, n in per_step.items():
+        expect_launches(got[kind]["group"] - groups.get(kind, 0), n * steps,
+                        f"{what}, {kind} group launches")
 
 
 def drive_train_cli(argv):
@@ -919,6 +989,7 @@ def phase_train_cli(tmp, results):
         raise AssertionError(f"{steps} steps, {len(errors)} loss lines")
     for k, n in per_step.items():
         expect_launches(launches[k], n * steps, f"train CLI {k}")
+    expect_groups({}, loss_groups_per_step(model.opt), steps, "train CLI")
     variants = expect_variants(calls, "train CLI")
     log(f"[train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
         f"variants {variants}")
@@ -958,6 +1029,7 @@ def phase_train_cli_bf16(tmp, results):
             "--dtype", "bfloat16", "--pool_size", "50", *ARCH_ARGV]
     run_dir = os.path.join(ckpt, "smoke_bf16")
     runs, total = [], {k: 0 for k in counters()}
+    total_variants = {k: {v: 0 for v in c} for k, c in read_variants().items()}
     done = 0
     for niter, extra in (("1", []), ("2", ["--continue_train"])):
         with recording() as calls:
@@ -970,6 +1042,7 @@ def phase_train_cli_bf16(tmp, results):
             raise AssertionError(f"bf16 train CLI: {steps} steps, {len(errors)} loss lines")
         for k, n in per_step.items():
             expect_launches(launches[k], n * steps, f"bf16 train CLI {k}")
+        expect_groups({}, loss_groups_per_step(model.opt), steps, f"bf16 train CLI epoch {niter}")
         with open(os.path.join(run_dir, "web", "index.html")) as f:
             html = f.read()
         if f"epoch [{niter}]" not in html:
@@ -979,6 +1052,8 @@ def phase_train_cli_bf16(tmp, results):
         if it != f"{int(niter) + 1},0":
             raise AssertionError(f"iter.txt {it!r} after epoch {niter}")
         total = {k: total[k] + launches[k] for k in total}
+        total_variants = {k: {v: n + variants[k][v] for v, n in c.items()}
+                          for k, c in total_variants.items()}
         run = dict(niter=int(niter), continue_train=bool(extra), steps=steps, wall_s=wall,
                    launches=launches, per_step=per_step, variants=variants,
                    losses_first=errors[0],
@@ -987,7 +1062,7 @@ def phase_train_cli_bf16(tmp, results):
         log(f"[train CLI bf16] {run}")
         del model
         torch.cuda.empty_cache()
-    results["train_cli_bf16"] = dict(runs=runs, launches=total)
+    results["train_cli_bf16"] = dict(runs=runs, launches=total, variants=total_variants)
     return total
 
 
@@ -1010,7 +1085,8 @@ def phase_roofline(tmp, results):
     expect_launches(variants, dict({k: 0 for k in variants}, wgmma=calls + 1),
                     "roofline tool, conv3x3_in_act variants")
     # every pad of the plain resblock folds through the bulk form
-    pads = expect_variants(rec, "roofline tool")["reflect_pad_bwd"]
+    all_variants = expect_variants(rec, "roofline tool")
+    pads = all_variants["reflect_pad_bwd"]
     expect_launches(pads, dict({k: 0 for k in pads}, bulk=2 * calls),
                     "roofline tool, reflect_pad_bwd variants")
     with open(out) as f:
@@ -1019,7 +1095,7 @@ def phase_roofline(tmp, results):
     log(f"[roofline] launches {launches}, conv3x3_in_act variants {variants}, "
         f"reflect_pad_bwd variants {pads}; report {json.dumps(report)}")
     results["roofline"] = dict(report=report, launches=launches, variants=variants,
-                               pad_variants=pads)
+                               pad_variants=pads, all_variants=all_variants)
     return launches
 
 
@@ -1052,6 +1128,30 @@ def conv_in_main_path_row(dev, results):
     row["max_abs_diff"], row["kernel_ms"] = row["max_abs_err"], row["ms"]
     log(f"[main-path kernel] {row}")
     return row
+
+
+def conv_in_fp32_row(results, path_variants):
+    """The JSON row of conv3x3_in_act's fp32 form (the FMA kernel), timed
+    at the bs-1 bottleneck in phase 9; launches: its "fma" launches counted
+    on each main path (none: the roofline tool runs bf16, and no network
+    calls the op)."""
+    row = next(r for r in results["conv_in"]["rows"]
+               if r["dtype"] == "float32" and tuple(r["shape"]) == CONV_IN_SHAPES[0])
+    by_path = {p: v["conv3x3_in_act"]["fma"] for p, v in path_variants.items()}
+    out = dict(
+        name="conv3x3_in_act (fp32)", route="cuda", source=f"{PKG}/csrc/conv_in.cu",
+        replaces=f"{JAX_PKG}/ops/pallas/conv_in.py:127", launches=sum(by_path.values()),
+        launches_by_path=by_path,
+        max_abs_err=results["conv_in"]["max_err"]["float32"], ms=row["ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+        library_ms=None, composition_ms=row["composition_ms"], plan=row["plan"],
+        per=f"one call at {row['shape']} fp32, ReLU; launches: the \"fma\" launches of the "
+            "main paths; max_abs_err over the phase-9 fp32 checks "
+            "(library_ms: no single PyTorch call computes it; composition_ms: reflect pad + "
+            "cuDNN conv without TF32 + F.instance_norm + ReLU)")
+    out["max_abs_diff"], out["kernel_ms"] = out["max_abs_err"], out["ms"]
+    log(f"[kernel row] {out}")
+    return out
 
 
 def grads_of(model):
@@ -1103,9 +1203,7 @@ def compare_step(model, batch):
             kin, "instance_norm_bwd", kin.instance_norm_bwd_plain),
         "reflect_pad_bwd": lambda: mock.patch.object(
             krp, "reflect_pad_bwd", krp.reflect_pad_bwd_plain),
-        "losses": lambda: mock.patch.multiple(
-            klosses, mse_to_scalar=klosses.mse_to_scalar_plain,
-            l1_to_scalar=klosses.l1_to_scalar_plain),
+        "losses": lambda: mock.patch.object(klosses, "reduce_group", klosses.reduce_group_plain),
     }
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -1187,6 +1285,8 @@ def phase_train_step(dev, results):
     with recording() as calls:
         step(state, batch)
     torch.cuda.synchronize()
+    expect_groups({k: since[k]["group"] for k in ("mse_to_scalar", "l1_to_scalar")},
+                  loss_groups_per_step(opt), 1, "fp32 step")
     got = expect_variants(calls, "fp32 step", since)
     variants = {k: {v: n - since[k][v] for v, n in c.items()} for k, c in got.items()}
     log(f"[step] variants per step {variants}")
@@ -1212,8 +1312,10 @@ def phase_train_step_bf16(dev, results):
             step(state, batch)
         if bs == 1:
             step_calls = calls
-        per_variant = {k: plan_variants(k, calls[k])
-                       for k in ("instance_norm", "instance_norm_bwd", "reflect_pad_bwd")}
+        per_variant = {k: plan_variants(k, calls[k], calls["loss_group"])
+                       for k in PLANNED + ("mse_to_scalar", "l1_to_scalar")}
+        expect_launches({k: v["group"] for k, v in per_variant.items() if "group" in v},
+                        loss_groups_per_step(opt), f"bf16 step bs {bs}, loss groups recorded")
         for _ in range(2):
             step(state, batch)
         torch.cuda.synchronize()
@@ -1245,11 +1347,15 @@ def phase_train_step_bf16(dev, results):
     results["step_bf16"] = rows
     del model
     torch.cuda.empty_cache()
-    # the IN forward and the reflect-pad backward over the calls of one bs-1
-    # bf16 step
+    # the IN forward, the reflect-pad backward and the loss groups over the
+    # calls of one bs-1 bf16 step
     table = []
     for i, name in enumerate(("instance_norm", "reflect_pad_bwd")):
         trow = dict(name=name, **time_sites(name, step_calls[name], dev, seed=60 + i))
+        table.append(trow)
+        log(f"[step bf16 {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
+    for i, name in enumerate(("mse_to_scalar", "l1_to_scalar")):
+        trow = dict(name=name, **time_loss_groups(name, step_calls["loss_group"], dev, 62 + i))
         table.append(trow)
         log(f"[step bf16 {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
     results["train_step_kernels_bf16"] = table
@@ -1264,22 +1370,34 @@ SOURCES = {
 }
 
 
-def phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, results):
+def phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants, step_calls,
+                                  results):
     """JSON rows of the training kernels, each timed on the calls one step
     of the train CLI made of it (its bbox windows, bs 1, fp32), and the
     per-step table at STEP_HW bs 1 for PERF.md."""
     rows, table = [], []
+
+    def timed(name, calls, seed):
+        if name in ("mse_to_scalar", "l1_to_scalar"):
+            return time_loss_groups(name, calls["loss_group"], dev, seed)
+        return time_sites(name, calls[name], dev, seed)
+
     for i, name in enumerate(TRAIN_KERNELS):
         src, tpu = SOURCES[name]
         row = dict(name=name, route="cuda", source=f"{PKG}/{src}",
                    replaces=f"{JAX_PKG}/{tpu}", launches=cli_launches[name],
-                   **time_sites(name, cli_calls[name], dev, seed=20 + i))
+                   **timed(name, cli_calls, 20 + i))
         row["per"] = (f"the {row['launches_per_step']} calls one train-CLI step makes "
                       f"(bbox windows, bs 1, fp32)")
+        if "terms_per_step" in row:
+            # the loss kernel: launches are the groups, its .launches the terms
+            row["launches"], row["terms"] = cli_variants[name]["group"], cli_launches[name]
+            row["per"] = (f"the {row['terms_per_step']} terms in {row['launches_per_step']} "
+                          "launches one train-CLI step makes (bbox windows, bs 1, fp32)")
         row["max_abs_diff"], row["kernel_ms"] = row["max_abs_err"], row["ms"]
         rows.append(row)
         log(f"[main-path kernel] {row}")
-        trow = dict(name=name, **time_sites(name, step_calls[name], dev, seed=40 + i))
+        trow = dict(name=name, **timed(name, step_calls, 40 + i))
         table.append(trow)
         log(f"[step {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
     # the IN forward over the sites of the same step (library_ms: IN alone)
@@ -1293,8 +1411,8 @@ def phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, resu
 
 # device-kernel names by kind, first match wins (the profile breakdown)
 KERNEL_KINDS = (
-    ("port kernels", ("in_fwd_", "in_bwd_", "reflect_pad_bwd_", "reduce_partial_kernel",
-                      "reduce_finish_kernel", "encode_kernel")),
+    ("port kernels", ("in_fwd_", "in_bwd_", "reflect_pad_bwd_", "loss_group_kernel",
+                      "encode_kernel")),
     ("conv weight gradient", ("wgrad",)),
     ("conv data gradient", ("dgrad",)),
     ("conv forward / other conv algorithms", ("fprop", "fft", "winograd", "sgemm",
@@ -1433,7 +1551,8 @@ def phase_serving(tmp, results):
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_launches()
-    variants = expect_variants(calls, "serving CLI")["instance_norm"]
+    all_variants = expect_variants(calls, "serving CLI")
+    variants = all_variants["instance_norm"]
     for h in hooks:
         h.remove()
     web = os.path.join(tmp, "results", "smoke", "test_latest")
@@ -1457,7 +1576,8 @@ def phase_serving(tmp, results):
         raise AssertionError(f"expected {per_forward[0]} IN sites per forward, saw {len(sites)}")
     if sites != generator_sites(*outputs[0][0][:3], **arch):
         raise AssertionError(f"IN sites off the architecture: {sites}")
-    results["serving"] = dict(wall_s=wall, outputs=outputs, launches=launches, variants=variants)
+    results["serving"] = dict(wall_s=wall, outputs=outputs, launches=launches, variants=variants,
+                              all_variants=all_variants)
     results["launches"] = launches
     results["sites"] = sites
     return sites, outputs[0][0]
@@ -1470,8 +1590,7 @@ def plain_path():
             mock.patch.object(kenc, "encode_cond", kenc.encode_cond_plain), \
             mock.patch.object(kin, "instance_norm", kin.instance_norm_plain), \
             mock.patch.object(kin, "instance_norm_act", kin.instance_norm_act_plain), \
-            mock.patch.object(klosses, "mse_to_scalar", klosses.mse_to_scalar_plain), \
-            mock.patch.object(klosses, "l1_to_scalar", klosses.l1_to_scalar_plain), \
+            mock.patch.object(klosses, "reduce_group", klosses.reduce_group_plain), \
             mock.patch.object(krp, "reflect_pad", krp.reflect_pad_plain):
         yield
 
@@ -1687,8 +1806,14 @@ def main(argv=None):
     phase_model(dev, results)
     step_calls = phase_train_step(dev, results)
     phase_train_step_bf16(dev, results)
-    kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, step_calls, results)
+    kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants,
+                                             step_calls, results)
+    # every kernel's launches per variant on each main path
+    path_variants = {"serving": results["serving"]["all_variants"], "train": cli_variants,
+                     "train_bf16_pool": results["train_cli_bf16"]["variants"],
+                     "roofline": results["roofline"]["all_variants"]}
     kernels.append(conv_in_main_path_row(dev, results))
+    kernels.append(conv_in_fp32_row(results, path_variants))
     # launches per variant on the main path of the row (the plan functions'
     # split, checked in phases 6 and 11)
     for row in kernels:
@@ -1700,9 +1825,14 @@ def main(argv=None):
             row["variants"] = results["roofline"]["variants"]
     for row in kernels:
         name = row["name"]
+        if name == "conv3x3_in_act (fp32)":
+            continue
         row["launches_by_path"] = {
             "serving": results["launches"][name], "train": cli_launches[name],
             "train_bf16_pool": bf16_launches[name], "roofline": roofline_launches[name]}
+        if name in ("mse_to_scalar", "l1_to_scalar"):
+            row["terms_by_path"] = row["launches_by_path"]
+            row["launches_by_path"] = {p: v[name]["group"] for p, v in path_variants.items()}
     if args.profile:
         phase_profile(dev, results)
         phase_profile_train(dev, results)

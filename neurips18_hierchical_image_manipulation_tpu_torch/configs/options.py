@@ -167,7 +167,6 @@ _TRAIN_NOT_PORTED = (
      "recomputation, slice 11 (tooling)"),
     ("--debug_nans", lambda o: o.debug_nans, "tooling, slice 11"),
     ("--profile_dir", lambda o: bool(o.profile_dir), "torch.profiler tooling, slice 11"),
-    ("--tf_log", lambda o: o.tf_log, "TensorBoard scalars (TensorBoard is not installed)"),
 )
 
 

@@ -60,24 +60,46 @@
 //             epilogue below (conv_in_normalize_kernel). A barrier wait of
 //             more than 2 s traps instead of holding the card.
 //   conv_mma_kernel (bf16 otherwise: bs 1 at the bottleneck, channel
-//             counts that 16-byte copies cannot take), conv_fma_kernel
-//             (fp32, the parity tier: no TF32): a block owns a 64-pixel x
-//             64-channel tile.
-//               fp32: K slices of 16 channels, 4 x 4 outputs a thread,
-//                     fp32 FMA;
-//               bf16: K slices of 32 channels, the next slice's 16-byte
-//                     loads (when the channel counts are multiples of 8) in
-//                     flight over the current slice's products, ldmatrix
-//                     fragments, mma.sync m16n8k16 with fp32 accumulators,
-//                     a warp a 32 x 16 sub-tile.
-//             The epilogue adds b to the fp32 sums (before the statistics,
-//             as the TPU kernel does), stores the pre-norm tile in fp32 and
-//             one (count, mean, M2) per channel of the tile: the tile's
-//             exact two-pass mean and sum of squared deviations, in a fixed
-//             order. A second launch, grid (row split, 32 channels, n),
-//             merges the tiles' partials of its channels with Chan's
-//             formula in tile order, then normalizes its rows, adds the
-//             residual, applies ReLU and casts, one write.
+//             counts that 16-byte copies cannot take): a block owns a
+//             64-pixel x 64-channel tile; K steps of 32 channels, the next
+//             step's 16-byte loads (when the channel counts are multiples
+//             of 8) in flight over the current step's products, ldmatrix
+//             fragments, mma.sync m16n8k16 with fp32 accumulators, a warp
+//             a 32 x 16 sub-tile. The epilogue adds b to the fp32 sums
+//             (before the statistics, as the TPU kernel does), stores the
+//             pre-norm tile in fp32 and one (count, mean, M2) per channel
+//             of the tile: the tile's exact two-pass mean and sum of
+//             squared deviations, in a fixed order. A second launch
+//             (conv_in_normalize_kernel), grid (row split, 32 channels, n),
+//             merges the partials of its channels with Chan's formula in
+//             tile order, then normalizes its rows, adds the residual,
+//             applies ReLU and casts, one write.
+//   conv_fma_kernel (fp32, the parity tier: full fp32 on the FMA pipes, no
+//             TF32). Bound: operations, 0.144 ms at the bs-1 bottleneck
+//             (67 TFLOP/s of fp32 FMA), where a 64 x 64 tile of 4 x 4
+//             outputs a thread (scalar global loads, no stage in flight,
+//             128 blocks walking all of K alone) took 0.703 ms on an H100
+//             80GB HBM3 at 700 W. A tile is 128 pixels x 256 output
+//             channels, 8 x 16 outputs a thread (6 16-byte shared loads for
+//             128 FFMAs), K steps of 32 channels of one tap through a
+//             4-stage ring of cp.async copies (16 bytes: A as NHWC pixel
+//             rows of 32 channels, the reflect-1 addresses computed in the
+//             load; B as HWIO weight rows of 256 output channels; 4-byte
+//             copies where Cin or Cout is not a multiple of 4), one
+//             __syncthreads a K step. 255 registers and 200 KB
+//             of shared memory: one block an SM. Where the tiles alone give
+//             fewer than 128 blocks, K is split 2, 4 or 8 ways into whole
+//             K steps (kernels/conv_in._plan): each split writes its
+//             partial sums, which conv_splitk_reduce_kernel adds in split
+//             order with the bias while it takes each row slice's exact
+//             two-pass statistics. An unsplit tile writes its pre-norm
+//             values and statistics. conv_in_normalize_kernel then merges
+//             and normalizes, as for the mma kernel. A plane of one tile,
+//             unsplit, is normalized and written by its block: 1, 2 or 3
+//             launches. No thread-block cluster: at one block an SM an
+//             H100 80GB HBM3 (700 W) holds 30 clusters of 4 or 15 of 8 at
+//             once (120 blocks), so a 128-block grid of them runs in two
+//             waves.
 // No atomics and every merge in a fixed order: the same inputs give the
 // same bits on every run.
 //
@@ -97,7 +119,6 @@ namespace {
 constexpr int BM = 64;        // output pixels of one sample per tile
 constexpr int BN = 64;        // output channels per tile
 constexpr int kThreads = 256;
-constexpr int kFmaK = 16;     // K slice of the fp32 kernel
 constexpr int kMmaK = 32;     // K slice of the bf16 kernel
 constexpr int kMmaPad = 8;    // bf16 row padding: conflict-free fragments
 
@@ -180,83 +201,6 @@ __device__ void tile_epilogue(float (*Cs)[BN + 1], float* __restrict__ ypre,
     part[plane + o] = mean_s[tid];
     part[2 * plane + o] = ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
   }
-}
-
-// fp32: grid (ceil(HW / 64), ceil(Cout / 64), N), 256 threads, 4 x 4 outputs
-// a thread (rows ty*4.., channels tx*4..).
-__global__ void __launch_bounds__(kThreads)
-conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ ypre,
-                float* __restrict__ part, int H, int W, int Cin, int Cout,
-                int S) {
-  __shared__ __align__(16) float As[kFmaK][BM + 4];
-  __shared__ __align__(16) float Bs[kFmaK][BN];
-  __shared__ float Cs[BM][BN + 1];
-  const int tid = threadIdx.x, n = blockIdx.z;
-  const int HW = H * W;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  // A loads: channel a_k of rows a_r + 16 i (16 threads read 16 channels of
-  // one pixel); B loads: column b_c of K rows b_k + 4 i
-  const int a_k = tid % kFmaK, a_r = tid / kFmaK;
-  const int b_c = tid % BN, b_k = tid / BN;
-  int ah[4], aw[4];
-  bool av[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_r + 16 * i;
-    av[i] = m < HW;
-    ah[i] = av[i] ? m / W : 0;
-    aw[i] = av[i] ? m % W : 0;
-  }
-  const bool bv = n0 + b_c < Cout;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  const float* xn = x + (int64_t)n * HW * Cin;
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    int64_t aoff[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      aoff[i] = ((int64_t)reflect1(ah[i] + dy, H) * W + reflect1(aw[i] + dx, W)) * Cin;
-    const float* wt = w + (int64_t)tap * Cin * Cout + n0 + b_c;
-    for (int c0 = 0; c0 < Cin; c0 += kFmaK) {
-      const int ci = c0 + a_k;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        As[a_k][a_r + 16 * i] = (av[i] && ci < Cin) ? xn[aoff[i] + ci] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = c0 + b_k + 4 * i;
-        Bs[b_k + 4 * i][b_c] = (bv && k < Cin) ? wt[(int64_t)k * Cout] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kFmaK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-        const float ar[4] = {a.x, a.y, a.z, a.w};
-        const float br[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = n0 + tx * 4 + j;
-    const float bj = c < Cout ? bias[c] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Cs[ty * 4 + i][tx * 4 + j] = acc[i][j] + bj;
-  }
-  __syncthreads();
-  tile_epilogue(Cs, ypre, part, n, HW, Cout, S);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -431,11 +375,9 @@ __global__ void conv_in_normalize_kernel(const float* __restrict__ ypre,
 
 int tiles_m(int HW) { return (HW + BM - 1) / BM; }
 
-template <typename T>
-int launch_normalize(const float* ypre, const float* part, const void* res,
-                     void* y, int N, int HW, int Cout, int S, int relu,
-                     float eps, cudaStream_t s) {
-  // about 132 * 8 blocks in all, each at least 8 rows
+// rows of a block of the row-split kernels: about 132 * 8 blocks of 32
+// channels in all, each at least 8 rows, a multiple of 8 -> chunk; *splits
+int row_chunk(int N, int HW, int Cout, int* splits_out) {
   const int ctiles = (Cout + 31) / 32;
   int splits = (132 * 8 + N * ctiles - 1) / (N * ctiles);
   const int max_splits = (HW + 7) / 8;
@@ -443,7 +385,17 @@ int launch_normalize(const float* ypre, const float* part, const void* res,
   if (splits < 1) splits = 1;
   int chunk = (HW + splits - 1) / splits;
   chunk = (chunk + 7) / 8 * 8;
-  splits = (HW + chunk - 1) / chunk;
+  *splits_out = (HW + chunk - 1) / chunk;
+  return chunk;
+}
+
+template <typename T>
+int launch_normalize(const float* ypre, const float* part, const void* res,
+                     void* y, int N, int HW, int Cout, int S, int relu,
+                     float eps, cudaStream_t s) {
+  const int ctiles = (Cout + 31) / 32;
+  int splits;
+  const int chunk = row_chunk(N, HW, Cout, &splits);
   conv_in_normalize_kernel<T><<<dim3(splits, ctiles, N), dim3(32, 8), 0, s>>>(
       ypre, part, (const T*)res, (T*)y, HW, Cout, S, chunk, relu, eps);
   return (int)cudaGetLastError();
@@ -960,53 +912,388 @@ int launch_wgmma(const void* x, const void* w, const float* bias, const void* re
   return launch_normalize<__nv_bfloat16>(ypre, part, res, y, N, H * W, Cout, tiles, relu, eps, s);
 }
 
+
+// ------------------------------------------------------------------ fp32
+// The FMA kernel: see the head of this file.
+
+constexpr int FM = 128;            // output pixels of one sample per tile
+constexpr int FN = 256;            // output channels per tile
+constexpr int FK = 32;             // input channels of one tap per K step
+constexpr int kFStages = 4;        // cp.async ring depth
+constexpr int kFAStride = FK + 4;  // an A row: 32 channels + 4 floats (144 B)
+constexpr int kFSStride = FN + 4;  // a row of the epilogue's tiles
+constexpr int kFStageFloats = FM * kFAStride + FK * FN;
+constexpr int kFSmem = kFStages * kFStageFloats * 4;  // 200 KB
+static_assert(FM * kFSStride <= kFStages * kFStageFloats, "the epilogue's tile fits the ring");
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// grid (mt * ks, ceil(Cout / 256), N), 256 threads. Block x = m * ks + q:
+// pixels 128 m .. of sample z, output channels 256 y .., K steps
+// [q S / ks, (q + 1) S / ks) of the S = 9 * ceil(Cin / 32). Thread (ty, tx)
+// accumulates rows ty + 16 i (i < 8), channels 64 h + 4 tx + j (h, j < 4).
+// A K split (ks > 1) writes its partial sums to splitp for
+// conv_splitk_reduce_kernel. Else the tile's pre-norm values and its
+// (count, mean, M2) per channel go to ypre / part for
+// conv_in_normalize_kernel, or, where the tile is the whole plane
+// (`plane`: one tile, no split), y is written here.
+__global__ void __launch_bounds__(kThreads, 1)
+conv_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, const float* __restrict__ res,
+                float* __restrict__ y, float* __restrict__ ypre, float* __restrict__ part,
+                float* __restrict__ splitp, int H, int W, int Cin, int Cout, int ks,
+                int plane, int vec_a, int vec_b, int relu, float eps) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, n = blockIdx.z, HW = H * W;
+  const int mtile = blockIdx.x / ks, q = blockIdx.x % ks;
+  const int m0 = mtile * FM, n0 = blockIdx.y * FN;
+  const int cpt = (Cin + FK - 1) / FK, nk = 9 * cpt / ks, kbeg = q * nk;
+  const float* xn = x + (int64_t)n * HW * Cin;
+  const uint32_t sbase = smem_u32(fsm);
+
+  // A by 16-byte copies: channels 4 (tid % 8) .. of pixels tid / 8 + 32 r
+  constexpr int kAC = FK / 4, kAV = FM * kAC / kThreads;
+  int ph[kAV], pw[kAV];
+  bool pv[kAV];
+#pragma unroll
+  for (int r = 0; r < kAV; ++r) {
+    const int m = m0 + tid / kAC + (kThreads / kAC) * r;
+    pv[r] = m < HW;
+    ph[r] = pv[r] ? m / W : 0;
+    pw[r] = pv[r] ? m % W : 0;
+  }
+  auto load = [&](int slot, int step) {
+    const int tap = step / cpt, c0 = (step % cpt) * FK;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    const uint32_t sa = sbase + slot * kFStageFloats * 4;
+    const uint32_t sb = sa + FM * kFAStride * 4;
+    if (vec_a) {
+#pragma unroll
+      for (int r = 0; r < kAV; ++r) {
+        const int p = tid / kAC + (kThreads / kAC) * r, c = c0 + 4 * (tid % kAC);
+        const bool ok = pv[r] && c < Cin;
+        const float* src =
+            ok ? xn + ((int64_t)reflect1(ph[r] + dy, H) * W + reflect1(pw[r] + dx, W)) * Cin + c
+               : x;
+        cp_async16(sa + (p * kFAStride + 4 * (tid % kAC)) * 4, src, ok);
+      }
+    } else {
+      // element by element: channel c0 + tid % 32 of pixels tid / 32 + 8 r
+#pragma unroll 4
+      for (int r = 0; r < FM * FK / kThreads; ++r) {
+        const int p = tid / FK + (kThreads / FK) * r, c = c0 + tid % FK, m = m0 + p;
+        const bool ok = m < HW && c < Cin;
+        const float* src =
+            ok ? xn + ((int64_t)reflect1(m / W + dy, H) * W + reflect1(m % W + dx, W)) * Cin + c
+               : x;
+        cp_async4(sa + (p * kFAStride + tid % FK) * 4, src, ok);
+      }
+    }
+    const float* wt = w + ((int64_t)tap * Cin + c0) * Cout + n0;
+    if (vec_b) {
+      // output channels 4 (tid % 32) .. of K rows tid / 32 + 8 r
+#pragma unroll
+      for (int r = 0; r < FK * FN / 4 / kThreads; ++r) {
+        const int k = tid / (FN / 4) + (kThreads * 4 / FN) * r, c = 4 * (tid % (FN / 4));
+        const bool ok = c0 + k < Cin && n0 + c < Cout;
+        cp_async16(sb + (k * FN + c) * 4, ok ? wt + (int64_t)k * Cout + c : w, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < FK * FN / kThreads; ++r) {
+        const int k = tid / FN + (kThreads / FN) * r, c = tid % FN;
+        const bool ok = c0 + k < Cin && n0 + c < Cout;
+        cp_async4(sb + (k * FN + c) * 4, ok ? wt + (int64_t)k * Cout + c : w, ok);
+      }
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;
+  float acc[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < nk) load(s, kbeg + s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // stage it landed for all; stage it - 1 is free
+    if (it + kFStages - 1 < nk) load((it + kFStages - 1) % kFStages, kbeg + it + kFStages - 1);
+    cp_async_commit();
+    const float* As = fsm + (it % kFStages) * kFStageFloats + ty * kFAStride;
+    const float* Bs = fsm + (it % kFStages) * kFStageFloats + FM * kFAStride + tx * 4;
+#pragma unroll
+    for (int k4 = 0; k4 < FK; k4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(As + 16 * i * kFAStride + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 b[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          b[h] = *reinterpret_cast<const float4*>(Bs + (k4 + kk) * FN + 64 * h);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = f4(a[i], kk);
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][4 * h + j] = fmaf(av, f4(b[h], j), acc[i][4 * h + j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every product read the ring: it becomes the tile
+  if (ks > 1) {
+    // this K split's partial sums, for conv_splitk_reduce_kernel
+    float* pq = splitp + ((int64_t)q * gridDim.z + n) * HW * Cout;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty + 16 * i;
+      if (m >= HW) continue;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int c = n0 + 64 * h + 4 * tx;
+        const float* v = acc[i] + 4 * h;
+        float* dst = pq + (int64_t)m * Cout + c;
+        if (Cout % 4 == 0 && c + 3 < Cout) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + j < Cout) dst[j] = v[j];
+        }
+      }
+    }
+    return;
+  }
+
+  float* Cs = fsm;  // the tile
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = Cs + (ty + 16 * i) * kFSStride + tx * 4;
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      *reinterpret_cast<float4*>(row + 64 * h) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+  __syncthreads();
+
+  // thread: channel tid of the tile, plus the bias; its exact two-pass
+  // statistics in row order
+  const int col = tid, c = n0 + col;
+  if (c >= Cout) return;
+  const float bc = bias[c];
+  const int cnt = max(0, min(FM, HW - m0));
+  float sum = 0.0f;
+  for (int r = 0; r < cnt; ++r) sum += Cs[r * kFSStride + col] + bc;
+  const float mu = cnt > 0 ? sum / (float)cnt : 0.0f;
+  float m2 = 0.0f;
+  for (int r = 0; r < cnt; ++r) {
+    const float d = Cs[r * kFSStride + col] + bc - mu;
+    m2 += d * d;
+  }
+  if (!plane) {
+    // two-launch epilogue: the pre-norm tile and its statistics
+    const int64_t o = ((int64_t)n * gridDim.x + blockIdx.x) * Cout + c;
+    const int64_t pl = (int64_t)gridDim.z * gridDim.x * Cout;
+    part[o] = (float)cnt;
+    part[pl + o] = mu;
+    part[2 * pl + o] = m2;
+    for (int r = 0; r < cnt; ++r)
+      ypre[((int64_t)n * HW + m0 + r) * Cout + c] = Cs[r * kFSStride + col] + bc;
+    return;
+  }
+  // the tile is the plane (m0 = 0, cnt = HW)
+  const float rs = 1.0f / sqrtf(m2 / (float)HW + eps);
+  for (int r = 0; r < cnt; ++r) {
+    const int64_t o = ((int64_t)n * HW + r) * Cout + c;
+    float u = (Cs[r * kFSStride + col] + bc - mu) * rs;
+    if (res != nullptr) u += res[o];
+    if (relu) u = fmaxf(u, 0.0f);
+    y[o] = u;
+  }
+}
+
+// grid (splits, ceil(Cout / 32), N), block 32 x 8: rows [chunk x, ..) of
+// sample z, channels 32 y ..: the ks partial sums of the fp32 kernel added in
+// split order, then the bias -> ypre; the rows' exact two-pass (count, mean,
+// M2) per channel -> part, as slice x of gridDim.x.
+__global__ void conv_splitk_reduce_kernel(const float* __restrict__ splitp,
+                                          const float* __restrict__ bias,
+                                          float* __restrict__ ypre, float* __restrict__ part,
+                                          int HW, int Cout, int ks, int chunk) {
+  __shared__ float red[8][32];
+  __shared__ float mean_s[32];
+  const int tx = threadIdx.x, ty = threadIdx.y, n = blockIdx.z, N = gridDim.z;
+  const int c = blockIdx.y * 32 + tx;
+  const int r0 = blockIdx.x * chunk, r1 = min(r0 + chunk, HW);
+  const int64_t plane = (int64_t)N * HW * Cout;
+  float s = 0.0f;
+  if (c < Cout) {
+    const float bc = bias[c];
+    for (int r = r0 + ty; r < r1; r += 8) {
+      const int64_t o = ((int64_t)n * HW + r) * Cout + c;
+      float v = 0.0f;
+      for (int q = 0; q < ks; ++q) v += splitp[q * plane + o];
+      v += bc;
+      ypre[o] = v;
+      s += v;
+    }
+  }
+  red[ty][tx] = s;
+  __syncthreads();
+  const float cnt = (float)max(0, r1 - r0);
+  if (ty == 0) {
+    float t = 0.0f;
+    for (int k = 0; k < 8; ++k) t += red[k][tx];
+    mean_s[tx] = cnt > 0.0f ? t / cnt : 0.0f;
+  }
+  __syncthreads();
+  const float mu = mean_s[tx];
+  float m2 = 0.0f;
+  if (c < Cout)
+    for (int r = r0 + ty; r < r1; r += 8) {
+      const float d = ypre[((int64_t)n * HW + r) * Cout + c] - mu;
+      m2 += d * d;
+    }
+  __syncthreads();
+  red[ty][tx] = m2;
+  __syncthreads();
+  if (ty == 0 && c < Cout) {
+    float t = 0.0f;
+    for (int k = 0; k < 8; ++k) t += red[k][tx];
+    const int64_t o = ((int64_t)n * gridDim.x + blockIdx.x) * Cout + c;
+    const int64_t pl = (int64_t)N * gridDim.x * Cout;
+    part[o] = cnt;
+    part[pl + o] = mu;
+    part[2 * pl + o] = t;
+  }
+}
+
+// The fp32 kernel's workspace (floats): none when one unsplit tile is the
+// plane; else ypre, the slices' (count, mean, M2) planes and, for a K split,
+// the splits' partial sums.
+int64_t fma_workspace(int N, int HW, int Cout, int ks, int64_t* part_off, int64_t* split_off) {
+  const int mt = (HW + FM - 1) / FM;
+  if (mt == 1 && ks == 1) return 0;
+  int S = mt;
+  if (ks > 1) row_chunk(N, HW, Cout, &S);
+  *part_off = (int64_t)N * HW * Cout;
+  *split_off = *part_off + 3 * (int64_t)N * S * Cout;
+  return *split_off + (ks > 1 ? (int64_t)ks * N * HW * Cout : 0);
+}
+
+int launch_fma(const float* x, const float* w, const float* bias, const float* res, float* y,
+               uint8_t* ws, int N, int H, int W, int Cin, int Cout, int relu, float eps, int ks,
+               cudaStream_t s) {
+  const int HW = H * W, mt = (HW + FM - 1) / FM, steps = 9 * ((Cin + FK - 1) / FK);
+  if ((ks != 1 && ks != 2 && ks != 4 && ks != 8) || steps % ks != 0)
+    return (int)cudaErrorInvalidValue;
+  const int plane = mt == 1 && ks == 1;
+  int64_t part_off = 0, split_off = 0;
+  fma_workspace(N, HW, Cout, ks, &part_off, &split_off);
+  float* ypre = (float*)ws;
+  float* part = ypre + part_off;
+  float* splitp = ypre + split_off;
+  const int vec_a = Cin % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const int vec_b = Cout % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  int err = (int)cudaFuncSetAttribute(conv_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kFSmem);
+  if (err) return err;
+  conv_fma_kernel<<<dim3(mt * ks, (Cout + FN - 1) / FN, N), kThreads, kFSmem, s>>>(
+      x, w, bias, res, y, ypre, part, splitp, H, W, Cin, Cout, ks, plane, vec_a, vec_b, relu,
+      eps);
+  err = (int)cudaGetLastError();
+  if (err || plane) return err;
+  int S = mt;
+  if (ks > 1) {
+    const int chunk = row_chunk(N, HW, Cout, &S);
+    conv_splitk_reduce_kernel<<<dim3(S, (Cout + 31) / 32, N), dim3(32, 8), 0, s>>>(
+        splitp, bias, ypre, part, HW, Cout, ks, chunk);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return launch_normalize<float>(ypre, part, res, y, N, HW, Cout, S, relu, eps, s);
+}
+
 }  // namespace
 
-// Bytes of workspace a call needs. variant 0: fp32 FMA, 1: bf16 mma.sync
-// (the fp32 pre-norm output and the 64-pixel tiles' (count, mean, M2)
-// planes); 2: bf16 wgmma with tiles of rb x wt pixels (see wgmma_workspace).
+// Bytes of workspace a call needs. variant 0: fp32 FMA, with a K split of
+// ks (no workspace when one unsplit tile is the plane; else the fp32
+// pre-norm output, the slices' (count, mean, M2) planes and the splits'
+// partial sums); 1: bf16 mma.sync (the pre-norm output and the 64-pixel
+// tiles' planes); 2: bf16 wgmma with tiles of rb x wt pixels, clustered
+// when cl > 1 (see wgmma_workspace).
 extern "C" int64_t himan_conv_in_workspace(int N, int H, int W, int Cin, int Cout, int variant,
-                                           int wt, int rb, int clustered) {
-  if (variant == 2)
-    return wgmma_workspace(N, H, W, Cin, Cout, (H + rb - 1) / rb * ((W + wt - 1) / wt),
-                           clustered);
+                                           int wt, int rb, int ks, int cl) {
   const int64_t HW = (int64_t)H * W;
+  if (variant == 2)
+    return wgmma_workspace(N, H, W, Cin, Cout, (H + rb - 1) / rb * ((W + wt - 1) / wt), cl > 1);
+  if (variant == 0) {
+    int64_t part_off, split_off;
+    return 4 * fma_workspace(N, (int)HW, Cout, ks, &part_off, &split_off);
+  }
   return 4 * (N * HW * Cout + 3 * (int64_t)N * tiles_m((int)HW) * Cout);
 }
 
 // x NHWC (N, H, W, Cin), w (9 * Cin, Cout) row-major (HWIO), both fp32 or
 // both bf16; bias fp32 (Cout); res (nullable) and y NHWC (N, H, W, Cout) in
-// x's dtype; ws: himan_conv_in_workspace bytes. variant as there; the
-// wgmma variant's tiles are rb image rows x wt columns, one launch of the
-// conv with `clustered` (<= 8 tiles a plane). kernels/conv_in._plan picks
-// the variant and the tile.
+// x's dtype; ws: himan_conv_in_workspace bytes. variant, ks and cl as
+// there; the wgmma variant's tiles are rb image rows x wt columns.
+// kernels/conv_in._plan picks the variant, the tile, the split and the
+// cluster.
 extern "C" int himan_conv3x3_in_act(const void* x, const void* w, const void* bias,
                                     const void* res, void* y, void* ws, int N, int H, int W,
                                     int Cin, int Cout, int relu, float eps, int variant, int wt,
-                                    int rb, int clustered, void* stream) {
+                                    int rb, int ks, int cl, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 2)
     return launch_wgmma(x, w, (const float*)bias, res, y, (uint8_t*)ws, N, H, W, Cin, Cout, relu,
-                        eps, wt, rb, clustered, s);
+                        eps, wt, rb, cl > 1, s);
+  if (variant == 0)
+    return launch_fma((const float*)x, (const float*)w, (const float*)bias, (const float*)res,
+                      (float*)y, (uint8_t*)ws, N, H, W, Cin, Cout, relu, eps, ks, s);
   const int HW = H * W;
   const int S = tiles_m(HW);
   float* ypre = (float*)ws;
   float* part = ypre + (int64_t)N * HW * Cout;
-  const dim3 grid(S, (Cout + BN - 1) / BN, N);
-  if (variant == 1) {
-    conv_mma_kernel<<<grid, kThreads, 0, s>>>(
-        (const uint16_t*)x, (const uint16_t*)w, (const float*)bias, ypre, part,
-        H, W, Cin, Cout, S);
-  } else {
-    conv_fma_kernel<<<grid, kThreads, 0, s>>>(
-        (const float*)x, (const float*)w, (const float*)bias, ypre, part, H,
-        W, Cin, Cout, S);
-  }
+  conv_mma_kernel<<<dim3(S, (Cout + BN - 1) / BN, N), kThreads, 0, s>>>(
+      (const uint16_t*)x, (const uint16_t*)w, (const float*)bias, ypre, part, H, W, Cin, Cout,
+      S);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  if (variant == 1)
-    return launch_normalize<__nv_bfloat16>(ypre, part, res, y, N, HW, Cout, S,
-                                           relu, eps, s);
-  return launch_normalize<float>(ypre, part, res, y, N, HW, Cout, S, relu,
-                                 eps, s);
+  return launch_normalize<__nv_bfloat16>(ypre, part, res, y, N, HW, Cout, S, relu, eps, s);
 }

@@ -14,12 +14,14 @@ runs the conv as an implicit GEMM, one of three hand-written kernels that
 ``_plan`` picks by shape: bf16 calls that fill the card take the Hopper
 kernel (TMA ring, ``wgmma``, the IN statistics merged across a thread-block
 cluster that holds the plane, one write of y); other bf16 calls the
-``mma.sync`` kernel and fp32 calls the FMA kernel, whose per-tile IN
-statistics a second launch merges while it normalizes — see the source.
-``conv3x3_in_act.variants`` counts the launches of each. The TPU kernel's gates (Cout
-% 128, a 10 MB VMEM plan) have no counterpart: every shape with H, W > 1 is
-served. The JAX ``use_pallas=False`` is the caller asking for
-``conv3x3_in_act_plain`` by name.
+``mma.sync`` kernel, whose per-tile IN statistics a second launch merges
+while it normalizes; fp32 calls the FMA kernel (a ``cp.async`` ring, K
+split where the tiles alone do not fill the card, the splits summed and
+the statistics merged by the launches after it) — see the source.
+``conv3x3_in_act.variants`` counts the calls of each. The TPU kernel's
+gates (Cout % 128, a 10 MB VMEM plan) have no counterpart: every shape
+with H, W > 1 is served. The JAX ``use_pallas=False`` is the caller asking
+for ``conv3x3_in_act_plain`` by name.
 
 Gradient: ``_ConvInAct`` recomputes the plain composition and takes its
 autograd gradient, as the JAX ``_fused_bwd`` takes ``jax.vjp`` of
@@ -75,8 +77,26 @@ def _check(x, w3x3, b, residual):
         raise ValueError("residual must be (N, H, W, Cout) in x's dtype, on x's device")
 
 
-_MIN_BLOCKS = 64     # wgmma blocks (one resident per SM): half of an H100's 132
-_MAX_CLUSTER = 8     # portable cluster size: the plane's tiles in one cluster
+_MIN_BLOCKS = 64      # wgmma blocks (one resident per SM): half of an H100's 132
+_MAX_CLUSTER = 8      # portable cluster size: the plane's tiles in one cluster
+_FMA_MIN_BLOCKS = 128  # fma blocks (one resident per SM) that fill most of the card
+_FMA_MAX_SPLIT = 8
+_FMA_TILE = (128, 256)  # fma: pixels x output channels of a tile
+_FMA_K = 32           # fma: input channels of one tap per K step
+
+
+def _fma_split(n: int, hw: int, cin: int, cout: int):
+    """The fp32 kernel's K split: 1, or the smallest of 2, 4, 8 that brings
+    the blocks to ``_FMA_MIN_BLOCKS``, each split whole K steps (at least
+    4) of the 9 * ceil(Cin / 32) -> (pixel tiles of a plane, split)."""
+    mt = -(-hw // _FMA_TILE[0])
+    tiles = n * mt * -(-cout // _FMA_TILE[1])
+    steps = 9 * -(-cin // _FMA_K)
+    ks = 1
+    while (tiles * ks < _FMA_MIN_BLOCKS and 2 * ks <= _FMA_MAX_SPLIT
+           and steps % (2 * ks) == 0 and steps // (2 * ks) >= 4):
+        ks *= 2
+    return mt, ks
 
 
 @functools.lru_cache(maxsize=1024)
@@ -87,26 +107,34 @@ def _plan(n: int, h: int, w: int, cin: int, cout: int, dtype) -> dict:
     and Cout multiples of 8, whose tiles of 256 output channels make at
     least ``_MIN_BLOCKS`` blocks); "mma" (bf16 otherwise:
     the ``mma.sync`` kernel, which serves bs 1 and any channel count).
-    ``tile``: (rows, columns) of the image a block owns: for "wgmma" whole
-    rows of up to 128 pixels (``128 // w`` rows of ``w`` columns, at most H,
-    or 128 columns of one row when w > 128), else 64 pixels of the flattened
-    H*W.
-    ``tiles``: blocks over one sample's plane. ``cluster``: blocks of a
-    thread-block cluster (the plane's tiles: one launch of the conv, the IN
-    statistics merged in the cluster) or 1 (two launches).
+    ``tile``: (rows, columns) of the image a "wgmma" block owns: whole rows
+    of up to 128 pixels (``128 // w`` rows of ``w`` columns, at most H, or
+    128 columns of one row when w > 128); else None, and ``pixels`` of the
+    flattened H*W (64 "mma", 128 "fma").
+    ``tiles``: pixel tiles over one sample's plane. ``k_split`` ("fma"):
+    blocks that share a tile's K steps. ``cluster``: blocks of a
+    thread-block cluster: "wgmma" the plane's tiles (<= 8) or 1; "fma" 1.
+    ``launches``: 1 when a cluster (or one unsplit block) holds the plane;
+    else 2 (the conv, then the merge of the statistics and the
+    normalization), 3 for an "fma" K split (the conv's partial sums, their
+    sum with the slices' statistics, the normalization).
     """
     hw = h * w
-    variant = "fma" if dtype == torch.float32 else "mma"
-    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+    plan = {"variant": "mma", "tile": (None, None), "pixels": 64, "tiles": -(-hw // 64),
+            "k_split": 1, "cluster": 1, "launches": 2}
+    if dtype == torch.float32:
+        mt, ks = _fma_split(n, hw, cin, cout)
+        return dict(plan, variant="fma", pixels=_FMA_TILE[0], tiles=mt, k_split=ks,
+                    launches=3 if ks > 1 else 1 if mt == 1 else 2)
+    if cin % 8 == 0 and cout % 8 == 0:
         wt = min(w, 128)
         rb = min(128 // wt, h)
         tiles = -(-h // rb) * -(-w // wt)
         if n * tiles * -(-cout // 256) >= _MIN_BLOCKS:
-            variant = "wgmma"
-    if variant != "wgmma":
-        rb, wt, tiles = None, None, -(-hw // 64)
-    cluster = tiles if variant == "wgmma" and tiles <= _MAX_CLUSTER else 1
-    return {"variant": variant, "tile": (rb, wt), "tiles": tiles, "cluster": cluster}
+            cluster = tiles if tiles <= _MAX_CLUSTER else 1
+            return dict(plan, variant="wgmma", tile=(rb, wt), pixels=None, tiles=tiles,
+                        cluster=cluster, launches=1 if cluster > 1 else 2)
+    return plan
 
 
 _VARIANT_ID = {"fma": 0, "mma": 1, "wgmma": 2}
@@ -121,17 +149,17 @@ def _launch(x, w3x3, b, residual, relu):
     lib = _lib()
     plan = _plan(n, h, w, cin, cout, x.dtype)
     variant, (rb, wt) = _VARIANT_ID[plan["variant"]], plan["tile"]
-    rb, wt, clustered = rb or 0, wt or 0, int(plan["cluster"] > 1)
+    rb, wt, ks, cl = rb or 0, wt or 0, plan["k_split"], plan["cluster"]
     w3x3 = w3x3.contiguous()
     bias = b.to(torch.float32).contiguous()
     res = residual.contiguous() if residual is not None else None
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    ws = torch.empty(lib.himan_conv_in_workspace(n, h, w, cin, cout, variant, wt, rb, clustered),
+    ws = torch.empty(lib.himan_conv_in_workspace(n, h, w, cin, cout, variant, wt, rb, ks, cl),
                      dtype=torch.uint8, device=x.device)
     err = lib.himan_conv3x3_in_act(
         x.data_ptr(), w3x3.data_ptr(), bias.data_ptr(),
         res.data_ptr() if res is not None else None, y.data_ptr(), ws.data_ptr(),
-        n, h, w, cin, cout, int(relu), EPS, variant, wt, rb, clustered,
+        n, h, w, cin, cout, int(relu), EPS, variant, wt, rb, ks, cl,
         _build.stream_for(x.device),
     )
     _build.check(err, "himan_conv3x3_in_act")
@@ -186,8 +214,8 @@ def _lib():
     fn = lib.himan_conv3x3_in_act
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.himan_conv_in_workspace.argtypes = [i] * 9
+        lib.himan_conv_in_workspace.argtypes = [i] * 10
         lib.himan_conv_in_workspace.restype = ctypes.c_int64
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i, p]
         fn.restype = i
     return lib

@@ -3,15 +3,21 @@
 console loss lines, the training HTML page (``display_current_results``,
 JAX ``:42``: ``web/images/epoch{NNN}_{label}.png`` and ``web/index.html``
 listing the epochs newest first, every ``--display_freq`` steps) and
-``save_images`` into a test gallery. ``plot_current_errors`` (JAX ``:67``)
-writes TensorBoard scalars under ``--tf_log``, which the port refuses
-(TensorBoard is not installed), so it has nothing to write.
+``save_images`` into a test gallery. Under ``--tf_log``, as the JAX
+``Visualizer`` does (``:28``, ``:43``, ``:67``), a
+``torch.utils.tensorboard.SummaryWriter`` under
+``{checkpoints_dir}/{name}/logs`` takes each visual as an image
+(``display_current_results``) and each loss as a scalar
+(``plot_current_errors``); without ``tensorboard`` installed the import
+error reaches the user.
 """
 
 from __future__ import annotations
 
 import os
 import time
+
+import numpy as np
 
 from . import html as html_mod
 from .imaging import save_image
@@ -24,6 +30,11 @@ class Visualizer:
         self.win_size = opt.display_winsize
         self.name = opt.name
         self.log_dir = os.path.join(opt.checkpoints_dir, opt.name)
+        self.writer = None
+        if getattr(opt, "tf_log", False):
+            from torch.utils.tensorboard import SummaryWriter
+
+            self.writer = SummaryWriter(os.path.join(self.log_dir, "logs"))
         if self.use_html:
             self.web_dir = os.path.join(self.log_dir, "web")
             self.img_dir = os.path.join(self.web_dir, "images")
@@ -35,7 +46,10 @@ class Visualizer:
 
     def display_current_results(self, visuals, epoch, step):
         """visuals: dict name -> uint8 HWC image, saved as this epoch's row
-        of the training page."""
+        of the training page (and TensorBoard images under --tf_log)."""
+        if self.writer is not None:
+            for label, image in visuals.items():
+                self.writer.add_image(label, np.asarray(image), step, dataformats="HWC")
         if not self.use_html:
             return
         for label, image in visuals.items():
@@ -52,8 +66,10 @@ class Visualizer:
         webpage.save()
 
     def plot_current_errors(self, errors, step):
-        """TensorBoard scalars under --tf_log: refused by the port's options,
-        so there is no writer."""
+        """TensorBoard scalars under --tf_log."""
+        if self.writer is not None:
+            for tag, value in errors.items():
+                self.writer.add_scalar(tag, float(value), step)
 
     def print_current_errors(self, epoch, i, errors, t):
         """One console line, also appended to loss_log.txt."""

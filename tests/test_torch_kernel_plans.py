@@ -67,10 +67,50 @@ def test_conv_plan_tiles_cover_the_plane_once(shape):
             hits[h0 : h0 + rb, w0 : w0 + wt] += 1
         assert n * plan["tiles"] * -(-shape[4] // 256) >= kconv._MIN_BLOCKS
     else:
-        flat = hits.reshape(-1)
+        flat, px = hits.reshape(-1), plan["pixels"]
         for t in range(plan["tiles"]):
-            flat[t * 64 : t * 64 + 64] += 1
+            flat[t * px : t * px + px] += 1
     assert (hits == 1).all()
+
+
+# the fp32 shapes of chip_smoke.CONV_IN_SHAPES
+FMA_SHAPES = [(1, 16, 32, 1024, 1024), (2, 9, 17, 96, 40), (2, 8, 16, 128, 128),
+              (1, 5, 7, 12, 20), (4, 16, 32, 1024, 1024), (64, 9, 17, 96, 40),
+              (16, 32, 48, 64, 64), (1, 6, 9, 7, 10)]
+
+
+def test_fma_plan_fills_the_card_at_bs1():
+    """The bs-1 bottleneck: 4 x 4 tiles of 128 x 256, K split 8 ways (the
+    splits' sums and the statistics take two more launches)."""
+    plan = kconv._plan(1, 16, 32, 1024, 1024, F32)
+    blocks = plan["tiles"] * plan["k_split"] * -(-1024 // kconv._FMA_TILE[1])
+    assert blocks >= 128
+    assert (plan["k_split"], plan["cluster"], plan["launches"]) == (8, 1, 3)
+
+
+@pytest.mark.parametrize("shape", FMA_SHAPES)
+def test_fma_plan_split_cluster_and_cover(shape):
+    n, h, w, cin, cout = shape
+    plan = kconv._plan(*shape, F32)
+    assert plan["variant"] == "fma"
+    ks, cl, mt = plan["k_split"], plan["cluster"], plan["tiles"]
+    # whole K steps: the 9 * ceil(Cin / 32) steps split evenly
+    steps = 9 * -(-cin // kconv._FMA_K)
+    assert ks in (1, 2, 4, 8) and steps % ks == 0
+    assert ks == 1 or steps // ks >= 4
+    # no cluster: one unsplit tile holds the plane, or more launches merge
+    assert cl == 1
+    assert plan["launches"] == (3 if ks > 1 else 1 if mt == 1 else 2)
+    # the tiles cover each plane once, and the splits' row slices each tile once
+    hits = np.zeros(h * w, np.int64)
+    px = plan["pixels"]
+    for t in range(mt):
+        for q in range(ks):
+            hits[t * px + q * px // ks: t * px + (q + 1) * px // ks] += 1
+    assert (hits == 1).all()
+    # more blocks than the tiles alone only where they were too few
+    blocks = n * mt * -(-cout // kconv._FMA_TILE[1])
+    assert ks == 1 or blocks * ks // 2 < kconv._FMA_MIN_BLOCKS
 
 
 # ---------------------------------------------------------------- IN backward plan

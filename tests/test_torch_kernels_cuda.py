@@ -6,6 +6,9 @@ imports no JAX, so it also runs on a machine that has none:
     python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import contextlib
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -252,6 +255,116 @@ def test_loss_backward_on_card(cuda_device):
     torch.testing.assert_close(a.grad, want)
 
 
+LOSS_RTOL = 1e-5  # one fp32 sum of up to 8.4M terms, in another order
+
+
+def loss_terms(dev, tdt, seed):
+    """Mixed sizes (one element, a D logit, an n not a multiple of 8, a
+    VGG tap) in both modes, with scalar and tensor targets."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    terms = []
+    for k, n in enumerate((1, 2345, 300_001, 8_388_608, 77)):
+        a = torch.randn(n, generator=g, device=dev).to(tdt)
+        b = torch.randn(n, generator=g, device=dev).to(tdt)
+        terms.append(("mse", a, float(k % 2)) if k % 2 == 0 else ("l1", a, b))
+        terms.append(("l1", b, 0.5) if k % 2 == 0 else ("mse", b, a))
+    return terms
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_loss_group_bits_alone_grouped_and_again(cuda_device, dt):
+    terms = loss_terms(cuda_device, getattr(torch, dt), 9)
+    m0, l0 = klosses.mse_to_scalar.launches, klosses.l1_to_scalar.launches
+    g0 = (klosses.mse_to_scalar.variants["group"], klosses.l1_to_scalar.variants["group"])
+    grouped = klosses.reduce_group(terms)
+    assert (klosses.mse_to_scalar.launches - m0, klosses.l1_to_scalar.launches - l0) == (5, 5)
+    assert (klosses.mse_to_scalar.variants["group"] - g0[0],
+            klosses.l1_to_scalar.variants["group"] - g0[1]) == (1, 1)
+    again = klosses.reduce_group(terms)
+    alone = torch.cat([klosses.reduce_group([t]) for t in terms])
+    reordered = klosses.reduce_group(terms[::-1]).flip(0)
+    plain = klosses.reduce_group_plain(terms)
+    torch.cuda.synchronize()
+    assert grouped.shape == (len(terms),) and grouped.dtype == torch.float32
+    for other in (again, alone, reordered):
+        assert bits_equal(grouped, other)
+    torch.testing.assert_close(grouped, plain, rtol=LOSS_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_loss_group_misaligned_view_same_bits(cuda_device, dt):
+    """A view 1 element off the 16-byte grid takes the kernel's scalar loop
+    and gives the bits of an aligned copy."""
+    tdt = getattr(torch, dt)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    # rows 16-byte aligned in both dtypes, each view one element past its row
+    buf = torch.randn(2, 100_008, generator=g, device=cuda_device).to(tdt)
+    a, b = buf[0, 1:], buf[1, 1:]
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    terms = [("l1", a, b), ("mse", a, 1.0)]
+    copies = [("l1", a.clone(), b.clone()), ("mse", a.clone(), 1.0)]
+    assert all(t[1].data_ptr() % 16 == 0 for t in copies)
+    got, want = klosses.reduce_group(terms), klosses.reduce_group(copies)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want)
+    torch.testing.assert_close(got, klosses.reduce_group_plain(terms), rtol=LOSS_RTOL, atol=0)
+
+
+def test_loss_group_graph_replays(cuda_device):
+    """Captured once in a CUDA graph on the stream of its warm-up, the
+    launch gives the eager bits on each of 3 replays; the per-term tickets
+    of that stream's workspace are back at 0 after each, and the counters
+    counted the one launch that was captured."""
+    terms = loss_terms(cuda_device, torch.float32, 4)
+    eager = klosses.reduce_group(terms)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        klosses.reduce_group(terms)
+    torch.cuda.current_stream().wait_stream(side)
+    m0, g0 = klosses.mse_to_scalar.launches, klosses.mse_to_scalar.variants["group"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = klosses.reduce_group(terms)
+    assert (klosses.mse_to_scalar.launches - m0,
+            klosses.mse_to_scalar.variants["group"] - g0) == (5, 1)
+    tickets = klosses._workspace(cuda_device, side.cuda_stream)[:64].view(torch.int32)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bits_equal(out, eager)
+        assert int(tickets.abs().sum()) == 0
+    assert klosses.mse_to_scalar.launches - m0 == 5
+
+
+def test_loss_group_workspace_per_stream(cuda_device):
+    """A launch on a second stream takes that stream's own tickets and
+    partials, and gives the bits of the first stream's launch."""
+    terms = loss_terms(cuda_device, torch.float32, 4)
+    want = klosses.reduce_group(terms)
+    cur, other = torch.cuda.current_stream(), torch.cuda.Stream()
+    other.wait_stream(cur)
+    with torch.cuda.stream(other):
+        got = klosses.reduce_group(terms)
+    cur.wait_stream(other)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want)
+    assert (klosses._workspace(cuda_device, other.cuda_stream).data_ptr()
+            != klosses._workspace(cuda_device, cur.cuda_stream).data_ptr())
+
+
+@pytest.mark.parametrize("terms", [[], "mixed", "seventeen"])
+def test_loss_group_rejects_bad_tables_on_card(cuda_device, terms):
+    a = torch.randn(10, device=cuda_device)
+    if terms == "mixed":
+        terms = [("l1", a, a), ("l1", a.bfloat16(), a.bfloat16())]
+    elif terms == "seventeen":
+        terms = [("mse", a, 0.0)] * 17
+    with pytest.raises(ValueError):
+        klosses.reduce_group(terms)
+
+
 def test_encode_cond_counts_apart(cuda_device):
     i = encode_inputs(cuda_device, nc=8)
     e0, c0 = kenc.encode.launches, kenc.encode_cond.launches
@@ -261,41 +374,87 @@ def test_encode_cond_counts_apart(cuda_device):
     assert bits_equal(got, kenc.encode_cond_plain(i["label"], i["inst"], 8))
 
 
-def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precision, monkeypatch):
-    """A small G+D+VGG step: every training kernel launches, and the loss
-    terms and gradients agree with the plain path."""
+# the whole step, kernel path against plain path, as chip_smoke.compare_step
+# holds it: losses to STEP_LOSS_RTOL; the kernel path run twice to
+# STEP_GRAD_TOL of each leaf's max |g|; the whole-path gradient difference
+# to STEP_SENS_FACTOR times the step's own 1-ulp sensitivity
+STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_SENS_FACTOR = 1e-4, 1e-4, 2.0
+
+
+def grad_diff(a, b):
+    """Worst leaf of |a - b| as max|diff| / max|b| and as ||diff|| / ||b||
+    (chip_smoke._grad_diff)."""
+    mx = nr = 0.0
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        if x is None:
+            continue
+        d = (x - y).double()
+        mx = max(mx, (d.abs().max() / y.abs().max().clamp_min(1e-30)).item())
+        nr = max(nr, (d.norm() / y.double().norm().clamp_min(1e-30)).item())
+    return mx, nr
+
+
+def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
+    """A small G+D+VGG step: every training kernel launches as often as the
+    architecture gives (each loss one group launch), and the loss terms and
+    gradients agree with the plain path. cuDNN deterministic and TF32 off,
+    so that repeated runs give the same bits; the gradient of a randomly
+    initialized GAN step amplifies last-ulp differences of its forward, so
+    the whole-path difference is held to twice the change a 1-ulp nudge of
+    the input image makes, measured on both paths."""
     opt = MaskToImageTrainOptions(gpu_ids="0", label_nc=8, ngf=16, ndf=16,
                                   n_downsample_global=2, n_blocks_global=2)
     model = create_model(opt)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=8, seed=6)
+    bumped = dict(batch)
+    bumped["image"] = torch.nextafter(batch["image"], torch.full_like(batch["image"], 2.0))
+    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
+
+    def plain_path():
+        stack = contextlib.ExitStack()
+        for mod, name, plain in ((kenc, "encode", kenc.encode_plain),
+                                 (kenc, "encode_cond", kenc.encode_cond_plain),
+                                 (kin, "instance_norm_act", kin.instance_norm_act_plain),
+                                 (klosses, "reduce_group", klosses.reduce_group_plain),
+                                 (krp, "reflect_pad", krp.reflect_pad_plain)):
+            stack.enter_context(mock.patch.object(mod, name, plain))
+        return stack
+
+    def run(b, ctx):
+        for p in params:
+            p.grad = None
+        with ctx:
+            total, metrics, _ = model.losses(b)
+            total.backward()
+        return metrics, [p.grad.clone() if p.grad is not None else None for p in params]
+
     counters = [kin.instance_norm_bwd, klosses.mse_to_scalar, klosses.l1_to_scalar,
                 krp.reflect_pad_bwd, kenc.encode_cond]
     before = [c.launches for c in counters]
-    total, metrics, _ = model.losses(batch)
-    total.backward()
+    groups = [klosses.mse_to_scalar.variants["group"], klosses.l1_to_scalar.variants["group"]]
+    mk, gk = run(batch, contextlib.nullcontext())
     # IN bwd: G 1 + 2*2 + 2*2 sites, D 2 applies x 2 scales x 3 sites;
     # 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; 2*2 resblock pads + head
     assert [c.launches - b for c, b in zip(counters, before)] == [9 + 12, 6, 13, 5, 1]
-    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
-    got = [p.grad.clone() if p.grad is not None else None for p in params]
-    for p in params:
-        p.grad = None
-    for mod, name, plain in ((kenc, "encode", kenc.encode_plain),
-                             (kenc, "encode_cond", kenc.encode_cond_plain),
-                             (kin, "instance_norm_act", kin.instance_norm_act_plain),
-                             (klosses, "mse_to_scalar", klosses.mse_to_scalar_plain),
-                             (klosses, "l1_to_scalar", klosses.l1_to_scalar_plain),
-                             (krp, "reflect_pad", krp.reflect_pad_plain)):
-        monkeypatch.setattr(mod, name, plain)
-    total_p, metrics_p, _ = model.losses(batch)
-    total_p.backward()
-    for k in metrics:
-        torch.testing.assert_close(metrics[k], metrics_p[k], rtol=1e-4, atol=0)
-    for a, p in zip(got, params):
-        if a is None:
-            assert p.grad is None
-            continue
-        assert (a - p.grad).abs().max() <= 1e-3 * p.grad.abs().max()
+    # one launch a loss: G's GAN term and D's; feature matching and VGG
+    assert [klosses.mse_to_scalar.variants["group"] - groups[0],
+            klosses.l1_to_scalar.variants["group"] - groups[1]] == [2, 2]
+    mid = [c.launches for c in counters]
+    mp, gp = run(batch, plain_path())
+    assert [c.launches for c in counters] == mid  # the plain path launches nothing
+    _, again = run(batch, contextlib.nullcontext())
+    _, gk_nudged = run(bumped, contextlib.nullcontext())
+    _, gp_nudged = run(bumped, plain_path())
+    for k in mk:
+        torch.testing.assert_close(mk[k], mp[k], rtol=STEP_LOSS_RTOL, atol=0)
+    assert grad_diff(again, gk)[0] <= STEP_GRAD_TOL
+    whole = grad_diff(gk, gp)
+    sens = [max(a, b) for a, b in zip(grad_diff(gk_nudged, gk), grad_diff(gp_nudged, gp))]
+    assert whole[0] <= STEP_SENS_FACTOR * sens[0] and whole[1] <= STEP_SENS_FACTOR * sens[1], (
+        whole, sens)
 
 
 def two_bf16_ulps(got, want):
@@ -310,12 +469,14 @@ def two_bf16_ulps(got, want):
 # not multiples of 8 (no 16-byte loads), the bottleneck; the wgmma kernel
 # (kernels/conv_in._plan): bs 4 (a 4-block cluster), 9x17 with Cin 96 (a
 # 2-block cluster, H*W and Cin off the tile), 32x48 (16 tiles: the two-launch
-# epilogue), a row wider than a tile (300 columns), the roofline shape
+# epilogue), a row wider than a tile (300 columns), the roofline shape; the
+# fp32 kernel's 4-byte copies (Cin 7, Cout 10)
 @pytest.mark.parametrize("shape", [(2, 8, 16, 128, 128), (2, 9, 17, 96, 40),
                                    (1, 4, 4, 8, 24), (1, 5, 7, 12, 20),
                                    (1, 16, 32, 1024, 1024), (4, 16, 32, 1024, 1024),
                                    (64, 9, 17, 96, 40), (16, 32, 48, 64, 64),
-                                   (4, 6, 300, 64, 64), (32, 16, 32, 1024, 1024)])
+                                   (4, 6, 300, 64, 64), (32, 16, 32, 1024, 1024),
+                                   (1, 6, 9, 7, 10)])
 def test_conv_in_kernel_matches_plain(cuda_device, restore_torch_precision, dt, relu,
                                       residual, shape):
     torch.backends.cudnn.allow_tf32 = False  # the plain conv in full fp32
@@ -348,6 +509,30 @@ def test_conv_in_kernel_matches_plain(cuda_device, restore_torch_precision, dt, 
         f = [t.float() if t is not None else None for t in (x, w3, b, r)]
         want = kconv.conv3x3_in_act_plain(f[0], f[1], f[2], relu=relu, residual=f[3])
         assert two_bf16_ulps(y, want.to(tdt)), (y.float() - want).abs().max()
+
+
+def test_conv_in_fp32_split_k_at_bs1(cuda_device, restore_torch_precision):
+    """The bs-1 bottleneck in fp32: the plan's K split of 8 (128 blocks;
+    the splits' sums and the statistics are two more launches),
+    one call counted as one "fma" call, the same bits twice, and within
+    3e-5 + 1e-4 |y| of the plain version."""
+    torch.backends.cudnn.allow_tf32 = False
+    plan = kconv._plan(1, 16, 32, 1024, 1024, torch.float32)
+    assert (plan["variant"], plan["k_split"], plan["cluster"], plan["launches"]) == (
+        "fma", 8, 1, 3)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn((1, 16, 32, 1024), generator=g, device=cuda_device) * 0.5
+    w3 = torch.randn((3, 3, 1024, 1024), generator=g, device=cuda_device) / 96
+    b = torch.randn((1024,), generator=g, device=cuda_device)
+    v0 = dict(kconv.conv3x3_in_act.variants)
+    with torch.no_grad():
+        y = kconv.conv3x3_in_act(x, w3, b, relu=True)
+        again = kconv.conv3x3_in_act(x, w3, b, relu=True)
+        want = kconv.conv3x3_in_act_plain(x, w3, b, relu=True)
+    torch.cuda.synchronize()
+    assert kconv.conv3x3_in_act.variants == dict(v0, fma=v0["fma"] + 2)
+    assert bits_equal(y, again)
+    torch.testing.assert_close(y, want, atol=3e-5, rtol=1e-4)
 
 
 def test_conv_in_gradient_matches_plain(cuda_device, restore_torch_precision):

@@ -112,6 +112,6 @@ def test_unported_train_flags_raise():
     check_train_options(MaskToImageTrainOptions(dtype="bfloat16", pool_size=50,
                                                 continue_train=True))
     for kw in (dict(mesh_devices=4), dict(device_resident_data=True), dict(use_dropout=True),
-               dict(tf_log=True), dict(load_pretrain="x")):
+               dict(load_pretrain="x")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             check_train_options(MaskToImageTrainOptions(**kw))

@@ -15,7 +15,10 @@ def cuda_device():
 
 @pytest.fixture
 def restore_torch_precision():
-    """The port's create_model sets process-wide TF32 switches."""
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    """The port's create_model sets process-wide TF32 switches, and a test
+    may make cuDNN deterministic: all three are put back afterwards."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
     yield
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic) = prev
