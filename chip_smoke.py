@@ -1,10 +1,10 @@
-"""Drive the PyTorch port's mask2image serving and training paths on one
-CUDA card.
+"""Drive the PyTorch port's mask2image and box2mask serving and training
+paths on one CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
-Phases, run in the order 1-4, 9, 5, 6, 10, 11, 7, 8, 12 (any failure raises
-and the script exits non-zero):
+Phases, run in the order 1-4, 9, 13, 5, 6, 10, 11, 14, 7, 8, 12, 15 (any
+failure raises and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source, all at once) and prints the -Xptxas -v register/smem
@@ -82,8 +82,31 @@ and the script exits non-zero):
               kernel (per variant where a kernel has several); the IN
               forward, the reflect-pad backward and the loss groups timed
               over the calls of one bs-1 bf16 step
+ 13. box2mask kernels  rows 4-7 at box2mask's shapes: the calls one
+              full-width box2mask train step (fineSize 128) makes of the IN
+              forward and backward, the reflect-pad backward and the loss
+              kernel, recorded at bs 1 and 2, fp32 and bf16; each distinct
+              call against its plain version on the variant its plan picks,
+              the same bits twice (the loss groups also as each term alone,
+              D's fake logits off the 16-byte grid); the bs-1 fp32 step's
+              calls timed
+ 14. box2mask CLIs  (main path 5) the box2mask_train CLI at full width with
+              --bg_box_prob 0.25 --lambda_ctx_neg 5.0, bs 1, one epoch over
+              phase 6's scenes: counters zeroed before and read after, held
+              per step to the architecture's counts (IN 25 + 25, reflect-pad
+              backward 10, 3 MSE terms in 2 loss launches) and per variant
+              to the plans; every loss finite; a background-box sample drawn;
+              then box2mask_test from its latest over phase 5's scenes:
+              "restored checkpoint 'latest'", no partial load, the gallery,
+              19 IN forwards a crop
+ 15. box2mask step  make_train_step on BoxToMaskModel at 128x128, bs 1 and
+              16, fp32 and bf16: ms/step, crops/s, peak memory, per-step
+              launches, the plain path's ms/step; the fp32 step's kernel path
+              against its plain path (compare_step, the 1-ulp nudge on the
+              parameters); inference at bs 1: ms/crop and merged probs
+              against the plain path
 With --profile: torch.profiler tables of one serving forward and of train
-steps at 512x256 bs 1.
+steps at 512x256 bs 1 and of a box2mask step at bs 1.
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 """
@@ -92,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -106,14 +130,21 @@ import torch
 import torch.nn.functional as F
 
 from neurips18_hierchical_image_manipulation_tpu_torch.cli import (
+    box2mask_test,
+    box2mask_train,
     mask2image_test,
     mask2image_train,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
+    BoxToMaskTestOptions,
+    BoxToMaskTrainOptions,
     MaskToImageTestOptions,
     MaskToImageTrainOptions,
 )
-from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import synthetic_batch
+from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
+    synthetic_batch,
+    synthetic_box2mask_batch,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import _build
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
@@ -121,11 +152,16 @@ from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_n
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
 from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
+from neurips18_hierchical_image_manipulation_tpu_torch.models.box2mask import BoxToMaskModel
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from neurips18_hierchical_image_manipulation_tpu_torch.models.pix2pixhd import Pix2PixHDModel
 from neurips18_hierchical_image_manipulation_tpu_torch.tools import roofline_resblock
+from neurips18_hierchical_image_manipulation_tpu_torch.train import loop as train_loop
 from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
-from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import make_train_step
+from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import (
+    _loss_inputs,
+    make_train_step,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import restore_params
 from neurips18_hierchical_image_manipulation_tpu_torch.utils.visualizer import Visualizer
 
@@ -181,6 +217,14 @@ DATAROOT_HW = (512, 1024)
 GPU_IDS = "0"
 ARCH = {}        # model overrides (empty: the full-width defaults)
 ARCH_ARGV = []   # the same as CLI flags
+# box2mask (BoxToMaskTrainOptions' full width: label_nc 35, ngf 64, 3 downs, 4
+# resblocks at 512 channels, 3-layer layout D at ndf 64, fineSize 128)
+B2M_ARCH = {}        # generator overrides (empty: the full-width defaults)
+# the train options' depth, which the test options (base depth 4 / 9, as in
+# the JAX package) are given
+B2M_DEPTH = {"n_downsample_global": 3, "n_blocks_global": 4}
+B2M_STEP_BS = ((1, 10), (16, 4))     # (batch, timed steps) of phase 15
+B2M_PROBS_ATOL = 1e-3                # merged probs after 19 IN sites, full-fp32 convs
 ACTS = ("none", "relu", "lrelu")
 TRAIN_KERNELS = ("encode_cond", "instance_norm_bwd", "mse_to_scalar", "l1_to_scalar",
                  "reflect_pad_bwd")
@@ -452,6 +496,30 @@ def encode_inputs(bs, h, w, dev, seed=0):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
+def check_in_fwd(x, act, res, what):
+    """The IN forward kernel twice on the variant its plan picks, the same
+    bits both times, against the plain version (fp32 within IN_FP32_ATOL,
+    bf16 one rounding apart) -> max |kernel - plain|."""
+    variant = kin._fwd_plan(*x.shape, x.dtype)["variant"]
+    (y, mean, rstd), again = twice_on(
+        "instance_norm", variant, lambda: kin.instance_norm(x, act, res), what)
+    yp, mp, rp = kin.instance_norm_plain(x, act, res)
+    torch.cuda.synchronize()
+    if not all(same_bits(a, b) for a, b in zip((y, mean, rstd), again)):
+        raise AssertionError(f"{what}: two runs differ")
+    torch.testing.assert_close(mean, mp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rp, atol=1e-5, rtol=1e-5)
+    err = (y.float() - yp.float()).abs().max().item()
+    if x.dtype == torch.float32:
+        ok = err <= IN_FP32_ATOL
+    else:
+        ok = bool(((y.float() - yp.float()).abs()
+                   <= IN_BF16_ATOL + IN_BF16_RTOL * yp.float().abs()).all())
+    if not ok:
+        raise AssertionError(f"{what}: max|diff| {err}")
+    return err
+
+
 def phase_kernels(dev, results):
     """Kernel vs plain on the card at the serving shapes, and times."""
     enc_rows, in_rows = [], []
@@ -488,26 +556,10 @@ def phase_kernels(dev, results):
         for dt in (torch.float32, torch.bfloat16):
             x, r = x32.to(dt), r32.to(dt)
             name = str(dt).split(".")[-1]
-            variant = kin._fwd_plan(*shape, dt)["variant"]
             for act in ("none", "relu", "lrelu"):
                 for res in (None, r):
-                    what = f"IN {shape} {name} {act} res={res is not None}"
-                    (y, mean, rstd), again = twice_on(
-                        "instance_norm", variant, lambda: kin.instance_norm(x, act, res), what)
-                    yp, mp, rp = kin.instance_norm_plain(x, act, res)
-                    torch.cuda.synchronize()
-                    if not all(same_bits(a, b) for a, b in zip((y, mean, rstd), again)):
-                        raise AssertionError(f"{what}: two runs differ")
-                    torch.testing.assert_close(mean, mp, atol=1e-5, rtol=1e-5)
-                    torch.testing.assert_close(rstd, rp, atol=1e-5, rtol=1e-5)
-                    err = (y.float() - yp.float()).abs().max().item()
-                    if dt == torch.float32:
-                        ok = err <= IN_FP32_ATOL
-                    else:
-                        ok = bool(((y.float() - yp.float()).abs()
-                                   <= IN_BF16_ATOL + IN_BF16_RTOL * yp.float().abs()).all())
-                    if not ok:
-                        raise AssertionError(f"{what}: max|diff| {err}")
+                    err = check_in_fwd(x, act, res, f"IN {shape} {name} {act} "
+                                                    f"res={res is not None}")
                     max_err[name] = max(max_err[name], err)
             if shape[1:] not in SHAPES_512x256 or bs not in (1, 8):
                 continue
@@ -539,6 +591,36 @@ def check_close(got, want, dt, fp32_atol, what, rtol=0.0):
     if not ok:
         raise AssertionError(f"{what}: kernel vs plain max|diff| {err}")
     return err
+
+
+def check_in_bwd(x, gy, act, res, what):
+    """The IN backward kernel (of act(IN(x) + res)) twice on the variant its
+    plan picks, the same bits both times, against the plain version: dx, and
+    dres where there is a residual -> max |kernel - plain|."""
+    y, mean, rstd = kin.instance_norm(x, act, res)
+    want_dres = res is not None
+    got, again = twice_on(
+        "instance_norm_bwd", kin._bwd_plan(*x.shape, x.dtype)["variant"],
+        lambda: kin.instance_norm_bwd(x, y, gy, mean, rstd, act, want_dres), what)
+    want = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, want_dres)
+    if not same_bits(got[0], again[0]):
+        raise AssertionError(f"{what}: two runs differ")
+    err = check_close(got[0], want[0], x.dtype, IN_BWD_FP32_ATOL, what)
+    if want_dres:
+        err = max(err, check_close(got[1], want[1], x.dtype, IN_BWD_FP32_ATOL, what))
+    return err
+
+
+def check_pad_bwd(dy, pad, what):
+    """The reflect-pad backward twice on the variant its plan picks, the
+    same bits both times, against the plain version -> max |diff|."""
+    n, hp, wp, c = dy.shape
+    got, again = twice_on("reflect_pad_bwd",
+                          krp._plan(n, hp - 2 * pad, wp - 2 * pad, c, pad, dy.dtype)["variant"],
+                          lambda: krp.reflect_pad_bwd(dy, pad), what)
+    if not same_bits(got, again):
+        raise AssertionError(f"{what}: two runs differ")
+    return check_close(got, krp.reflect_pad_bwd_plain(dy, pad), dy.dtype, PAD_FP32_ATOL, what)
 
 
 def library_in_bwd(x, gy):
@@ -605,20 +687,8 @@ def phase_train_kernels(dev, results):
             x, r, gy = x32.to(dt), r32.to(dt), g32.to(dt)
             for act in ACTS:
                 for res in (None, r):
-                    y, mean, rstd = kin.instance_norm(x, act, res)
-                    what = f"IN bwd {shape} {dt} {act} res={res is not None}"
-                    got, again = twice_on(
-                        "instance_norm_bwd", kin._bwd_plan(*shape, dt)["variant"],
-                        lambda: kin.instance_norm_bwd(x, y, gy, mean, rstd, act, res is not None),
-                        what)
-                    want = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, res is not None)
-                    if not same_bits(got[0], again[0]):
-                        raise AssertionError(f"{what}: two runs differ")
-                    keep("instance_norm_bwd", dt, check_close(got[0], want[0], dt,
-                                                              IN_BWD_FP32_ATOL, what))
-                    if res is not None:
-                        keep("instance_norm_bwd", dt, check_close(got[1], want[1], dt,
-                                                                  IN_BWD_FP32_ATOL, what))
+                    keep("instance_norm_bwd", dt, check_in_bwd(
+                        x, gy, act, res, f"IN bwd {shape} {dt} {act} res={res is not None}"))
             y, mean, rstd = kin.instance_norm(x, "relu")
             bms, by = bound(*in_bwd_bytes(shape, x.element_size(), "relu", False))
             row = dict(kernel="instance_norm_bwd", shape=list(shape), dtype=str(dt)[6:],
@@ -641,13 +711,8 @@ def phase_train_kernels(dev, results):
         dy32 = torch.randn((n, h + 2 * pad, w + 2 * pad, c), generator=gen, device=dev)
         for dt in (torch.float32, torch.bfloat16):
             dy = dy32.to(dt)
-            what = f"reflect-pad bwd {shape} p{pad} {dt}"
-            got, again = twice_on("reflect_pad_bwd", krp._plan(*shape, pad, dt)["variant"],
-                                  lambda: krp.reflect_pad_bwd(dy, pad), what)
-            want = krp.reflect_pad_bwd_plain(dy, pad)
-            if not same_bits(got, again):
-                raise AssertionError(f"{what}: two runs differ")
-            keep("reflect_pad_bwd", dt, check_close(got, want, dt, PAD_FP32_ATOL, what))
+            keep("reflect_pad_bwd", dt,
+                 check_pad_bwd(dy, pad, f"reflect-pad bwd {shape} p{pad} {dt}"))
             bms, by = bound(*pad_bwd_bytes(tuple(dy.shape), pad, dy.element_size()))
             row = dict(kernel="reflect_pad_bwd", shape=list(shape), pad=pad,
                        dtype=str(dt)[6:], plan=krp._plan(*shape, pad, dt),
@@ -921,11 +986,37 @@ def train_per_step(g_sites, opt):
     }
 
 
+def b2m_per_step(opt):
+    """Launches of each kernel in one box2mask train step: IN at the
+    generator's 2 + 3 n_down + 2 n_blocks sites (stem, downs, cls_norm, 2 a
+    resblock, both decoders' ups: 19 at full width) and at the n_layers_D
+    sites of each of the two D applies, forward and backward; the
+    reflect-pad backward at the resblock pads and the two 7x7 heads (the
+    stem's input takes no gradient); LSGAN's 3 MSE terms."""
+    g_sites = 2 + 3 * opt.n_downsample_global + 2 * opt.n_blocks_global
+    in_sites = g_sites + 2 * opt.n_layers_D
+    return {"encode": 0, "encode_cond": 0, "instance_norm": in_sites,
+            "instance_norm_bwd": in_sites, "mse_to_scalar": 0 if opt.no_lsgan else 3,
+            "l1_to_scalar": 0, "reflect_pad_bwd": 2 * opt.n_blocks_global + 2,
+            "conv3x3_in_act": 0}
+
+
+def per_step_of(model):
+    """Launches of each kernel in one train step of the model's architecture."""
+    if isinstance(model, BoxToMaskModel):
+        return b2m_per_step(model.opt)
+    g = model.netG
+    return train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, model.opt)
+
+
 def loss_groups_per_step(opt):
     """Loss-kernel launches of one train step (kernels/losses.reduce_group,
     one a loss): G's GAN term and D's real + fake terms (LSGAN), feature
-    matching and VGG; the image pool splits the step, not a loss."""
+    matching and VGG (mask2image; box2mask has neither); the image pool
+    splits the step, not a loss."""
     lsgan = not opt.no_lsgan
+    if opt.model == "box2mask":
+        return {"mse_to_scalar": 2 if lsgan else 0, "l1_to_scalar": 0}
     return {"mse_to_scalar": 2 if lsgan else 0,
             "l1_to_scalar": int(not opt.no_ganFeat_loss) + int(not opt.no_vgg_loss)}
 
@@ -939,13 +1030,13 @@ def expect_groups(groups, per_step, steps, what):
                         f"{what}, {kind} group launches")
 
 
-def drive_train_cli(argv):
-    """One run of the train CLI with the launch counters zeroed just before
+def drive_train_cli(argv, cli=mask2image_train):
+    """One run of a train CLI with the launch counters zeroed just before
     and read just after -> (state, model, loss lines, wall s, launches,
     per-step launches of its architecture)."""
     errors, models = [], []
     orig_print = Visualizer.print_current_errors
-    orig_create = mask2image_train.create_model
+    orig_create = cli.create_model
 
     def record_errors(self, epoch, i, errs, t):
         errors.append(dict(errs))
@@ -958,14 +1049,13 @@ def drive_train_cli(argv):
     zero_launches()
     t = time.time()
     with mock.patch.object(Visualizer, "print_current_errors", record_errors), \
-            mock.patch.object(mask2image_train, "create_model", create_and_keep):
-        state = mask2image_train.main(argv)
+            mock.patch.object(cli, "create_model", create_and_keep):
+        state = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = read_launches()
     model = models[0]
-    g = model.netG
-    per_step = train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, model.opt)
+    per_step = per_step_of(model)
     bad = [e for e in errors if not all(np.isfinite(v) for v in e.values())]
     if bad:
         raise AssertionError(f"non-finite losses: {bad}")
@@ -1177,7 +1267,7 @@ def _grad_diff(a, b):
     return mx, nr, where
 
 
-def compare_step(model, batch):
+def compare_step(model, batch, nudge="image", kernels=TRAIN_KERNELS):
     """One step's loss terms and G/D gradients, kernel path vs plain path,
     from the same parameters, with cuDNN deterministic so that repeated
     runs give the same bits. Each backward kernel is also swapped alone for
@@ -1185,9 +1275,11 @@ def compare_step(model, batch):
     amplifies last-ulp differences of its forward (the IN forward kernel's
     statistics differ from the plain two-pass ones by about an ulp), so the
     whole-path difference is held to twice the gradient's own sensitivity,
-    measured here: the change a 1-ulp nudge of the input image makes."""
-    bumped = dict(batch)
-    bumped["image"] = torch.nextafter(batch["image"], torch.full_like(batch["image"], 2.0))
+    measured here: the change a 1-ulp nudge makes, of the input image
+    (``nudge`` "image", mask2image) or of every G and D parameter
+    ("params", box2mask, whose inputs are one-hot maps and 0/1 masks).
+    ``kernels``: the training kernels the step must launch."""
+    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
 
     def run(ctx, b=batch):
         model.netG.zero_grad(set_to_none=True)
@@ -1196,6 +1288,23 @@ def compare_step(model, batch):
             total, metrics, _ = model.losses(b)
             total.backward()
         return {k: v.item() for k, v in metrics.items()}, grads_of(model)
+
+    def nudged(ctx):
+        if nudge == "image":
+            bumped = dict(batch)
+            bumped["image"] = torch.nextafter(batch["image"],
+                                              torch.full_like(batch["image"], 2.0))
+            return run(ctx, bumped)
+        saved = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p in params:
+                p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+        try:
+            return run(ctx)
+        finally:
+            with torch.no_grad():
+                for p, v in zip(params, saved):
+                    p.copy_(v)
 
     none = contextlib.nullcontext
     swaps = {
@@ -1211,15 +1320,15 @@ def compare_step(model, batch):
         before = read_launches()
         mk, gk = run(none())
         mid = read_launches()
-        if any(mid[k] == before[k] for k in TRAIN_KERNELS):
+        if any(mid[k] == before[k] for k in kernels):
             raise AssertionError(f"a training kernel did not launch: {before} -> {mid}")
         mp, gp = run(plain_path())
         if read_launches() != mid:
             raise AssertionError("the plain path launched a kernel")
         repeat = _grad_diff(run(none())[1], gk)
         alone = {k: _grad_diff(run(ctx())[1], gk) for k, ctx in swaps.items()}
-        sens_k = _grad_diff(run(none(), bumped)[1], gk)
-        sens_p = _grad_diff(run(plain_path(), bumped)[1], gp)
+        sens_k = _grad_diff(nudged(none())[1], gk)
+        sens_p = _grad_diff(nudged(plain_path())[1], gp)
     finally:
         torch.backends.cudnn.deterministic = prev
     loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mk)
@@ -1228,7 +1337,7 @@ def compare_step(model, batch):
     log(f"[step] kernel vs plain: losses {mk} vs {mp}, max rel {loss_rel:.3g}")
     log(f"[step] gradients (max|diff|/max|g|, ||diff||/||g||, worst leaf): kernel path "
         f"repeated {repeat}; one kernel plain at a time {alone}; whole plain path {whole}; "
-        f"1-ulp image nudge, kernel path {sens_k}, plain path {sens_p}")
+        f"1-ulp {nudge} nudge, kernel path {sens_k}, plain path {sens_p}")
     if loss_rel > STEP_LOSS_RTOL or repeat[0] > STEP_GRAD_TOL:
         raise AssertionError(f"step: losses max rel {loss_rel}, repeat {repeat}")
     bad = {k: v for k, v in alone.items() if v[0] > STEP_GRAD_TOL}
@@ -1361,6 +1470,263 @@ def phase_train_step_bf16(dev, results):
     results["train_step_kernels_bf16"] = table
 
 
+# ---------------------------------------------------------------- box2mask
+
+def flags(overrides):
+    """Option overrides as CLI flags."""
+    return [a for k, v in overrides.items() for a in (f"--{k}", str(v))]
+
+
+def b2m_batch(bs, dev, seed):
+    """Synthetic box2mask crops (data/synthetic.synthetic_box2mask_batch) on
+    the card; the first sample of a batch of 2 or more takes the null class
+    -1 (a background box: a zero one-hot, an empty object mask)."""
+    opt = BoxToMaskTrainOptions(**B2M_ARCH)
+    batch = synthetic_box2mask_batch(np.random.RandomState(seed), bs, size=opt.fineSize,
+                                     label_nc=opt.label_nc)
+    if bs > 1:
+        batch["cls"][0] = -1
+        batch["gt_objmask"][0] = 0.0
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def b2m_step_calls(model, dev, bs, dtype):
+    """The calls one box2mask train step (the objective and its backward,
+    fp32 or the bf16 tier) makes of each training kernel."""
+    params, b = _loss_inputs(model, b2m_batch(bs, dev, seed=40 + bs),
+                             dtype if dtype == torch.bfloat16 else None)
+    with recording() as calls:
+        total, _, _ = model.losses(b, params)
+        total.backward()
+    torch.cuda.synchronize()
+    model.netG.zero_grad(set_to_none=True)
+    model.netD.zero_grad(set_to_none=True)
+    return calls
+
+
+def check_loss_group(table, dev, gen, what):
+    """One recorded loss launch on fresh operands of its terms' shapes: two
+    terms of one shape are the halves of one tensor, as D's [real; fake]
+    logits are (the second half off the 16-byte grid where its offset is);
+    the group twice, the same bits both times and as each term alone, and
+    within LOSS_RTOL of the plain version -> max |diff|."""
+    shapes = [shape for _, shape, _, _ in table]
+    dt = table[0][2]
+    if len(table) == 2 and shapes[0] == shapes[1]:
+        buf = torch.randn((2 * shapes[0][0], *shapes[0][1:]), generator=gen, device=dev).to(dt)
+        ops = [buf[: shapes[0][0]], buf[shapes[0][0]:]]
+    else:
+        ops = [torch.randn(shape, generator=gen, device=dev).to(dt) for shape in shapes]
+    terms = [(m, a, t if t is not None else torch.randn_like(a)) for (m, _, _, t), a
+             in zip(table, ops)]
+    mode = "mse_to_scalar" if table[0][0] == "mse" else "l1_to_scalar"
+    before = read_variants()[mode]["group"]
+    got, again = klosses.reduce_group(terms), klosses.reduce_group(terms)
+    if read_variants()[mode]["group"] - before != 2:
+        raise AssertionError(f"{what}: not one launch a group")
+    alone = torch.cat([klosses.reduce_group([term]) for term in terms])
+    want = klosses.reduce_group_plain(terms)
+    torch.cuda.synchronize()
+    if not (same_bits(got, again) and same_bits(got, alone)):
+        raise AssertionError(f"{what}: bits differ twice or alone")
+    return check_close(got, want, torch.float32, 0.0, what, rtol=LOSS_RTOL)
+
+
+def phase_b2m_kernels(dev, results):
+    """Phase 13: rows 4-7 at box2mask's shapes. The calls one full-width
+    train step makes of each kernel, recorded at bs 1 and 2, fp32 and bf16;
+    each distinct call checked against its plain version on the variant its
+    plan picks, the same bits twice; the bs-1 fp32 step's calls timed."""
+    model = create_model(BoxToMaskTrainOptions(gpu_ids=GPU_IDS, **B2M_ARCH))
+    per_step = b2m_per_step(model.opt)
+    recorded = {(bs, dt): b2m_step_calls(model, dev, bs, dt)
+                for bs in (1, 2) for dt in (torch.float32, torch.bfloat16)}
+    del model
+    torch.cuda.empty_cache()
+    for (bs, dt), calls in recorded.items():
+        got = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar",)}
+        want = {k: per_step[k] for k in got}
+        expect_launches(got, want, f"box2mask step bs {bs} {dt}, calls recorded")
+        expect_launches(len(calls["loss_group"]), loss_groups_per_step(
+            BoxToMaskTrainOptions())["mse_to_scalar"], f"box2mask step bs {bs} {dt}, loss groups")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    errs, counts = {}, {}
+
+    def keep(kind, dt, err):
+        key = f"{kind}/{str(dt)[6:]}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        counts[kind] = counts.get(kind, 0) + 1
+
+    distinct = {k: sorted({tuple(c) for calls in recorded.values() for c in calls[k]}, key=str)
+                for k in PLANNED + ("loss_group",)}
+    for shape, dt, act, has_res in distinct["instance_norm"]:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+        r = torch.randn(shape, generator=gen, device=dev).to(dt) if has_res else None
+        keep("instance_norm", dt, check_in_fwd(x, act, r, f"box2mask IN {shape} {dt} {act}"))
+    for shape, dt, act, want_dres in distinct["instance_norm_bwd"]:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+        gy = torch.randn(shape, generator=gen, device=dev).to(dt)
+        r = torch.randn(shape, generator=gen, device=dev).to(dt) if want_dres else None
+        keep("instance_norm_bwd", dt,
+             check_in_bwd(x, gy, act, r, f"box2mask IN bwd {shape} {dt} {act}"))
+    for shape, dt, pad in distinct["reflect_pad_bwd"]:
+        dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+        keep("reflect_pad_bwd", dt, check_pad_bwd(dy, pad, f"box2mask pad bwd {shape} p{pad}"))
+    for table in distinct["loss_group"]:
+        keep("loss_group", table[0][2],
+             check_loss_group(list(table), dev, gen, f"box2mask loss group {table}"))
+    log(f"[box2mask kernels] distinct calls checked {counts}; max|kernel - plain| {errs}")
+    step_calls = recorded[(1, torch.float32)]
+    table = [dict(name=name, **time_sites(name, step_calls[name], dev, seed=70 + i))
+             for i, name in enumerate(PLANNED)]
+    table.append(dict(name="mse_to_scalar",
+                      **time_loss_groups("mse_to_scalar", step_calls["loss_group"], dev, 73)))
+    for row in table:
+        log(f"[box2mask step 128x128 bs 1 fp32] {row}")
+    results["box2mask_kernels"] = dict(max_err=errs, distinct_calls=counts, step_table=table)
+
+
+def phase_b2m_cli(tmp, results):
+    """Phase 14, main path 5: the box2mask train CLI at full width with the
+    background boxes and the negative-class term on, one epoch over phase
+    6's scenes; then box2mask_test from its latest over phase 5's."""
+    ckpt = os.path.join(tmp, "ckpt_b2m")
+    argv = ["--name", "smoke_b2m", "--dataroot", os.path.join(tmp, "city_train"),
+            "--checkpoints_dir", ckpt, "--gpu_ids", GPU_IDS, "--niter", "1",
+            "--niter_decay", "0", "--print_freq", "1", "--save_epoch_freq", "100",
+            "--nThreads", "2", "--bg_box_prob", "0.25", "--lambda_ctx_neg", "5.0",
+            *flags(B2M_ARCH)]
+    classes = []
+    orig_to_device = train_loop.to_device
+
+    def seen(host_batch, device):
+        classes.extend(int(c) for c in host_batch["cls"])
+        return orig_to_device(host_batch, device)
+
+    with recording() as calls, mock.patch.object(train_loop, "to_device", seen):
+        state, model, errors, wall, launches, per_step = drive_train_cli(argv, box2mask_train)
+    steps = state.step
+    log(f"[box2mask train CLI] {steps} steps in {wall:.1f} s (incl. model init, data, "
+        f"checkpoint writes); launches {launches}; per step {per_step}; classes {classes}")
+    if steps < 1 or len(errors) != steps:
+        raise AssertionError(f"box2mask train CLI: {steps} steps, {len(errors)} loss lines")
+    want_keys = {"G_GAN", "G_recon", "G_obj", "G_ctxneg", "D_real", "D_fake"}
+    if any(set(e) != want_keys for e in errors):
+        raise AssertionError(f"box2mask loss lines {errors[0]}")
+    if -1 not in classes:
+        raise AssertionError("no background-box sample drawn")
+    for k, n in per_step.items():
+        expect_launches(launches[k], n * steps, f"box2mask train CLI {k}")
+    expect_groups({}, loss_groups_per_step(model.opt), steps, "box2mask train CLI")
+    variants = expect_variants(calls, "box2mask train CLI")
+    log(f"[box2mask train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
+        f"variants {variants}")
+    g_sites = per_step["instance_norm"] - 2 * model.opt.n_layers_D
+    del model
+    torch.cuda.empty_cache()
+
+    out, how_many = io.StringIO(), 4
+    zero_launches()
+    t = time.time()
+    with recording() as scalls, contextlib.redirect_stdout(out):
+        box2mask_test.main(["--name", "smoke_b2m", "--dataroot", os.path.join(tmp, "city"),
+                            "--checkpoints_dir", ckpt, "--gpu_ids", GPU_IDS,
+                            "--results_dir", os.path.join(tmp, "results_b2m"),
+                            "--how_many", str(how_many), *flags({**B2M_DEPTH, **B2M_ARCH})])
+    torch.cuda.synchronize()
+    swall = time.time() - t
+    text = out.getvalue()
+    log(text.rstrip())
+    slaunches = read_launches()
+    if "restored checkpoint 'latest'" not in text or "partial load" in text:
+        raise AssertionError("box2mask_test did not restore latest in full")
+    expect_launches(slaunches, dict({k: 0 for k in slaunches}, instance_norm=g_sites * how_many),
+                    "box2mask serving CLI")
+    svariants = expect_variants(scalls, "box2mask serving CLI")
+    with open(os.path.join(tmp, "results_b2m", "smoke_b2m", "test_latest", "index.html")) as f:
+        html = f.read()
+    if html.count("predicted_layout") < how_many:
+        raise AssertionError("box2mask gallery incomplete")
+    log(f"[box2mask test CLI] {swall:.1f} s; launches {slaunches}; IN variants "
+        f"{svariants['instance_norm']}")
+    results["box2mask_cli"] = dict(
+        train=dict(wall_s=wall, steps=steps, launches=launches, per_step=per_step,
+                   losses=errors, classes=classes, variants=variants),
+        serving=dict(wall_s=swall, crops=how_many, launches=slaunches, variants=svariants))
+    return launches, variants, slaunches, svariants
+
+
+def phase_b2m_step(dev, results):
+    """Phase 15: make_train_step on BoxToMaskModel at fineSize, bs 1 and 16,
+    fp32 and bf16 (times, peak memory, per-step launches, the plain path's
+    time); the fp32 step's kernel path against its plain path; inference at
+    bs 1 (ms/crop, merged probs against the plain path)."""
+    rows, cmp = [], None
+    for dtype in ("float32", "bfloat16"):
+        opt = BoxToMaskTrainOptions(gpu_ids=GPU_IDS, dtype=dtype, lambda_ctx_neg=5.0, **B2M_ARCH)
+        model = create_model(opt)
+        step = make_train_step(model, torch.bfloat16 if dtype == "bfloat16" else None)
+        per_step = b2m_per_step(opt)
+        for bs, iters in B2M_STEP_BS:
+            batch = b2m_batch(bs, dev, seed=50 + bs)
+            state = make_optimizers(opt, model, 1000)
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = read_launches()
+            t = time.perf_counter()
+            for _ in range(iters):
+                metrics, merged = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / iters * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            after = read_launches()
+            for k, n in per_step.items():
+                expect_launches(after[k] - before[k], n * iters, f"box2mask step {dtype} bs {bs} {k}")
+            losses = {k: v.item() for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"box2mask step {dtype} bs {bs}: losses {losses}")
+            with plain_path():
+                step(state, batch)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(max(2, iters // 2)):
+                    step(state, batch)
+                torch.cuda.synchronize()
+                plain = (time.perf_counter() - t) / max(2, iters // 2) * 1e3
+            row = dict(bs=bs, hw=[opt.fineSize] * 2, dtype=dtype,
+                       precision=model.conv_precision_resolved, ms_per_step=ms,
+                       crops_per_s=bs * 1e3 / ms, ms_per_crop=ms / bs, plain_ms_per_step=plain,
+                       peak_mem_bytes=peak, merged_dtype=str(merged.dtype), losses=losses)
+            rows.append(row)
+            log(f"[box2mask step] {row}")
+        if dtype == "float32":
+            cmp = compare_step(model, b2m_batch(1, dev, seed=60), nudge="params",
+                               kernels=("instance_norm_bwd", "mse_to_scalar", "reflect_pad_bwd"))
+        del model
+        torch.cuda.empty_cache()
+    # inference, fp32 at bs 1, through the test options (the trained depth)
+    model = create_model(BoxToMaskTestOptions(gpu_ids=GPU_IDS, **{**B2M_DEPTH, **B2M_ARCH}))
+    batch = b2m_batch(1, dev, seed=61)
+    merged, obj = model.inference(batch)
+    with plain_path():
+        ref, ref_obj = model.inference(batch)
+    torch.cuda.synchronize()
+    diff = max((merged - ref).abs().max().item(), (obj - ref_obj).abs().max().item())
+    if not torch.isfinite(merged).all() or diff > B2M_PROBS_ATOL:
+        raise AssertionError(f"box2mask inference: kernel vs plain max|diff| {diff}")
+    ms = cuda_ms(lambda: model.inference(batch), 20)
+    with plain_path():
+        plain = cuda_ms(lambda: model.inference(batch), 20)
+    infer = dict(bs=1, hw=list(merged.shape[1:3]), dtype="float32", ms_per_crop=ms,
+                 plain_ms_per_crop=plain, max_abs_diff_vs_plain=diff)
+    log(f"[box2mask inference] {infer}")
+    del model
+    torch.cuda.empty_cache()
+    results["box2mask_step"] = dict(rows=rows, kernel_vs_plain=cmp, inference=infer)
+
+
 SOURCES = {
     "encode_cond": ("csrc/encode.cu", "ops/pallas/encode.py:104"),
     "instance_norm_bwd": ("csrc/instance_norm.cu", "ops/pallas/instance_norm.py:195"),
@@ -1433,19 +1799,23 @@ def kernel_kind(name):
     return "other"
 
 
-def phase_profile_train(dev, results, bf16=False):
+def phase_profile_train(dev, results, bf16=False, b2m=False):
     """Device time by kernel over train steps at STEP_HW bs 1 (fp32, or the
-    bf16 tier), grouped by kind; the idle share is that of the unprofiled
-    step (phase 8 or 12)."""
+    bf16 tier), or box2mask's fp32 step at bs 1, grouped by kind; the idle
+    share is that of the unprofiled step (phase 8, 12 or 15)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype="bfloat16" if bf16 else "float32",
-                                  **ARCH)
+    if b2m:
+        opt = BoxToMaskTrainOptions(gpu_ids=GPU_IDS, lambda_ctx_neg=5.0, **B2M_ARCH)
+        batch = b2m_batch(1, dev, seed=12)
+    else:
+        opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype="bfloat16" if bf16 else "float32",
+                                      **ARCH)
+        batch = encode_inputs(1, *STEP_HW, dev, seed=12)
     model = create_model(opt)
     step = make_train_step(model, torch.bfloat16 if bf16 else None)
     state = make_optimizers(opt, model, 1000)
-    batch = encode_inputs(1, *STEP_HW, dev, seed=12)
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
@@ -1463,9 +1833,10 @@ def phase_profile_train(dev, results, bf16=False):
             us = getattr(e, "self_device_time_total", 0) / n
             kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + us / 1e3
     dev_ms = sum(kinds.values())
-    step_ms = (results["step_bf16"][0] if bf16 else results["step"]["rows"][0])["ms_per_step"]
+    step_ms = (results["box2mask_step"]["rows"][0] if b2m else results["step_bf16"][0] if bf16
+               else results["step"]["rows"][0])["ms_per_step"]
     kinds = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
-    tag = "profile train bf16" if bf16 else "profile train"
+    tag = "profile box2mask train" if b2m else "profile train bf16" if bf16 else "profile train"
     log(f"[{tag}] device ms per step by kind: "
         f"{ {k: round(v, 4) for k, v in kinds.items()} }")
     log(f"[{tag}] device busy {dev_ms:.3f} ms per step; unprofiled step "
@@ -1796,22 +2167,27 @@ def main(argv=None):
     phase_kernels(dev, results)
     phase_train_kernels(dev, results)
     phase_conv_in(dev, results)
+    phase_b2m_kernels(dev, results)
     with tempfile.TemporaryDirectory() as tmp:
         sites, out_shape = phase_serving(tmp, results)
         cli_launches, cli_calls, cli_variants = phase_train_cli(tmp, results)
         bf16_launches = phase_train_cli_bf16(tmp, results)
         roofline_launches = phase_roofline(tmp, results)
+        b2m_launches, b2m_variants, b2m_serve_launches, b2m_serve_variants = phase_b2m_cli(
+            tmp, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)
     phase_model(dev, results)
     step_calls = phase_train_step(dev, results)
     phase_train_step_bf16(dev, results)
+    phase_b2m_step(dev, results)
     kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants,
                                              step_calls, results)
     # every kernel's launches per variant on each main path
     path_variants = {"serving": results["serving"]["all_variants"], "train": cli_variants,
                      "train_bf16_pool": results["train_cli_bf16"]["variants"],
-                     "roofline": results["roofline"]["all_variants"]}
+                     "roofline": results["roofline"]["all_variants"],
+                     "box2mask_train": b2m_variants, "box2mask_serving": b2m_serve_variants}
     kernels.append(conv_in_main_path_row(dev, results))
     kernels.append(conv_in_fp32_row(results, path_variants))
     # launches per variant on the main path of the row (the plan functions'
@@ -1829,7 +2205,8 @@ def main(argv=None):
             continue
         row["launches_by_path"] = {
             "serving": results["launches"][name], "train": cli_launches[name],
-            "train_bf16_pool": bf16_launches[name], "roofline": roofline_launches[name]}
+            "train_bf16_pool": bf16_launches[name], "roofline": roofline_launches[name],
+            "box2mask_train": b2m_launches[name], "box2mask_serving": b2m_serve_launches[name]}
         if name in ("mse_to_scalar", "l1_to_scalar"):
             row["terms_by_path"] = row["launches_by_path"]
             row["launches_by_path"] = {p: v[name]["group"] for p, v in path_variants.items()}
@@ -1837,6 +2214,7 @@ def main(argv=None):
         phase_profile(dev, results)
         phase_profile_train(dev, results)
         phase_profile_train(dev, results, bf16=True)
+        phase_profile_train(dev, results, b2m=True)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t0
     log(f"[done] {results['seconds']:.1f} s")

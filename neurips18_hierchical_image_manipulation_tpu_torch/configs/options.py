@@ -193,6 +193,34 @@ class MaskToImageTrainOptions(TrainOptions):
 
 
 @dataclass
+class BoxToMaskTrainOptions(TrainOptions):
+    """box2mask: the two-stream structure generator on bbox context-window
+    crops, with the layout discriminator (JAX ``configs/options.py:243-282``).
+    ``objReconLoss`` is accepted; the object stream's loss is the BCE
+    whatever it says, as in the JAX package."""
+
+    model: str = "box2mask"
+    netG: str = "twostream"
+    fineSize: int = 128            # the square context-window crop
+    contextMargin: float = 2.0     # context window = margin x the object box
+    min_box_size: int = 16
+    max_box_size: int = 10_000
+    n_downsample_global: int = 3
+    n_blocks_global: int = 4
+    lambda_recon: float = 10.0     # per-pixel CE and object BCE weight
+    no_vgg_loss: bool = True
+    no_instance: bool = True
+    # every ~1/p-th sample a background box: null class, empty object mask
+    # (data/bbox.py); 0 disables
+    bg_box_prob: float = 0.0
+    # weight of -log(1 - p_own_class) on the context stream at object
+    # pixels (models/box2mask.py); 0 disables
+    lambda_ctx_neg: float = 0.0
+    objReconLoss: str = "bce"
+    num_D: int = 1
+
+
+@dataclass
 class TestOptions(BaseOptions):
     ntest: int = 2**31 - 1
     results_dir: str = "./results/"
@@ -221,6 +249,17 @@ class MaskToImageTestOptions(TestOptions):
     min_box_size: int = 16
     max_box_size: int = 10_000
     spatial_shards: int = 0  # W-sharded inference: not ported yet
+
+
+@dataclass
+class BoxToMaskTestOptions(TestOptions):
+    model: str = "box2mask"
+    netG: str = "twostream"
+    fineSize: int = 128
+    contextMargin: float = 2.0
+    min_box_size: int = 16
+    max_box_size: int = 10_000
+    no_instance: bool = True
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:

@@ -11,7 +11,9 @@ context window (``contextMargin`` x the box, clipped), crops label/inst/
 RGB, resizes to the fixed ``fineSize`` square, and returns the
 structure-generator batch: GT layout ids, box mask (in window coords),
 class id, GT object mask, plus the RGB window + in-window box for the
-conditioned mask2image stage.
+conditioned mask2image stage. ``--bg_box_prob`` turns every ~1/p-th sample
+into a background box (null class -1, empty object mask), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -131,6 +133,13 @@ class BboxCropDataset:
         self.base = AlignedDataset(base_opt)
         self.size = opt.fineSize
         self.margin = getattr(opt, "contextMargin", 2.0)
+        # --bg_box_prob: every ~1/p-th sample trains as a BACKGROUND box
+        # (null class, empty GT object mask, box placed on object-free
+        # ground) — the supervision that makes remove-mode edits work.
+        # Deterministic in (epoch, index), as in the JAX package.
+        p = float(getattr(opt, "bg_box_prob", 0.0) or 0.0)
+        self.bg_every = max(int(round(1.0 / p)), 1) if p > 0 else 0
+        self._epoch = 0
         if records is None:
             cache = os.path.join(
                 opt.dataroot, f"{getattr(opt, 'phase', 'train')}_bboxes.json"
@@ -151,6 +160,49 @@ class BboxCropDataset:
 
     def set_epoch(self, epoch: int) -> None:
         self.base.set_epoch(epoch)
+        self._epoch = int(epoch)
+
+    @staticmethod
+    def _background_box(bbox, inst):
+        """Deterministic object-free placement of a box the same size as
+        ``bbox``: first golden-ratio grid candidate whose region holds
+        <= 2% THING pixels. None if the scene is too crowded — the caller
+        falls back to the object sample.
+
+        Thing test: ``inst >= 24000``. Cityscapes encodes instances as
+        class*1000+k with thing classes being ids 24..33 (person..bicycle);
+        stuff pixels carry inst == class id (< 1000). The procedural world
+        additionally stamps STUFF regions as class*1000 (road=7000,
+        sky=23000, ...) so the scanner yields stuff boxes too — a plain
+        ``>= 1000`` test would mark every pixel occupied and this
+        augmentation would silently never fire."""
+        y0, x0, h, w = (int(v) for v in bbox)
+        H, W = inst.shape
+        h, w = min(h, H), min(w, W)
+        thing = (inst >= 24000).astype(np.int64)
+        ii = np.pad(np.cumsum(np.cumsum(thing, 0), 1), ((1, 0), (1, 0)))
+        u0 = ((y0 * 131 + x0 * 31) % 997) / 997.0
+        phi = 0.6180339887
+
+        def free(cy, cx):
+            s = ii[cy + h, cx + w] - ii[cy, cx + w] - ii[cy + h, cx] + ii[cy, cx]
+            return s <= 0.02 * h * w
+
+        # Prefer SAME-ROW placements (x-shift only): remove-mode queries
+        # are boxes at object height (cars sit on the road), so the
+        # augmentation must supervise "null class at an object-height box
+        # over object-free ground", not boxes drifting into the sky.
+        cy0 = min(y0, H - h)
+        for k in range(48):
+            cx = int(((u0 + k * phi) % 1.0) * max(W - w, 1))
+            if free(cy0, cx):
+                return (cy0, cx, h, w)
+        for k in range(64):
+            cy = int(((u0 + k * phi) % 1.0) * max(H - h, 1))
+            cx = int(((u0 * 7.0 + k * phi * 3.0) % 1.0) * max(W - w, 1))
+            if free(cy, cx):
+                return (cy, cx, h, w)
+        return None
 
     def __len__(self):
         return len(self.records)
@@ -163,6 +215,14 @@ class BboxCropDataset:
         s = self.size
 
         bbox = rec["bbox"]
+        bg = bool(self.bg_every) and (index + self._epoch) % self.bg_every == 0
+        if bg:
+            bg_box = self._background_box(bbox, inst)
+            if bg_box is None:
+                bg = False
+            else:
+                bbox = bg_box
+
         wy0, wx0, wh, ww = _context_window(bbox, hw, self.margin, s)
 
         def crop_resize_nearest(arr):
@@ -176,10 +236,16 @@ class BboxCropDataset:
         by0, bx0, bh, bw = _scaled_box(bbox, wy0, wx0, wh, ww, s)
         boxmask = hostops.box_mask_f32(s, s, by0, bx0, bh, bw)
 
-        gt_objmask = (
-            (inst_win == rec["inst_id"]).astype(np.float32)[..., None] * boxmask
-        )
-        cls_id = np.int32(rec["cls"])
+        if bg:
+            # background sample: null class (-1 -> all-zeros one-hot),
+            # nothing to segment, full-weight context supervision in-box
+            gt_objmask = np.zeros((s, s, 1), np.float32)
+            cls_id = np.int32(-1)
+        else:
+            gt_objmask = (
+                (inst_win == rec["inst_id"]).astype(np.float32)[..., None] * boxmask
+            )
+            cls_id = np.int32(rec["cls"])
 
         u8 = getattr(self.opt, "uint8_transfer", False)
         if u8:

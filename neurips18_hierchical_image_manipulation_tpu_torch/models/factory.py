@@ -1,5 +1,6 @@
 """Model factory — counterpart of ``models/factory.py`` in the JAX package:
-resolves the device and the numeric precision, then builds the model."""
+resolves the device and the numeric precision, then builds the model
+(``--model pix2pixHD`` or ``box2mask``)."""
 
 from __future__ import annotations
 
@@ -44,10 +45,12 @@ def create_model(opt):
     # --no_pallas is accepted and changes nothing here: it selected the JAX
     # package's lax fallbacks over its TPU kernels, while on the card every
     # ported kernel IS the path (the plain versions serve CPU tensors only).
-    if opt.model != "pix2pixHD":
-        raise NotImplementedError(f"--model {opt.model} is not ported yet")
-    from .pix2pixhd import Pix2PixHDModel
-
-    model = Pix2PixHDModel(opt, resolve_device(opt))
+    if opt.model == "pix2pixHD":
+        from .pix2pixhd import Pix2PixHDModel as Model
+    elif opt.model == "box2mask":
+        from .box2mask import BoxToMaskModel as Model
+    else:
+        raise ValueError(f"unknown model: {opt.model}")
+    model = Model(opt, resolve_device(opt))
     model.conv_precision_resolved = prec
     return model

@@ -1,12 +1,16 @@
 """Networks — PyTorch counterparts of ``models/networks.py`` in the JAX
 package (pix2pixHD lineage): the GlobalGenerator, the multiscale PatchGAN
-discriminator and the VGG19 feature taps, NHWC activations.
+discriminator and the VGG19 feature taps (mask2image), and the two-stream
+structure generator with its layout discriminator (box2mask), NHWC
+activations.
 
 Module and parameter names follow the JAX param tree (``conv_in``,
 ``down{i}``, ``res{i}.conv1|conv2``, ``up{i}``, ``conv_out``, the batch
 norm ``norm*`` modules; ``scale{i}.layer{n}`` for D; ``conv{b}_{c}`` for
-VGG), so ``utils/checkpoint.py`` maps a JAX npz sidecar onto
-``state_dict`` keys one to one.
+VGG; ``enc_in``, ``enc_down{i}``, ``cls_fuse``, ``cls_embed``,
+``{ctx,obj}_up{i}``, ``{ctx,obj}_out`` and ``d.layer{n}`` for box2mask), so
+``utils/checkpoint.py`` maps a JAX npz sidecar onto ``state_dict`` keys one
+to one.
 
 Init follows the reference's ``weights_init``: conv weights ~ N(0, 0.02),
 biases zero, batch-norm weight ~ N(1, 0.02), bias zero, drawn from an
@@ -49,9 +53,11 @@ class Conv(nn.Module):
 
         ``x2``: the conv over the channel concat x ⊕ x2, as two partial
         convs over one weight, ``conv(x, W[:, :cx]) + conv(x2, W[:, cx:])``
-        (the JAX ``Conv(...)(x, x2)``). When x2 stacks k times x's batch
-        (D's batched [real; fake] apply), x's partial conv runs once and is
-        tiled."""
+        (the JAX ``Conv(...)(x, x2)``). When one side stacks k times the
+        other's batch (D's batched [real; fake] apply: the conditioning once,
+        the images stacked, on either side), the smaller side's partial conv
+        runs once and is tiled; batches neither of which divides the other
+        raise."""
         b = None if self.dead_bias else self.bias
         if x2 is not None:
             if self.reflect:
@@ -62,7 +68,14 @@ class Conv(nn.Module):
             y2 = nnops.conv2d(x2, self.weight[:, cx:], None, stride=self.stride,
                               padding=self.padding)
             if y2.shape[0] != y.shape[0]:
-                y = y.repeat(y2.shape[0] // y.shape[0], 1, 1, 1)
+                small, big = sorted((y.shape[0], y2.shape[0]))
+                if big % small:
+                    raise ValueError(f"split-input conv: batches {y.shape[0]} and "
+                                     f"{y2.shape[0]}, neither divides the other")
+                if y.shape[0] == small:
+                    y = y.repeat(big // small, 1, 1, 1)
+                else:
+                    y2 = y2.repeat(big // small, 1, 1, 1)
             return y + y2
         if self.reflect and not padded:
             x = nnops.reflect_pad(x, self.reflect)
@@ -183,13 +196,16 @@ class GlobalGenerator(nn.Module):
 
 
 def _reset_convs(module: nn.Module, generator: torch.Generator) -> None:
-    """Reference ``weights_init``: conv weights ~ N(0, 0.02), batch-norm
-    weights ~ N(1, 0.02), biases zero, in registration order."""
+    """Reference ``weights_init``: conv and linear weights ~ N(0, 0.02) (the
+    JAX ``conv_init``, which the structure generator's ``cls_embed`` Dense
+    takes too), batch-norm weights ~ N(1, 0.02), biases zero, in
+    registration order."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Conv, ConvTranspose)):
+            if isinstance(m, (Conv, ConvTranspose, nn.Linear)):
                 m.weight.normal_(0.0, 0.02, generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, NormAct) and m.norm == "batch":
                 m.weight.normal_(1.0, 0.02, generator=generator)
                 m.bias.zero_()
@@ -297,6 +313,108 @@ class Vgg19Features(nn.Module):
         _reset_convs(self, generator)
 
 
+class TwoStreamStructureGenerator(nn.Module):
+    """The box2mask structure generator (JAX ``networks.py:707-803``): a
+    shared encoder over the masked one-hot layout ⊕ the box mask, class
+    conditioning at the bottleneck (a box-masked class map into the 1x1
+    ``cls_fuse``, then the bias-free ``cls_embed`` shift added after
+    ``cls_norm`` and before the ReLU: both survive IN, which cancels a
+    spatially constant pre-norm signal), resnet blocks, and two decoders
+    with additive U-Net skips: ``ctx`` (label_nc layout logits) and ``obj``
+    (one object-mask logit). ``forward`` -> (layout_logits, mask_logit,
+    merged), merged = softmax(ctx) outside the soft object mask and the
+    class one-hot inside it. The null class (an all-zero one-hot) gives a
+    zero class map and a zero shift."""
+
+    def __init__(self, label_nc=35, ngf=64, n_downsampling=3, n_blocks=4, norm="instance"):
+        super().__init__()
+        self.label_nc, self.norm = label_nc, norm
+        self.n_downsampling, self.n_blocks = n_downsampling, n_blocks
+        db = norm == "instance"
+        self.enc_in = Conv(label_nc + 1, ngf, 7, reflect=3, dead_bias=db)
+        self.enc_norm_in = NormAct(ngf, norm, "relu")
+        for i in range(n_downsampling):
+            cin, cout = ngf * 2**i, ngf * 2 ** (i + 1)
+            self.add_module(f"enc_down{i}", Conv(cin, cout, 3, 2, 1, dead_bias=db))
+            self.add_module(f"enc_norm_down{i}", NormAct(cout, norm, "relu"))
+        ch = ngf * 2**n_downsampling
+        self.cls_fuse = Conv(ch + label_nc, ch, 1, dead_bias=db)
+        self.cls_norm = NormAct(ch, norm, "none")
+        self.cls_embed = nn.utils.skip_init(nn.Linear, label_nc, ch, bias=False)
+        nn.init.zeros_(self.cls_embed.weight)
+        for i in range(n_blocks):
+            self.add_module(f"res{i}", ResnetBlock(ch, norm))
+        for tag, out_nc in (("ctx", label_nc), ("obj", 1)):
+            for i in range(n_downsampling):
+                mult = 2 ** (n_downsampling - i)
+                cout = ngf * mult // 2
+                self.add_module(f"{tag}_up{i}", ConvTranspose(ngf * mult, cout, dead_bias=db))
+                self.add_module(f"{tag}_norm_up{i}", NormAct(cout, norm, "relu"))
+            self.add_module(f"{tag}_out", Conv(ngf, out_nc, 7, reflect=3))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+    def forward(self, masked_layout, boxmask, class_onehot):
+        """masked_layout (B,H,W,label_nc), boxmask (B,H,W,1), class_onehot
+        (B,label_nc)."""
+        h = self.enc_norm_in(self.enc_in(torch.cat([masked_layout, boxmask], -1)))
+        skips = []
+        for i in range(self.n_downsampling):
+            skips.append(h)
+            h = getattr(self, f"enc_norm_down{i}")(getattr(self, f"enc_down{i}")(h))
+        # the box mask at the bottleneck by a reshape-max, as the JAX package
+        # pools it: H and W must be multiples of the bottleneck's
+        b, hh, ww, _ = h.shape
+        fy, fx = boxmask.shape[1] // hh, boxmask.shape[2] // ww
+        if (fy * hh, fx * ww) != tuple(boxmask.shape[1:3]):
+            raise ValueError(
+                f"box mask {tuple(boxmask.shape[1:3])} does not pool onto the "
+                f"{hh}x{ww} bottleneck: fineSize must be divisible by "
+                f"2^n_downsample_global")
+        bm = boxmask.reshape(b, hh, fy, ww, fx, 1).amax(dim=(2, 4))
+        cmap = class_onehot[:, None, None, :] * bm
+        h = self.cls_norm(self.cls_fuse(torch.cat([h, cmap], -1)))
+        h = nnops.relu(h + self.cls_embed(class_onehot)[:, None, None, :])
+        for i in range(self.n_blocks):
+            h = getattr(self, f"res{i}")(h)
+
+        def decoder(tag, h):
+            for i in range(self.n_downsampling):
+                h = getattr(self, f"{tag}_norm_up{i}")(getattr(self, f"{tag}_up{i}")(h))
+                h = h + skips[self.n_downsampling - 1 - i]   # U-Net skip, after the act
+            return getattr(self, f"{tag}_out")(h)
+
+        layout_logits = decoder("ctx", h)
+        mask_logit = decoder("obj", h)
+        obj_mask = torch.clamp(torch.sigmoid(mask_logit) * boxmask, 0.0, 1.0)
+        ctx_probs = torch.softmax(layout_logits, dim=-1)
+        merged = ctx_probs * (1.0 - obj_mask) + class_onehot[:, None, None, :] * obj_mask
+        return layout_logits, mask_logit, merged
+
+
+class LayoutDiscriminator(nn.Module):
+    """box2mask's conditional PatchGAN (JAX ``networks.py:806-829``) over the
+    layout ⊕ the tiled class one-hot ⊕ the box mask. The layout comes first
+    (layer0's weight slices its label_nc channels before the conditioning's
+    label_nc + 1) and may stack k inputs along the batch ([gt; merged]); the
+    conditioning is built once at the box mask's batch and ``Conv``'s split
+    form tiles its partial conv."""
+
+    def __init__(self, label_nc=35, ndf=64, n_layers=3, norm="instance",
+                 get_interm_feat=True):
+        super().__init__()
+        self.d = NLayerDiscriminator(2 * label_nc + 1, ndf, n_layers, norm, get_interm_feat)
+
+    def forward(self, layout, boxmask, class_onehot):
+        b, h, w = boxmask.shape[0], layout.shape[1], layout.shape[2]
+        cls = class_onehot[:, None, None, :].expand(b, h, w, class_onehot.shape[-1])
+        return self.d(layout, torch.cat([cls, boxmask], -1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+
 def define_D(opt, generator: torch.Generator) -> MultiscaleDiscriminator:
     """``define_D``: D's input is the conditioning (one-hot ⊕ edge) ⊕ RGB,
     initialized from ``generator``."""
@@ -313,9 +431,18 @@ def define_D(opt, generator: torch.Generator) -> MultiscaleDiscriminator:
     return d
 
 
-def define_G(opt, input_nc: int, generator: torch.Generator) -> GlobalGenerator:
-    """``define_G`` for ``--netG global`` (the other generators wait for
-    later slices), initialized from ``generator``."""
+def define_G(opt, input_nc: int, generator: torch.Generator) -> nn.Module:
+    """``define_G`` for ``--netG global`` and ``twostream`` (``local`` waits
+    for a later slice), initialized from ``generator``; ``input_nc`` is the
+    GlobalGenerator's (the structure generator's follows label_nc)."""
+    if opt.netG == "twostream":
+        if getattr(opt, "use_dropout", False):
+            raise ValueError("--use_dropout is not supported for netG=twostream")
+        g = TwoStreamStructureGenerator(
+            label_nc=opt.label_nc, ngf=opt.ngf, n_downsampling=opt.n_downsample_global,
+            n_blocks=opt.n_blocks_global, norm=opt.norm)
+        g.reset_parameters(generator)
+        return g
     if opt.netG != "global":
         raise NotImplementedError(f"--netG {opt.netG} is not ported yet")
     g = GlobalGenerator(

@@ -7,11 +7,15 @@ every ``save_epoch_freq`` epochs and a final ``latest``, each a resumable
 checkpoint (``utils/checkpoint.CheckpointManager``).
 
 ``--pool_size > 0`` takes the split G/D steps with the host-side image
-pool between them (``:86-100``). ``--continue_train`` restores
+pool between them (``:86-100``) for a model with a D-only objective
+(``d_losses``: mask2image); box2mask has none and trains the fused step,
+as in the JAX package. ``--continue_train`` restores
 ``--which_epoch`` and resumes at ``iter.txt``'s epoch, skipping the batches
 of it already done (``:61-71``, ``:250-262``). The loader's shuffle order
 is not part of a checkpoint (as in the JAX package): a resumed run repeats
-the straight run's batches exactly under ``--serial_batches``.
+the straight run's batches exactly under ``--serial_batches``, except where
+box2mask's ``--bg_box_prob`` places background boxes by the loader's own
+epoch count, which a new process starts at 0 (so does the JAX package's).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ def _host(t):
 def make_step_fn(opt, model):
     """-> step(state, batch) -> (metrics, fake) for the options' path."""
     compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else None
-    if opt.pool_size <= 0:
+    if opt.pool_size <= 0 or not hasattr(model, "d_losses"):
         return make_train_step(model, compute_dtype)
     pool = ImagePool(opt.pool_size, seed=opt.seed)
     g_step, d_step = make_pooled_train_steps(model, compute_dtype)
@@ -115,3 +119,13 @@ def mask2image_visuals(host_batch, fake, label_nc=35):
     if "image" in host_batch:
         vis["real_image"] = tensor2im(host_batch["image"])
     return vis
+
+
+def box2mask_visuals(host_batch, merged, label_nc=35):
+    """JAX ``loop.py:292-297``: the masked layout, the merged prediction and
+    the GT layout of the batch's first sample, palette RGB."""
+    return {
+        "masked_layout": tensor2label(host_batch["masked_layout"], label_nc),
+        "predicted_layout": tensor2label(merged, label_nc),
+        "gt_layout": tensor2label(host_batch["gt_layout"], label_nc),
+    }

@@ -11,12 +11,17 @@ param path joined with '/': ``G/params/conv_in/kernel``,
   * transposed-conv kernel HWIO (I = the op's input channels)
     -> weight (Cin, Cout, kh, kw)  by transpose(2, 3, 0, 1), no spatial flip
     (the JAX op flips at call time exactly as torch's does);
+  * dense kernel (in, out) (flax ``nn.Dense``: the structure generator's
+    ``cls_embed``) -> ``nn.Linear`` weight (out, in) by transpose;
   * batch-norm scale -> weight; every bias -> bias.
 
-The generator's transposed convs are its ``up{i}`` modules. The same map
+The transposed convs are the modules named ``up{i}`` or ``{tag}_up{i}``
+(the GlobalGenerator's ``up{i}``, the structure generator's decoders'
+``ctx_up{i}`` / ``obj_up{i}``). The same map
 serves the discriminator (``D/params/scale{i}/layer{n}/{kernel,bias}``,
 ``norm{n}/{scale,bias}`` under batch norm) and VGG19
-(``VGG/params/conv{b}_{c}/{kernel,bias}``): ``state_dicts_from_jax`` turns
+(``VGG/params/conv{b}_{c}/{kernel,bias}``) and box2mask's layout
+discriminator (``D/params/d/layer{n}/...``): ``state_dicts_from_jax`` turns
 one JAX ``{G, D, VGG}`` tree into the port's three ``state_dict``s.
 ``save_params`` writes ``{label}_params.npz`` in the JAX sidecar layout
 (G and D, as the JAX package saves its train state's params).
@@ -42,7 +47,7 @@ import torch
 
 PREFIX = "G/params/"
 NETS = ("G", "D", "VGG")
-_UP = re.compile(r"^up\d+$")
+_UP = re.compile(r"(^|_)up\d+$")
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], prefix: str = PREFIX) -> Dict[str, torch.Tensor]:
@@ -54,8 +59,10 @@ def params_from_jax(flat: Dict[str, np.ndarray], prefix: str = PREFIX) -> Dict[s
             continue
         *path, leaf = key[len(prefix):].split("/")
         arr = np.asarray(arr)
-        if leaf == "kernel":
-            perm = (2, 3, 0, 1) if _UP.match(path[-1]) else (3, 2, 0, 1)
+        if leaf == "kernel" and arr.ndim == 2:
+            arr, leaf = arr.T, "weight"
+        elif leaf == "kernel":
+            perm = (2, 3, 0, 1) if _UP.search(path[-1]) else (3, 2, 0, 1)
             arr, leaf = arr.transpose(perm), "weight"
         elif leaf == "scale":
             leaf = "weight"
@@ -70,8 +77,10 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor], prefix: str = PREFIX) -> 
     for key, t in state_dict.items():
         *path, leaf = key.split(".")
         arr = t.detach().cpu().numpy()
-        if leaf == "weight" and arr.ndim == 4:
-            perm = (2, 3, 0, 1) if _UP.match(path[-1]) else (2, 3, 1, 0)
+        if leaf == "weight" and arr.ndim == 2:
+            arr, leaf = arr.T, "kernel"
+        elif leaf == "weight" and arr.ndim == 4:
+            perm = (2, 3, 0, 1) if _UP.search(path[-1]) else (2, 3, 1, 0)
             arr, leaf = arr.transpose(perm), "kernel"
         elif leaf == "weight":
             leaf = "scale"

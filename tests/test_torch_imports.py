@@ -48,7 +48,8 @@ def test_port_imports_no_jax(tmp_path):
     ["chip_smoke", f"{PORT}.cli.mask2image_test", f"{PORT}.kernels.encode",
      f"{PORT}.cli.mask2image_train", f"{PORT}.kernels.losses", f"{PORT}.kernels.reflect_pad",
      f"{PORT}.kernels.conv_in", f"{PORT}.tools.roofline_resblock", f"{PORT}.train.loop",
-     f"{PORT}.utils.checkpoint", f"{PORT}.utils.image_pool"],
+     f"{PORT}.utils.checkpoint", f"{PORT}.utils.image_pool", f"{PORT}.cli.box2mask_train",
+     f"{PORT}.cli.box2mask_test", f"{PORT}.models.box2mask", f"{PORT}.losses.layout"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

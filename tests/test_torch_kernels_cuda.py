@@ -14,9 +14,13 @@ import pytest
 import torch
 
 from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
+    BoxToMaskTrainOptions,
     MaskToImageTestOptions,
 )
-from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import synthetic_batch
+from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
+    synthetic_batch,
+    synthetic_box2mask_batch,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTrainOptions,
 )
@@ -25,6 +29,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as 
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
+from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from torch_port_helpers import cuda_device, restore_torch_precision  # noqa: F401
 
@@ -455,6 +460,91 @@ def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precisi
     sens = [max(a, b) for a, b in zip(grad_diff(gk_nudged, gk), grad_diff(gp_nudged, gp))]
     assert whole[0] <= STEP_SENS_FACTOR * sens[0] and whole[1] <= STEP_SENS_FACTOR * sens[1], (
         whole, sens)
+
+
+def test_box2mask_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
+    """A small box2mask step (two-stream G, 2-layer layout D, a background
+    box in the batch): every training kernel launches as often as the
+    architecture gives, and the loss terms and gradients agree with the
+    plain path, calibrated as chip_smoke.compare_step is, the 1-ulp nudge on
+    every G and D parameter (the inputs are one-hot maps and 0/1 masks)."""
+    opt = BoxToMaskTrainOptions(gpu_ids="0", label_nc=8, ngf=16, ndf=16, n_downsample_global=2,
+                                n_blocks_global=2, n_layers_D=2, fineSize=32, lambda_ctx_neg=5.0)
+    model = create_model(opt)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    batch = synthetic_box2mask_batch(np.random.RandomState(7), 2, size=32, label_nc=8)
+    batch["cls"][0], batch["gt_objmask"][0] = -1, 0.0
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
+
+    def plain_path():
+        stack = contextlib.ExitStack()
+        for mod, name, plain in ((kin, "instance_norm_act", kin.instance_norm_act_plain),
+                                 (klosses, "reduce_group", klosses.reduce_group_plain),
+                                 (krp, "reflect_pad", krp.reflect_pad_plain)):
+            stack.enter_context(mock.patch.object(mod, name, plain))
+        return stack
+
+    def run(ctx, nudge=False):
+        saved = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p in params:
+                p.grad = None
+                if nudge:
+                    p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+        with ctx:
+            total, metrics, _ = model.losses(batch)
+            total.backward()
+        grads = [p.grad.clone() if p.grad is not None else None for p in params]
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+        return metrics, grads
+
+    counters = [kin.instance_norm, kin.instance_norm_bwd, klosses.mse_to_scalar,
+                klosses.l1_to_scalar, krp.reflect_pad_bwd, kenc.encode, kenc.encode_cond]
+    before = [c.launches for c in counters]
+    groups = klosses.mse_to_scalar.variants["group"]
+    mk, gk = run(contextlib.nullcontext())
+    # IN: G 2 + 3*2 + 2*2 sites, D 2 applies x 2 sites, forward and backward;
+    # 3 MSE terms in 2 launches; 2*2 resblock pads + the two 7x7 heads
+    assert [c.launches - b for c, b in zip(counters, before)] == [16, 16, 3, 0, 6, 0, 0]
+    assert klosses.mse_to_scalar.variants["group"] - groups == 2
+    mid = [c.launches for c in counters]
+    mp, gp = run(plain_path())
+    assert [c.launches for c in counters] == mid  # the plain path launches nothing
+    _, again = run(contextlib.nullcontext())
+    _, gk_nudged = run(contextlib.nullcontext(), nudge=True)
+    _, gp_nudged = run(plain_path(), nudge=True)
+    assert set(mk) == {"G_GAN", "G_recon", "G_obj", "G_ctxneg", "D_real", "D_fake"}
+    for k in mk:
+        torch.testing.assert_close(mk[k], mp[k], rtol=STEP_LOSS_RTOL, atol=0)
+    assert grad_diff(again, gk)[0] <= STEP_GRAD_TOL
+    whole = grad_diff(gk, gp)
+    sens = [max(a, b) for a, b in zip(grad_diff(gk_nudged, gk), grad_diff(gp_nudged, gp))]
+    assert whole[0] <= STEP_SENS_FACTOR * sens[0] and whole[1] <= STEP_SENS_FACTOR * sens[1], (
+        whole, sens)
+
+
+@pytest.mark.parametrize("stacked", [1, 2])
+def test_layout_discriminator_batch_one_on_card(cuda_device, stacked):
+    """The layout D at B = 1 with the layout stacked k times over one
+    conditioning: k non-empty logit maps, each the D of its own layout."""
+    d = networks.LayoutDiscriminator(8, ndf=16, n_layers=2, get_interm_feat=False)
+    d.reset_parameters(torch.Generator().manual_seed(0))
+    d.to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    layout = torch.rand((stacked, 32, 32, 8), generator=g, device=cuda_device)
+    boxmask = (torch.rand((1, 32, 32, 1), generator=g, device=cuda_device) > 0.5).float()
+    cls = torch.zeros((1, 8), device=cuda_device)
+    cls[0, 3] = 1.0
+    with torch.no_grad():
+        (out,) = d(layout, boxmask, cls)
+        alone = torch.cat([d(layout[i : i + 1], boxmask, cls)[0] for i in range(stacked)])
+    torch.cuda.synchronize()
+    assert out.shape == (stacked, 11, 11, 1) and out.numel() > 0
+    torch.testing.assert_close(out, alone, rtol=1e-5, atol=1e-5)
 
 
 def two_bf16_ulps(got, want):
