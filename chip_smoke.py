@@ -1,10 +1,10 @@
 """Drive the PyTorch port's mask2image and box2mask serving and training
-paths on one CUDA card.
+paths, the two-step edit pipeline and the evaluators on one CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
-Phases, run in the order 1-4, 9, 13, 5, 6, 10, 11, 14, 7, 8, 12, 15 (any
-failure raises and the script exits non-zero):
+Phases, run in the order 1-4, 9, 13, 5, 6, 10, 11, 14, 16, 17, 18, 7, 8,
+12, 15 (any failure raises and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source, all at once) and prints the -Xptxas -v register/smem
@@ -105,8 +105,35 @@ failure raises and the script exits non-zero):
               against its plain path (compare_step, the 1-ulp nudge on the
               parameters); inference at bs 1: ms/crop and merged probs
               against the plain path
-With --profile: torch.profiler tables of one serving forward and of train
-steps at 512x256 bs 1 and of a box2mask step at bs 1.
+ 16. two-step demo  (main path 6) the two_step_demo CLI at full width:
+              box2mask restored from phase 14's run, mask2image from phase
+              6's, phase 5's 1024x512 scenes; --edit add, remove and swap,
+              4 edits each, then one add with phase 10's bf16 run as the
+              image stage. Counters zeroed before and read after each run
+              and held per edit pass (a swap is two) to the architecture:
+              the structure generator's 19 IN sites and the image
+              generator's 27, in order and per variant as _fwd_plan picks,
+              one encode at pad 3, every other kernel 0; each stage's
+              inference under its own tier's TF32 switches; outside-box
+              passthrough exactly 0; each gallery complete
+ 17. two-step pipeline  TwoStepPipeline on the same restored stages and
+              scenes, bs 1 and 4, add / remove / swap: ms per edit (host
+              clock, card synchronized), edits/s, peak memory, the plain
+              path's ms; launches per pass as in phase 16; outside-box
+              passthrough exactly 0; the same bits twice (cuDNN restricted
+              to its deterministic algorithms); the kernel path
+              against the plain path (integer maps equal except at pixels
+              whose plain fill's top two probabilities are within
+              TIE_MARGIN, counted; the images within TWO_STEP_ATOL)
+ 18. evaluate (main path 7) the evaluate CLI, --stage box2mask (phase 14's
+              run) and --stage mask2image (phase 6's, VGG19 weights drawn
+              from a seed through --feature_params) over phase 5's scenes,
+              4 samples each: finite values and a positive FID, launches
+              held to 19 IN forwards a crop, and 27 IN forwards and one
+              encode a window; the JSON line each prints
+With --profile: torch.profiler tables of one serving forward, of train
+steps at 512x256 bs 1, of a box2mask step at bs 1 and of a two-step add
+at bs 1.
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 """
@@ -132,8 +159,10 @@ import torch.nn.functional as F
 from neurips18_hierchical_image_manipulation_tpu_torch.cli import (
     box2mask_test,
     box2mask_train,
+    evaluate,
     mask2image_test,
     mask2image_train,
+    two_step_demo,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     BoxToMaskTestOptions,
@@ -141,10 +170,13 @@ from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTestOptions,
     MaskToImageTrainOptions,
 )
+from neurips18_hierchical_image_manipulation_tpu_torch.data.bbox import bboxes_from_instance_map
+from neurips18_hierchical_image_manipulation_tpu_torch.data.cityscapes import AlignedDataset
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
     synthetic_batch,
     synthetic_box2mask_batch,
 )
+from neurips18_hierchical_image_manipulation_tpu_torch.eval.two_step import TwoStepPipeline
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import _build
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
@@ -155,6 +187,12 @@ from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
 from neurips18_hierchical_image_manipulation_tpu_torch.models.box2mask import BoxToMaskModel
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from neurips18_hierchical_image_manipulation_tpu_torch.models.pix2pixhd import Pix2PixHDModel
+from neurips18_hierchical_image_manipulation_tpu_torch.ops.boxcomposite import (
+    box_mask,
+    crop_resize,
+    expand_to_context_window,
+    paste_resize,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.tools import roofline_resblock
 from neurips18_hierchical_image_manipulation_tpu_torch.train import loop as train_loop
 from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
@@ -225,6 +263,14 @@ B2M_ARCH = {}        # generator overrides (empty: the full-width defaults)
 B2M_DEPTH = {"n_downsample_global": 3, "n_blocks_global": 4}
 B2M_STEP_BS = ((1, 10), (16, 4))     # (batch, timed steps) of phase 15
 B2M_PROBS_ATOL = 1e-3                # merged probs after 19 IN sites, full-fp32 convs
+# the two-step pipeline (phase 17): (batch, timed edits); the kernel path
+# against the plain path: the images after both generators, full-fp32
+# convolutions (MODEL_ATOL's bound, through the structure generator's
+# probabilities too); the fill margin below which the two paths may pick
+# either of the top two classes
+TWO_STEP_BS = ((1, 5), (4, 3))
+TWO_STEP_ATOL = MODEL_ATOL
+TIE_MARGIN = 1e-5
 ACTS = ("none", "relu", "lrelu")
 TRAIN_KERNELS = ("encode_cond", "instance_norm_bwd", "mse_to_scalar", "l1_to_scalar",
                  "reflect_pad_bwd")
@@ -417,8 +463,9 @@ def expect_launches(got, want, what):
 @contextlib.contextmanager
 def recording():
     """Record the arguments' shapes of every call of a training kernel's
-    wrapper (a call on a CPU tensor too), by kernel name."""
-    calls = {k: [] for k in ("instance_norm", "loss_group") + TRAIN_KERNELS}
+    wrapper, of the IN forward's and of encode's (a call on a CPU tensor
+    too), by kernel name."""
+    calls = {k: [] for k in ("instance_norm", "loss_group", "encode") + TRAIN_KERNELS}
 
     class Recorder:
         """Stands in for a wrapper; a wrapper finds its own launch counter
@@ -471,7 +518,10 @@ def recording():
             mock.patch.object(klosses, "reduce_group", rec_group), \
             rec(kenc, "encode_cond",
                 lambda label, inst, nc, dtype=torch.float32:
-                (tuple(label.shape), inst is not None, nc, dtype)):
+                (tuple(label.shape), inst is not None, nc, dtype)), \
+            rec(kenc, "encode",
+                lambda label, inst, image, boxes, nc, pad=0, dtype=None:
+                (tuple(label.shape), pad)):
         yield calls
 
 
@@ -1727,6 +1777,434 @@ def phase_b2m_step(dev, results):
     results["box2mask_step"] = dict(rows=rows, kernel_vs_plain=cmp, inference=infer)
 
 
+# ---------------------------------------------------------------- two-step, evaluate
+
+def b2m_generator_sites(bs, s, ngf=64, n_down=3, n_blocks=4):
+    """(shape, act, residual?) of every IN site of one structure-generator
+    forward, in order: stem, downs, cls_norm, 2 per resblock, then each
+    decoder's ups (19 at full width)."""
+    sites = [((bs, s, s, ngf), "relu", False)]
+    sites += [((bs, s >> i, s >> i, ngf << i), "relu", False) for i in range(1, n_down + 1)]
+    mid = (bs, s >> n_down, s >> n_down, ngf << n_down)
+    sites.append((mid, "none", False))
+    for _ in range(n_blocks):
+        sites += [(mid, "relu", False), (mid, "none", True)]
+    ups = [((bs, s >> i, s >> i, ngf << i), "relu", False) for i in range(n_down - 1, -1, -1)]
+    return sites + ups + ups
+
+
+def stage_sites(model, bs=1):
+    """The IN calls of one generator forward of a stage at its fineSize, as
+    the recording describes them (fp32)."""
+    g, s = model.netG, model.opt.fineSize
+    if isinstance(model, BoxToMaskModel):
+        sites = b2m_generator_sites(bs, s, g.enc_in.weight.shape[0], g.n_downsampling,
+                                    g.n_blocks)
+    else:
+        sites = generator_sites(bs, s, s, g.conv_in.weight.shape[0], g.n_downsampling,
+                                g.n_blocks)
+    return [(shape, torch.float32, act, res) for shape, act, res in sites]
+
+
+def expect_path_launches(calls, launches, in_sites, encodes, what):
+    """A path's launches held to what its architecture reckons: the IN
+    forward at `in_sites` (in order, and per variant as
+    kernels/instance_norm._fwd_plan picks), encode at `encodes` ((label
+    shape, pad) each), every other kernel 0."""
+    if calls["instance_norm"] != in_sites:
+        raise AssertionError(f"{what}: IN calls off the architecture "
+                             f"({len(calls['instance_norm'])} against {len(in_sites)})")
+    if calls["encode"] != encodes:
+        raise AssertionError(f"{what}: encode calls {calls['encode']}, expected {encodes}")
+    expect_launches(launches, dict({k: 0 for k in launches}, encode=len(encodes),
+                                   instance_norm=len(in_sites)), what)
+    variants = read_variants()
+    expect_launches(variants["instance_norm"], plan_variants("instance_norm", in_sites),
+                    f"{what}, IN variants")
+    return variants
+
+
+def add_paths(total, launches, variants):
+    """Sum one CLI run's launches and variants into a path's totals."""
+    for k, n in launches.items():
+        total["launches"][k] = total["launches"].get(k, 0) + n
+    for k, c in variants.items():
+        mine = total["variants"].setdefault(k, {v: 0 for v in c})
+        for v, n in c.items():
+            mine[v] += n
+
+
+def tf32_now():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def two_step_runs_dir(tmp):
+    """One checkpoints directory holding the runs the demo reads: phase
+    14's box2mask run, phases 6's and 10's mask2image runs (links)."""
+    runs = os.path.join(tmp, "ckpt_two_step")
+    os.makedirs(runs, exist_ok=True)
+    for src in (os.path.join(tmp, "ckpt_b2m", "smoke_b2m"), os.path.join(tmp, "ckpt", "smoke_train"),
+                os.path.join(tmp, "ckpt_bf16", "smoke_bf16")):
+        os.symlink(src, os.path.join(runs, os.path.basename(src)))
+    return runs
+
+
+def outside_passthrough(out, image, label, inst, box_list):
+    """Max |output - input| outside the union of the edit's boxes, over the
+    completed label, the edited instance map and the edited image (on the
+    card; 0 is a bit-exact passthrough)."""
+    inside = sum(box_mask(b, label.shape[1:3])[..., 0] for b in box_list) > 0
+    worst = 0.0
+    for key, ref in (("completed_label", label), ("edited_inst", inst),
+                     ("edited_image", image)):
+        d = (out[key].to(torch.float64) - ref.to(torch.float64)).abs()
+        if d.dim() == 4:
+            d = d.amax(-1)
+        worst = max(worst, d[~inside].max().item() if (~inside).any() else 0.0)
+    return worst
+
+
+def phase_two_step_cli(tmp, results):
+    """Phase 16, main path 6: the port's two_step_demo CLI at full width on
+    the card, restoring phase 14's box2mask run and phase 6's mask2image run
+    (then phase 10's bf16 run), over phase 5's scenes; add, remove and swap
+    with 4 edits each, then one add with the bf16 stage."""
+    runs = two_step_runs_dir(tmp)
+    total = {"launches": {}, "variants": {}}
+    rows = []
+    orig_create = two_step_demo.create_model
+    orig_manip = TwoStepPipeline.manipulate
+    for edit, m2i_name in (("add", "smoke_train"), ("remove", "smoke_train"),
+                           ("swap", "smoke_train"), ("add", "smoke_bf16")):
+        models, seen, bad = [], [], []
+
+        def create_and_keep(opt):
+            models.append(orig_create(opt))
+            return models[-1]
+
+        def spy_b2m(self, batch, return_ctx=False):
+            seen.append(("b2m", tf32_now()))
+            return orig_b2m(self, batch, return_ctx)
+
+        def spy_m2i(self, batch):
+            seen.append(("m2i", tf32_now()))
+            return orig_m2i(self, batch)
+
+        def checked(self, image, label, inst, boxes, cls, mode="add"):
+            out = orig_manip(self, image, label, inst, boxes, cls, mode)
+            if not torch.isfinite(out["edited_image"]).all():
+                bad.append("non-finite edited image")
+            if outside_passthrough(out, image, label, inst, [boxes]) != 0.0:
+                bad.append("outside-box passthrough")
+            return out
+
+        orig_b2m, orig_m2i = BoxToMaskModel.inference, Pix2PixHDModel.inference
+        name = f"demo_{edit}_{m2i_name}"
+        argv = ["--name", name, "--b2m_name", "smoke_b2m", "--m2i_name", m2i_name,
+                "--checkpoints_dir", runs, "--results_dir", os.path.join(tmp, "results_two_step"),
+                "--dataroot", os.path.join(tmp, "city"), "--edit", edit, "--how_many", "4",
+                "--loadSize", str(DATAROOT_HW[1]), "--gpu_ids", GPU_IDS]
+        out = io.StringIO()
+        zero_launches()
+        t = time.time()
+        with recording() as calls, contextlib.redirect_stdout(out), \
+                mock.patch.object(two_step_demo, "create_model", create_and_keep), \
+                mock.patch.object(BoxToMaskModel, "inference", spy_b2m), \
+                mock.patch.object(Pix2PixHDModel, "inference", spy_m2i), \
+                mock.patch.object(TwoStepPipeline, "manipulate", checked):
+            done = two_step_demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        text = out.getvalue()
+        log(text.rstrip())
+        launches = read_launches()
+        b2m, m2i = models
+        if bad:
+            raise AssertionError(f"two-step demo {edit}: {sorted(set(bad))}")
+        if done != 4 or text.count("adopted architecture") != 2 or \
+                text.count("restored checkpoint 'latest'") != 2 or "partial load" in text:
+            raise AssertionError(f"two-step demo {edit} {m2i_name}: {done} edits; {text!r}")
+        passes = done * (2 if edit == "swap" else 1)
+        ms = m2i.opt.fineSize
+        variants = expect_path_launches(
+            calls, launches, (stage_sites(b2m) + stage_sites(m2i)) * passes,
+            [((1, ms, ms), 3)] * passes, f"two-step demo {edit} {m2i_name}")
+        # each stage's inference under its own tier's TF32 switches
+        tier = {"b2m": b2m.conv_precision_resolved == "default",
+                "m2i": m2i.conv_precision_resolved == "default"}
+        wrong = [(k, v) for k, v in seen if v != (tier[k], tier[k])]
+        if len(seen) != 2 * passes or wrong:
+            raise AssertionError(f"two-step demo {edit} {m2i_name}: TF32 seen {wrong}, tiers {tier}")
+        with open(os.path.join(tmp, "results_two_step", name, "index.html")) as f:
+            html = f.read()
+        if html.count("<h3>") != done or html.count("completed_label") < done or \
+                len(os.listdir(os.path.join(tmp, "results_two_step", name, "images"))) != 4 * done:
+            raise AssertionError(f"two-step demo {edit}: gallery incomplete")
+        add_paths(total, launches, variants)
+        row = dict(edit=edit, m2i=m2i_name, edits=done, passes=passes, wall_s=wall,
+                   launches=launches, in_variants=variants["instance_norm"],
+                   precision={"b2m": b2m.conv_precision_resolved,
+                              "m2i": m2i.conv_precision_resolved},
+                   tf32_seen=sorted(set(seen)), m2i_window=ms, b2m_crop=b2m.opt.fineSize)
+        rows.append(row)
+        log(f"[two-step demo] {row}")
+        del models, b2m, m2i
+        torch.cuda.empty_cache()
+    results["two_step_cli"] = dict(runs=rows, **total)
+    return total["launches"], total["variants"]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms (the transposed
+    convolutions' data-gradient algorithms otherwise may sum in another
+    order from one call to the next); the port's kernels and ops are
+    deterministic either way."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def host_ms(fn, iters):
+    """Host-clock ms a call of fn() over iters calls, the card synchronized
+    before and after (warmed up by the caller)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def edit_fills(pipe):
+    """Context manager: the fill probabilities (merged, or the context
+    stream's under the null class) and box masks of every structure-
+    generator call of the pipeline, in order."""
+    fills = []
+    orig = pipe.b2m.inference
+
+    def spy(batch, return_ctx=False):
+        merged, obj, ctx = orig(batch, return_ctx=True)
+        fills.append((torch.where(batch["cls"][:, None, None, None] < 0, ctx, merged),
+                      batch["boxmask"]))
+        return merged, obj, ctx
+
+    return fills, mock.patch.object(pipe.b2m, "inference", spy)
+
+
+def near_tie_masks(pipe, fills, box_list, hw):
+    """The pixels whose fill the plain path's top two probabilities decide
+    by less than TIE_MARGIN, per pass: in its window, in the full map
+    (through the window layout's nearest paste) and in the image
+    generator's window (its nearest crop); unions over the passes of an
+    edit (a swap's remove pass feeds its add pass)."""
+    near = {"window": None, "full": None, "m2i": None}
+    full = torch.zeros((box_list[0].shape[0], *hw), dtype=torch.bool, device=box_list[0].device)
+    ms = pipe.m2i_size
+    for (fill, boxmask), boxes in zip(fills, box_list):
+        windows = expand_to_context_window(boxes, hw, pipe.margin, out_size=pipe.crop_size)
+        top2 = fill.topk(2, dim=-1).values
+        win = ((top2[..., 0] - top2[..., 1]) < TIE_MARGIN) & (boxmask[..., 0] > 0)
+        pasted = paste_resize(torch.zeros((*full.shape, 1), device=full.device),
+                              win[..., None].float(), windows, method="nearest")[..., 0]
+        full = full | ((pasted > 0) & (box_mask(boxes, hw)[..., 0] > 0))
+        near["window"] = win
+        near["m2i"] = crop_resize(full[..., None].float(), windows, (ms, ms),
+                                  method="nearest")[..., 0] > 0
+    near["full"] = full
+    return near
+
+
+def compare_edit(out, ref, near, what):
+    """The kernel path's edit against the plain path's: the integer maps
+    equal except at near-tie pixels, the windows equal; the images within
+    TWO_STEP_ATOL where no near-tie pixel flipped (a flipped label changes
+    the image generator's input). -> (near-tie pixels, flipped pixels,
+    max |image diff| or None)."""
+    allowed = {"completed_label": near["full"], "edited_inst": near["full"],
+               "window_layout": near["window"], "window_inst": near["m2i"]}
+    flipped = 0
+    for key, ok in allowed.items():
+        differ = out[key] != ref[key]
+        if (differ & ~ok).any():
+            raise AssertionError(f"{what}: {key} differs at {(differ & ~ok).sum().item()} "
+                                 "pixels off the near ties")
+        flipped += differ.sum().item()
+    if not torch.equal(out["windows"], ref["windows"]):
+        raise AssertionError(f"{what}: windows differ")
+    count = int(near["full"].sum().item())
+    if flipped:
+        return count, flipped, None
+    err = max((out[k] - ref[k]).abs().max().item()
+              for k in ("edited_image", "window_rgb", "object_mask"))
+    if err > TWO_STEP_ATOL:
+        raise AssertionError(f"{what}: kernel vs plain max|diff| {err}")
+    return count, flipped, err
+
+
+def load_scenes(root, n):
+    """The first n scenes of a dataroot at full size, with each scene's
+    first object box (data/bbox.bboxes_from_instance_map, min size 16), as
+    the demo takes them."""
+    opt = MaskToImageTestOptions(dataroot=root, resize_or_crop="scale_width",
+                                 loadSize=DATAROOT_HW[1])
+    ds = AlignedDataset(opt)
+    scenes = [ds[i] for i in range(n)]
+    boxes = [bboxes_from_instance_map(s["inst"], min_size=16)[0]["bbox"] for s in scenes]
+    return ({k: np.stack([s[k] for s in scenes]) for k in ("image", "label", "inst")},
+            np.asarray(boxes, np.float32))
+
+
+def phase_two_step_pipeline(tmp, dev, results):
+    """Phase 17: TwoStepPipeline on the full-width stages restored from
+    phases 14 and 6, over phase 5's scenes, bs 1 and 4, add / remove /
+    swap: ms per edit, edits/s, peak memory; the outside-box passthrough;
+    the kernel path against the plain path; the same bits twice (cuDNN
+    deterministic)."""
+    b2m = create_model(BoxToMaskTestOptions(gpu_ids=GPU_IDS, name="smoke_b2m",
+                                            checkpoints_dir=os.path.join(tmp, "ckpt_b2m"),
+                                            **{**B2M_DEPTH, **B2M_ARCH}))
+    m2i = create_model(MaskToImageTestOptions(gpu_ids=GPU_IDS, name="smoke_train",
+                                              checkpoints_dir=os.path.join(tmp, "ckpt"), **ARCH))
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        if not (restore_params(b2m.opt, b2m) and restore_params(m2i.opt, m2i)):
+            raise AssertionError("two-step stages: a checkpoint is missing")
+    if "partial load" in out.getvalue():
+        raise AssertionError(f"two-step stages: {out.getvalue()!r}")
+    pipe = TwoStepPipeline(b2m, m2i)
+    host, host_boxes = load_scenes(os.path.join(tmp, "city"), 4)
+    rows, ties = [], []
+    for bs, iters in TWO_STEP_BS:
+        image, label, inst = (torch.from_numpy(host[k][:bs]).to(dev)
+                              for k in ("image", "label", "inst"))
+        old = torch.from_numpy(host_boxes[:bs]).to(dev)
+        new = old.clone()
+        new[:, 1] += 50.0
+        cls = torch.full((bs,), 26, dtype=torch.int32, device=dev)
+        edits = {"add": (lambda: pipe.add_object(image, label, inst, old, cls), [old]),
+                 "remove": (lambda: pipe.remove_object(image, label, inst, old), [old]),
+                 "swap": (lambda: pipe.swap_object(image, label, inst, old, new, cls),
+                          [old, new])}
+        for mode, (run, box_list) in edits.items():
+            passes = len(box_list)
+            zero_launches()
+            with recording() as calls:
+                got = run()
+                torch.cuda.synchronize()
+            expect_path_launches(calls, read_launches(),
+                                 (stage_sites(b2m, bs) + stage_sites(m2i, bs)) * passes,
+                                 [((bs, pipe.m2i_size, pipe.m2i_size), 3)] * passes,
+                                 f"two-step {mode} bs {bs}")
+            with cudnn_deterministic():
+                first, again = run(), run()
+            torch.cuda.synchronize()
+            if not all(same_bits(v.float(), again[k].float()) for k, v in first.items()):
+                raise AssertionError(f"two-step {mode} bs {bs}: two runs differ")
+            passthrough = outside_passthrough(got, image, label, inst, box_list)
+            if passthrough != 0.0:
+                raise AssertionError(f"two-step {mode} bs {bs}: outside the box {passthrough}")
+            fills, spy = edit_fills(pipe)
+            with plain_path(), spy:
+                ref = run()
+            near = near_tie_masks(pipe, fills, box_list, tuple(label.shape[1:3]))
+            count, flipped, err = compare_edit(got, ref, near, f"two-step {mode} bs {bs}")
+            ties.append(dict(mode=mode, bs=bs, near_tie_pixels=count, flipped_pixels=flipped))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(run, iters)
+            peak = torch.cuda.max_memory_allocated()
+            with plain_path():
+                plain = host_ms(run, max(1, iters // 2))
+            row = dict(mode=mode, bs=bs, passes=passes, ms_per_edit_batch=ms,
+                       ms_per_edit=ms / bs, edits_per_s=bs * 1e3 / ms, plain_ms_per_edit_batch=plain,
+                       peak_mem_bytes=peak, max_abs_diff_vs_plain=err, near_tie_pixels=count,
+                       flipped_pixels=flipped, outside_box_max_abs=passthrough,
+                       windows=[[float(v) for v in w] for w in got["windows"].tolist()])
+            rows.append(row)
+            log(f"[two-step pipeline] {row}")
+    del pipe, b2m, m2i
+    torch.cuda.empty_cache()
+    results["two_step_pipeline"] = dict(rows=rows, near_ties=ties,
+                                        precision="highest (fp32, TF32 off)")
+
+
+def vgg_feature_params(path, seed=0):
+    """VGG19 weights in the layout the evaluators read
+    (``params/conv{b}_{c}/{kernel,bias}``, HWIO kernels), drawn at He scale
+    from a seed, so that relu5_1 stays O(1) through the 13 convolutions it
+    runs (the seeded init's N(0, 0.02) leaves it near zero and the FID of
+    near-zero features at the eps floor)."""
+    rng = np.random.RandomState(seed)
+    flat, cin = {}, 3
+    for b, widths in enumerate(networks.Vgg19Features.CFG):
+        for c, width in enumerate(widths):
+            flat[f"params/conv{b + 1}_{c + 1}/kernel"] = (
+                rng.randn(3, 3, cin, width) * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+            flat[f"params/conv{b + 1}_{c + 1}/bias"] = np.zeros(width, np.float32)
+            cin = width
+    np.savez(path, **flat)
+    return path
+
+
+def phase_evaluate_cli(tmp, results):
+    """Phase 18, main path 7: the port's evaluate CLI on the card, both
+    stages, from phases 14's and 6's checkpoints over phase 5's scenes, 4
+    samples each (mask2image with seeded VGG weights through
+    --feature_params): box2mask 19 IN forwards a crop, mask2image 27 and
+    one encode a window; finite values, a positive FID; the JSON line each
+    prints."""
+    total = {"launches": {}, "variants": {}}
+    rows = []
+    orig_create = evaluate.create_model
+    vgg = vgg_feature_params(os.path.join(tmp, "vgg_features.npz"))
+    for stage, name, ckpt, extra in (
+            ("box2mask", "smoke_b2m", "ckpt_b2m", flags({**B2M_DEPTH, **B2M_ARCH})),
+            ("mask2image", "smoke_train", "ckpt", ["--feature_params", vgg, *ARCH_ARGV])):
+        models = []
+
+        def create_and_keep(opt):
+            models.append(orig_create(opt))
+            return models[-1]
+
+        out = io.StringIO()
+        zero_launches()
+        t = time.time()
+        with recording() as calls, contextlib.redirect_stdout(out), \
+                mock.patch.object(evaluate, "create_model", create_and_keep):
+            res = evaluate.main(["--stage", stage, "--name", name, "--dataroot",
+                                 os.path.join(tmp, "city"), "--checkpoints_dir",
+                                 os.path.join(tmp, ckpt), "--gpu_ids", GPU_IDS, "--how_many", "4",
+                                 *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        text = out.getvalue()
+        log(text.rstrip())
+        (model,) = models
+        n = res["samples"]
+        if "restored checkpoint 'latest'" not in text or "partial load" in text or n != 4:
+            raise AssertionError(f"evaluate {stage}: {text!r}")
+        values = [v for k, v in res.items() if k not in ("metric", "samples")]
+        if not all(np.isfinite(v) for v in values) or (stage == "mask2image" and res["value"] <= 0):
+            raise AssertionError(f"evaluate {stage}: {res}")
+        encodes = [] if stage == "box2mask" else [((1, model.opt.fineSize, model.opt.fineSize), 3)] * n
+        variants = expect_path_launches(calls, read_launches(), stage_sites(model) * n, encodes,
+                                        f"evaluate {stage}")
+        launches = read_launches()
+        add_paths(total, launches, variants)
+        row = dict(stage=stage, result=res, wall_s=wall, samples=n, launches=launches,
+                   in_variants=variants["instance_norm"],
+                   json_line=next(l for l in text.splitlines() if l.startswith("{")))
+        rows.append(row)
+        log(f"[evaluate] {row}")
+        del models, model
+        torch.cuda.empty_cache()
+    results["evaluate_cli"] = dict(runs=rows, **total)
+    return total["launches"], total["variants"]
+
+
 SOURCES = {
     "encode_cond": ("csrc/encode.cu", "ops/pallas/encode.py:104"),
     "instance_norm_bwd": ("csrc/instance_norm.cu", "ops/pallas/instance_norm.py:195"),
@@ -1799,13 +2277,40 @@ def kernel_kind(name):
     return "other"
 
 
+def profile_by_kind(fn, n, tag, host_ms_each, results):
+    """Device time by kernel over n calls of fn (warmed up by the caller),
+    grouped by kind, against the unprofiled host-clock ms of one call; the
+    idle share is 1 - device / host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
+    log(table)
+    kinds = {}
+    for e in avgs:
+        if e.device_type == DeviceType.CUDA:  # kernel rows only: no double count
+            us = getattr(e, "self_device_time_total", 0) / n
+            kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + us / 1e3
+    dev_ms = sum(kinds.values())
+    kinds = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
+    idle = max(0.0, 1 - dev_ms / host_ms_each)
+    log(f"[{tag}] device ms per call by kind: "
+        f"{ {k: round(v, 4) for k, v in kinds.items()} }")
+    log(f"[{tag}] device busy {dev_ms:.3f} ms per call; unprofiled {host_ms_each:.3f} ms; "
+        f"idle share {idle:.3f}")
+    results[tag.replace(" ", "_")] = dict(table=table, device_ms=dev_ms, by_kind=kinds,
+                                          unprofiled_ms=host_ms_each, idle_share=idle)
+
+
 def phase_profile_train(dev, results, bf16=False, b2m=False):
     """Device time by kernel over train steps at STEP_HW bs 1 (fp32, or the
     bf16 tier), or box2mask's fp32 step at bs 1, grouped by kind; the idle
     share is that of the unprofiled step (phase 8, 12 or 15)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     if b2m:
         opt = BoxToMaskTrainOptions(gpu_ids=GPU_IDS, lambda_ctx_neg=5.0, **B2M_ARCH)
         batch = b2m_batch(1, dev, seed=12)
@@ -1819,32 +2324,34 @@ def phase_profile_train(dev, results, bf16=False, b2m=False):
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step(state, batch)
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
-    log(table)
-    kinds = {}
-    for e in avgs:
-        if e.device_type == DeviceType.CUDA:  # kernel rows only: no double count
-            us = getattr(e, "self_device_time_total", 0) / n
-            kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + us / 1e3
-    dev_ms = sum(kinds.values())
     step_ms = (results["box2mask_step"]["rows"][0] if b2m else results["step_bf16"][0] if bf16
                else results["step"]["rows"][0])["ms_per_step"]
-    kinds = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
     tag = "profile box2mask train" if b2m else "profile train bf16" if bf16 else "profile train"
-    log(f"[{tag}] device ms per step by kind: "
-        f"{ {k: round(v, 4) for k, v in kinds.items()} }")
-    log(f"[{tag}] device busy {dev_ms:.3f} ms per step; unprofiled step "
-        f"{step_ms:.3f} ms; idle share {max(0.0, 1 - dev_ms / step_ms):.3f}")
-    results[tag.replace(" ", "_")] = dict(
-        table=table, device_ms_per_step=dev_ms, by_kind=kinds, unprofiled_step_ms=step_ms,
-        idle_share=max(0.0, 1 - dev_ms / step_ms))
+    profile_by_kind(lambda: step(state, batch), 3, tag, step_ms, results)
     del model
+    torch.cuda.empty_cache()
+
+
+def phase_profile_two_step(dev, results):
+    """Device time by kernel over add edits at bs 1 (the full-width stages
+    at their seeded init, a scene of DATAROOT_HW), grouped by kind; the
+    idle share is that of phase 17's unprofiled add at bs 1."""
+    b2m = create_model(BoxToMaskTestOptions(gpu_ids=GPU_IDS, **{**B2M_DEPTH, **B2M_ARCH}))
+    m2i = create_model(MaskToImageTestOptions(gpu_ids=GPU_IDS, **ARCH))
+    pipe = TwoStepPipeline(b2m, m2i)
+    scene = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        np.random.RandomState(13), 1, hw=DATAROOT_HW, label_nc=35).items()}
+    cls = torch.tensor([26], dtype=torch.int32, device=dev)
+
+    def add():
+        return pipe.add_object(scene["image"], scene["label"], scene["inst"], scene["boxes"], cls)
+
+    for _ in range(2):
+        add()
+    torch.cuda.synchronize()
+    row = next(r for r in results["two_step_pipeline"]["rows"] if r["mode"] == "add" and r["bs"] == 1)
+    profile_by_kind(add, 3, "profile two-step add", row["ms_per_edit_batch"], results)
+    del pipe, b2m, m2i
     torch.cuda.empty_cache()
 
 
@@ -2175,6 +2682,9 @@ def main(argv=None):
         roofline_launches = phase_roofline(tmp, results)
         b2m_launches, b2m_variants, b2m_serve_launches, b2m_serve_variants = phase_b2m_cli(
             tmp, results)
+        two_step_launches, two_step_variants = phase_two_step_cli(tmp, results)
+        phase_two_step_pipeline(tmp, dev, results)
+        eval_launches, eval_variants = phase_evaluate_cli(tmp, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)
     phase_model(dev, results)
@@ -2187,7 +2697,8 @@ def main(argv=None):
     path_variants = {"serving": results["serving"]["all_variants"], "train": cli_variants,
                      "train_bf16_pool": results["train_cli_bf16"]["variants"],
                      "roofline": results["roofline"]["all_variants"],
-                     "box2mask_train": b2m_variants, "box2mask_serving": b2m_serve_variants}
+                     "box2mask_train": b2m_variants, "box2mask_serving": b2m_serve_variants,
+                     "two_step": two_step_variants, "evaluate": eval_variants}
     kernels.append(conv_in_main_path_row(dev, results))
     kernels.append(conv_in_fp32_row(results, path_variants))
     # launches per variant on the main path of the row (the plan functions'
@@ -2206,7 +2717,8 @@ def main(argv=None):
         row["launches_by_path"] = {
             "serving": results["launches"][name], "train": cli_launches[name],
             "train_bf16_pool": bf16_launches[name], "roofline": roofline_launches[name],
-            "box2mask_train": b2m_launches[name], "box2mask_serving": b2m_serve_launches[name]}
+            "box2mask_train": b2m_launches[name], "box2mask_serving": b2m_serve_launches[name],
+            "two_step": two_step_launches[name], "evaluate": eval_launches[name]}
         if name in ("mse_to_scalar", "l1_to_scalar"):
             row["terms_by_path"] = row["launches_by_path"]
             row["launches_by_path"] = {p: v[name]["group"] for p, v in path_variants.items()}
@@ -2215,6 +2727,7 @@ def main(argv=None):
         phase_profile_train(dev, results)
         phase_profile_train(dev, results, bf16=True)
         phase_profile_train(dev, results, b2m=True)
+        phase_profile_two_step(dev, results)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t0
     log(f"[done] {results['seconds']:.1f} s")

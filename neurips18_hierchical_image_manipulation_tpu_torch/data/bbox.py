@@ -25,6 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 from PIL import Image
 
+from ..ops.boxcomposite import context_window_math
 from . import hostops
 from .cityscapes import AlignedDataset
 
@@ -75,22 +76,6 @@ def _scaled_box(bbox, wy0, wx0, wh, ww, s):
     by0 = int(np.clip((y0 - wy0) * sy, 0, s - 1))
     bx0 = int(np.clip((x0 - wx0) * sx, 0, s - 1))
     return by0, bx0, max(int(h * sy), 1), max(int(w * sx), 1)
-
-
-def context_window_math(y0, x0, bh, bw, hw, context_scale, out_size, xp=np):
-    """The context-window rule (``ops.boxcomposite.context_window_math`` of
-    the JAX package): a square window of ``context_scale`` x the box's max
-    side, floored at ``max(out_size/8, 8)``, centered, clipped to the
-    image, integer-floored like the host crop indices."""
-    cy = y0 + bh / 2.0
-    cx = x0 + bw / 2.0
-    min_side = max(float(out_size) / 8.0, 8.0)
-    side = xp.maximum(xp.maximum(bh, bw) * context_scale, min_side)
-    side_h = xp.minimum(side, float(hw[0]))
-    side_w = xp.minimum(side, float(hw[1]))
-    wy0 = xp.floor(xp.clip(cy - side_h / 2.0, 0.0, hw[0] - side_h))
-    wx0 = xp.floor(xp.clip(cx - side_w / 2.0, 0.0, hw[1] - side_w))
-    return wy0, wx0, xp.floor(side_h), xp.floor(side_w)
 
 
 def _context_window(bbox, hw, margin, out_size):

@@ -4,6 +4,8 @@ resolves the device and the numeric precision, then builds the model
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -33,15 +35,33 @@ def resolve_precision(opt) -> str:
     return prec
 
 
+def _set_tf32(allow: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@contextlib.contextmanager
+def precision_scope(model):
+    """Run a block under the precision ``model`` was created with, then put
+    the caller's TF32 switches back: the switches are process-wide, so two
+    models of different tiers in one process (the two stages of the
+    two-step pipeline) each need their own around their inference."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    _set_tf32(model.conv_precision_resolved == "default")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def create_model(opt):
     # 'highest' keeps fp32 convolutions and matmuls in full fp32: cuDNN
     # would otherwise run fp32 convolutions in TF32 (about three decimal
     # digits). 'default' allows TF32, the counterpart of the JAX package's
-    # Precision.DEFAULT tier. These are process-wide switches.
+    # Precision.DEFAULT tier. These are process-wide switches
+    # (precision_scope re-pins them for one model).
     prec = resolve_precision(opt)
-    tf32 = prec == "default"
-    torch.backends.cudnn.allow_tf32 = tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
+    _set_tf32(prec == "default")
     # --no_pallas is accepted and changes nothing here: it selected the JAX
     # package's lax fallbacks over its TPU kernels, while on the card every
     # ported kernel IS the path (the plain versions serve CPU tensors only).

@@ -49,7 +49,9 @@ def test_port_imports_no_jax(tmp_path):
      f"{PORT}.cli.mask2image_train", f"{PORT}.kernels.losses", f"{PORT}.kernels.reflect_pad",
      f"{PORT}.kernels.conv_in", f"{PORT}.tools.roofline_resblock", f"{PORT}.train.loop",
      f"{PORT}.utils.checkpoint", f"{PORT}.utils.image_pool", f"{PORT}.cli.box2mask_train",
-     f"{PORT}.cli.box2mask_test", f"{PORT}.models.box2mask", f"{PORT}.losses.layout"],
+     f"{PORT}.cli.box2mask_test", f"{PORT}.models.box2mask", f"{PORT}.losses.layout",
+     f"{PORT}.cli.two_step_demo", f"{PORT}.cli.evaluate", f"{PORT}.eval.two_step",
+     f"{PORT}.eval.metrics"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

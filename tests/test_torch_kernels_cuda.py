@@ -640,3 +640,72 @@ def test_conv_in_gradient_matches_plain(cuda_device, restore_torch_precision):
         grads.append(torch.autograd.grad(y, (x, w3, b, r), gy))
     for a, p in zip(*grads):
         torch.testing.assert_close(a, p, atol=1e-4, rtol=1e-4)
+
+
+def test_two_step_kernel_path_matches_plain(cuda_device, restore_torch_precision, monkeypatch):
+    """The two-step pipeline at a small width, add / remove / swap, through
+    the kernels (each edit: the two generators' IN sites, 1 encode at pad
+    3) against the plain path: the integer maps equal (the seeded scene's
+    fills have no near-tie: top two probabilities at least 1e-5 apart), the
+    images within 1e-3, outside the box the input passed through exactly,
+    and the same bits on a second run (cuDNN deterministic)."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
+        BoxToMaskTestOptions,
+    )
+    from neurips18_hierchical_image_manipulation_tpu_torch.eval.two_step import TwoStepPipeline
+    from neurips18_hierchical_image_manipulation_tpu_torch.ops import boxcomposite
+
+    arch = dict(gpu_ids="0", label_nc=8, ngf=16, n_downsample_global=2, n_blocks_global=1)
+    b2m = create_model(BoxToMaskTestOptions(fineSize=32, **arch))
+    m2i = create_model(MaskToImageTestOptions(fineSize=64, **arch))
+    pipe = TwoStepPipeline(b2m, m2i)
+    scene = synthetic_batch(np.random.RandomState(7), 1, hw=(96, 160), label_nc=8)
+    image, label, inst = (torch.from_numpy(scene[k]).to(cuda_device)
+                          for k in ("image", "label", "inst"))
+    old = torch.tensor([[20.0, 30.0, 30.0, 40.0]], device=cuda_device)
+    new = torch.tensor([[40.5, 90.25, 26.0, 33.5]], device=cuda_device)
+    cls = torch.tensor([6], dtype=torch.int32, device=cuda_device)
+    edits = {"add": (lambda: pipe.add_object(image, label, inst, new, cls), [new]),
+             "remove": (lambda: pipe.remove_object(image, label, inst, old), [old]),
+             "swap": (lambda: pipe.swap_object(image, label, inst, old, new, cls), [old, new])}
+    per_edit = (2 + 3 * 2 + 2 * 1) + (1 + 2 * 2 + 2 * 1)
+    fills = []
+    orig = b2m.inference
+
+    def spy(batch, return_ctx=False):
+        merged, obj, ctx = orig(batch, return_ctx=True)
+        fills.append(torch.where(batch["cls"][:, None, None, None] < 0, ctx, merged))
+        return merged, obj, ctx
+
+    monkeypatch.setattr(b2m, "inference", spy)
+    # the same bits twice with cuDNN's deterministic algorithms (its
+    # transposed-conv algorithms may otherwise sum in another order)
+    torch.backends.cudnn.deterministic = True
+    got = {}
+    for name, (run, boxes) in edits.items():
+        e0, i0 = kenc.encode.launches, kin.instance_norm.launches
+        out, again = run(), run()
+        assert kenc.encode.launches - e0 == 2 * len(boxes)
+        assert kin.instance_norm.launches - i0 == 2 * len(boxes) * per_edit
+        for k, v in out.items():
+            assert bits_equal(v.float(), again[k].float()), (name, k)
+        got[name] = out
+    with monkeypatch.context() as m:
+        m.setattr(kenc, "encode", kenc.encode_plain)
+        m.setattr(kin, "instance_norm", kin.instance_norm_plain)
+        fills.clear()
+        want = {name: run() for name, (run, _) in edits.items()}
+    torch.cuda.synchronize()
+    for f in fills:
+        top2 = f.topk(2, dim=-1).values
+        assert ((top2[..., 0] - top2[..., 1]) >= 1e-5).all()
+    for name, (_, boxes) in edits.items():
+        out, ref = got[name], want[name]
+        for k in ("completed_label", "edited_inst", "window_layout", "window_inst", "windows"):
+            assert torch.equal(out[k], ref[k]), (name, k)
+        for k in ("edited_image", "window_rgb", "object_mask"):
+            assert torch.isfinite(out[k]).all()
+            assert (out[k] - ref[k]).abs().max().item() <= 1e-3, (name, k)
+        inside = sum(boxcomposite.box_mask(b, label.shape[1:3])[..., 0] for b in boxes) > 0
+        assert torch.equal(out["edited_image"][~inside], image[~inside])
+        assert torch.equal(out["completed_label"][~inside], label[~inside])
