@@ -1,10 +1,11 @@
 """Drive the PyTorch port's mask2image and box2mask serving and training
-paths, the two-step edit pipeline and the evaluators on one CUDA card.
+paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
+generator and the instance features on one CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
-Phases, run in the order 1-4, 9, 13, 5, 6, 10, 11, 14, 16, 17, 18, 7, 8,
-12, 15 (any failure raises and the script exits non-zero):
+Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
+22, 7, 8, 12, 15, 21 (any failure raises and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source, all at once) and prints the -Xptxas -v register/smem
@@ -131,9 +132,48 @@ Phases, run in the order 1-4, 9, 13, 5, 6, 10, 11, 14, 16, 17, 18, 7, 8,
               4 samples each: finite values and a positive FID, launches
               held to 19 IN forwards a crop, and 27 IN forwards and one
               encode a window; the JSON line each prints
+ 19. 1024p kernels  rows 1, 2 and 4-7 at the 1024p shapes: the calls one
+              full-width LocalEnhancer train step at 1024x512 makes (the
+              1024p recipe: ngf 32, its trunk at 64 with 4 downs and 9
+              resblocks at 1024 channels, one enhancer of 3 resblocks, D of
+              3 scales of 3 layers), recorded at bs 1 and 2, fp32 and bf16,
+              each held to the architecture's count; each distinct call
+              against its plain version on the variant its plan picks, the
+              same bits twice (the encodes bit-exact); the bs-1 fp32 step's
+              calls timed beside the bound and the library call, row 2 (the
+              pad-0 encode) at (1, 512, 1024) among them
+ 20. 1024p CLIs  (main path 8) the train CLI with the recipe's flags,
+              --load_pretrain from phase 6's run, --niter_fix_global 1, two
+              epochs at bs 1 over phase 6's scenes: counters zeroed before
+              and read after, held per step (IN 54 + 54, one pad-0 encode,
+              25 pad backward, 9 MSE and 17 L1 terms in 2 + 2 launches) and
+              per variant to the plans; load_pretrain's counts against the
+              architecture's (75 loaded, 29 kept); every trunk parameter
+              bit-for-bit the pretrained one after each step of epoch 1 and
+              moved after the first of epoch 2; every loss finite. Then the
+              serving CLI --netG local from its latest over phase 5's
+              scenes: "restored checkpoint 'latest'", no partial load, the
+              gallery, 36 IN forwards and one pad-0 encode a window
+ 21. 1024p step  make_train_step on the LocalEnhancer at 1024x512 (the step
+              of tools/bench_1024p.py), bs 1 fp32 and bs 4 bf16: ms/step,
+              images/s, peak memory, per-step launches per kernel and
+              variant, the plain path's ms; the fp32 step's kernel path
+              against its plain path (compare_step); inference at 1024x512
+              fp32, bs 1 and 4, against the plain path within MODEL_ATOL
+ 22. instance features  (main path 9) the train CLI with --instance_feat
+              (phase 6's GlobalGenerator, the Encoder at nef 16, 4 downs,
+              feat_num 3), one epoch at bs 1: held per step to the counts
+              with the Encoder's 9 + 9 IN sites and its pads (21 pad
+              backward, the 42-channel stem's on the gather variant); the
+              port's encode_features over the same scenes to a (35, 10, 3)
+              clusters npy; the serving CLI with --cluster_path (4 windows,
+              no partial load, 27 IN and one pad-0 encode a window);
+              precompute_feature_maps, then one epoch of --load_features
+              over the aligned scenes; counters zeroed before and read after
+              each run
 With --profile: torch.profiler tables of one serving forward, of train
-steps at 512x256 bs 1, of a box2mask step at bs 1 and of a two-step add
-at bs 1.
+steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
+1 and of a two-step add at bs 1.
 The last two lines of standard output are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 """
@@ -187,20 +227,28 @@ from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
 from neurips18_hierchical_image_manipulation_tpu_torch.models.box2mask import BoxToMaskModel
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from neurips18_hierchical_image_manipulation_tpu_torch.models.pix2pixhd import Pix2PixHDModel
+from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
 from neurips18_hierchical_image_manipulation_tpu_torch.ops.boxcomposite import (
     box_mask,
     crop_resize,
     expand_to_context_window,
     paste_resize,
 )
-from neurips18_hierchical_image_manipulation_tpu_torch.tools import roofline_resblock
+from neurips18_hierchical_image_manipulation_tpu_torch.tools import (
+    encode_features,
+    precompute_feature_maps,
+    roofline_resblock,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.train import loop as train_loop
 from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
 from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import (
     _loss_inputs,
     make_train_step,
 )
-from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import restore_params
+from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import (
+    params_from_jax,
+    restore_params,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.utils.visualizer import Visualizer
 
 PKG = "neurips18_hierchical_image_manipulation_tpu_torch"
@@ -271,6 +319,23 @@ B2M_PROBS_ATOL = 1e-3                # merged probs after 19 IN sites, full-fp32
 TWO_STEP_BS = ((1, 5), (4, 3))
 TWO_STEP_ATOL = MODEL_ATOL
 TIE_MARGIN = 1e-5
+# the 1024p recipe (scripts/train_mask2image_city_1024p.sh): the LocalEnhancer
+# at ngf 32 (its trunk at 64: 4 downs, 9 resblocks at 1024 channels), one
+# enhancer of 3 resblocks; D of 3 scales of 3 layers; steps at 1024x512, the
+# shape of tools/bench_1024p.py: (batch, dtype, timed steps), inference
+# (batch, timed forwards)
+LOCAL_G = {"netG": "local", "ngf": 32, "n_local_enhancers": 1, "n_blocks_local": 3}
+LOCAL_D = {"num_D": 3, "n_layers_D": 3}
+LOCAL_ARGV = ["--loadSize", "1024", "--fineSize", "512"]   # the train CLI's windows
+HW_1024 = (512, 1024)
+LOCAL_STEP_BS = ((1, "float32", 6), (4, "bfloat16", 3))
+LOCAL_INFER_BS = ((1, 5), (4, 2))
+# pix2pixHD's --instance_feat on the GlobalGenerator flagship
+FEAT = {"instance_feat": True, "feat_num": 3, "nef": 16, "n_downsample_E": 4}
+FEAT_ARGV = ["--instance_feat", *(a for k, v in FEAT.items() if k != "instance_feat"
+                                  for a in (f"--{k}", str(v)))]
+FEAT_STEP_HW = (512, 512)   # the train CLI's windows (fineSize)
+SEG_FP32_ATOL = 1e-5        # an fp32 segment mean against the fp64 one, values in [-1, 1]
 ACTS = ("none", "relu", "lrelu")
 TRAIN_KERNELS = ("encode_cond", "instance_norm_bwd", "mse_to_scalar", "l1_to_scalar",
                  "reflect_pad_bwd")
@@ -403,7 +468,10 @@ def zero_launches():
 
 
 def plan_variant(kind, call):
-    """The variant the kernel's plan picks for one recorded call."""
+    """The variant the kernel's plan picks for one recorded call (encode:
+    its pad; None for a no-image call, which counts on encode_cond)."""
+    if kind == "encode":
+        return f"pad{call[1]}" if len(call) == 2 else None
     if kind == "reflect_pad_bwd":
         (n, hp, wp, c), dt, pad = call
         return krp._plan(n, hp - 2 * pad, wp - 2 * pad, c, pad, dt)["variant"]
@@ -422,7 +490,9 @@ def plan_variants(kind, calls, groups=()):
         return {"group": sum(any(t[0] == mode for t in g) for g in groups)}
     want = {v: 0 for v in counters()[kind].variants}
     for call in calls:
-        want[plan_variant(kind, call)] += 1
+        v = plan_variant(kind, call)
+        if v is not None:
+            want[v] += 1
     return want
 
 
@@ -521,7 +591,7 @@ def recording():
                 (tuple(label.shape), inst is not None, nc, dtype)), \
             rec(kenc, "encode",
                 lambda label, inst, image, boxes, nc, pad=0, dtype=None:
-                (tuple(label.shape), pad)):
+                (tuple(label.shape), pad) + (() if image is not None else ("cond",))):
         yield calls
 
 
@@ -946,6 +1016,17 @@ def site_inputs(kind, calls, dev, gen):
             lib.append(library_pad_bwd(dy, pad))
             b, o = pad_bwd_bytes(shape, pad, dy.element_size())
             e = (kern[-1]().float() - plain[-1]().float()).abs().max().item()
+        elif kind == "encode":
+            shape, pad = call
+            inp = encode_inputs(shape[0], shape[1], shape[2], dev, seed=len(kern))
+            a = (inp["label"], inp["inst"], inp["image"], inp["boxes"], 35)
+            kern.append(lambda a=a, p=pad: kenc.encode(*a, pad=p))
+            plain.append(lambda a=a, p=pad: kenc.encode_plain(*a, pad=p))
+            lib = None
+            if not same_bits(kern[-1](), plain[-1]()):
+                raise AssertionError(f"encode mismatch at {shape} pad {pad}")
+            b, o = encode_bytes(*shape, 35, pad, 4)
+            e = 0.0
         elif kind == "encode_cond":
             shape, has_inst, nc, dt = call
             inp = encode_inputs(shape[0], shape[1], shape[2], dev, seed=len(kern))
@@ -1020,20 +1101,40 @@ def time_loss_groups(kind, groups, dev, seed):
         bytes=nbytes)
 
 
-def train_per_step(g_sites, opt):
-    """Launches of each kernel in one train step of this architecture. With
-    the image pool the D step encodes its conditioning again, and the G
-    step runs D on the real image for feature matching on its own."""
+def train_per_step(g_sites, opt, pads=None):
+    """Launches of each kernel in one train step of this architecture
+    (g_sites: the IN sites of G's forward, the Encoder's included; pads:
+    the reflect pads whose backward runs, by default the GlobalGenerator's
+    2 a resblock and its head). With the image pool the D step encodes its
+    conditioning again, and the G step runs D on the real image for feature
+    matching on its own. Without the masked image G's input is a no-image
+    encode, which counts on encode_cond."""
     d_sites = opt.n_layers_D * opt.num_D      # IN sites of one D apply
     in_sites = g_sites + 2 * d_sites          # G, D on the fake for G, D on [real; fake]
     pooled = opt.pool_size > 0
+    masked = getattr(opt, "use_masked_image", False)
     return {
-        "encode": 1, "encode_cond": 2 if pooled else 1,
+        "encode": int(masked), "encode_cond": (2 if pooled else 1) + int(not masked),
         "instance_norm": in_sites + (d_sites if pooled and not opt.no_ganFeat_loss else 0),
         "instance_norm_bwd": in_sites, "mse_to_scalar": 3 * opt.num_D,
         "l1_to_scalar": (opt.n_layers_D + 1) * opt.num_D + (0 if opt.no_vgg_loss else 5),
-        "reflect_pad_bwd": 2 * opt.n_blocks_global + 1, "conv3x3_in_act": 0,
+        "reflect_pad_bwd": 2 * opt.n_blocks_global + 1 if pads is None else pads,
+        "conv3x3_in_act": 0,
     }
+
+
+def generator_counts(g):
+    """(IN sites of one forward, reflect pads whose backward a step runs,
+    stems) of a GlobalGenerator or LocalEnhancer: 2 pads a resblock and the
+    head's; a stem's pad takes a gradient only when its input does (encoder
+    features). The LocalEnhancer: the trunk's 1 + 2 n_down + 2 n_blocks
+    sites, and per branch its stem, down, 2 a resblock and up (36 at the
+    1024p recipe's width; pads 25)."""
+    if isinstance(g, networks.LocalEnhancer):
+        t, n = getattr(g, "global"), g.n_local_enhancers
+        return (1 + 2 * t.n_downsampling + 2 * t.n_blocks + n * (3 + 2 * g.n_blocks_local),
+                2 * t.n_blocks + 2 * n * g.n_blocks_local + 1, n + 1)
+    return 1 + 2 * g.n_downsampling + 2 * g.n_blocks, 2 * g.n_blocks + 1, 1
 
 
 def b2m_per_step(opt):
@@ -1052,11 +1153,16 @@ def b2m_per_step(opt):
 
 
 def per_step_of(model):
-    """Launches of each kernel in one train step of the model's architecture."""
+    """Launches of each kernel in one train step of the model's architecture.
+    The instance-feature Encoder (not run under --load_features) adds its 1 +
+    2 n_down IN sites (9), its head's pad and the generator stems' pads,
+    whose input now takes its gradient."""
     if isinstance(model, BoxToMaskModel):
         return b2m_per_step(model.opt)
-    g = model.netG
-    return train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, model.opt)
+    g_sites, pads, stems = generator_counts(model.netG)
+    if model.netE is not None and not model.opt.load_features:
+        g_sites, pads = g_sites + 1 + 2 * model.netE.n_downsampling, pads + 1 + stems
+    return train_per_step(g_sites, model.opt, pads)
 
 
 def loss_groups_per_step(opt):
@@ -1294,31 +1400,47 @@ def conv_in_fp32_row(results, path_variants):
     return out
 
 
+def trained(model):
+    """The networks a train step updates: G, D and, under instance
+    features, E (never the frozen VGG)."""
+    return {net: m for net, m in model.nets().items() if net != "VGG"}
+
+
 def grads_of(model):
     return [(f"{net}.{n}", p.grad.clone() if p.grad is not None else None)
-            for net, m in (("G", model.netG), ("D", model.netD))
-            for n, p in m.named_parameters()]
+            for net, m in trained(model).items() for n, p in m.named_parameters()]
 
 
-def _grad_diff(a, b):
-    """Worst leaf of |a - b| as max|diff| / max|b| and as ||diff|| / ||b||."""
-    mx = nr = 0.0
-    where = None
+def _leaf_diffs(a, b):
+    """|a - b| of each leaf with a gradient, as (max|diff| / max|b|,
+    ||diff|| / ||b||), by leaf name."""
+    out = {}
     for (name, x), (_, y) in zip(a, b):
         if x is None or y is None:
             if x is not None or y is not None:
                 raise AssertionError(f"gradient present on one path only: {name}")
             continue
         d = (x - y).double()
-        m = (d.abs().max() / y.abs().max().clamp_min(1e-30)).item()
-        if m > mx:
-            mx, where = m, name
-        nr = max(nr, (d.norm() / y.double().norm().clamp_min(1e-30)).item())
+        out[name] = ((d.abs().max() / y.abs().max().clamp_min(1e-30)).item(),
+                     (d.norm() / y.double().norm().clamp_min(1e-30)).item())
+    return out
+
+
+def _worst(diffs, keep=lambda name: True):
+    """The worst kept leaf of _leaf_diffs -> (max|diff| / max|g|,
+    ||diff|| / ||g||, the leaf of the first)."""
+    mx = nr = 0.0
+    where = None
+    for name, (m, n) in diffs.items():
+        if keep(name):
+            if m > mx:
+                mx, where = m, name
+            nr = max(nr, n)
     return mx, nr, where
 
 
 def compare_step(model, batch, nudge="image", kernels=TRAIN_KERNELS):
-    """One step's loss terms and G/D gradients, kernel path vs plain path,
+    """One step's loss terms and G/D (and E) gradients, kernel path vs plain path,
     from the same parameters, with cuDNN deterministic so that repeated
     runs give the same bits. Each backward kernel is also swapped alone for
     its plain version. The gradient of this randomly initialized GAN step
@@ -1326,14 +1448,20 @@ def compare_step(model, batch, nudge="image", kernels=TRAIN_KERNELS):
     statistics differ from the plain two-pass ones by about an ulp), so the
     whole-path difference is held to twice the gradient's own sensitivity,
     measured here: the change a 1-ulp nudge makes, of the input image
-    (``nudge`` "image", mask2image) or of every G and D parameter
+    (``nudge`` "image", mask2image) or of every trained parameter
     ("params", box2mask, whose inputs are one-hot maps and 0/1 masks).
-    ``kernels``: the training kernels the step must launch."""
-    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
+    The instance-feature Encoder's gradient is the generator stem's data
+    gradient, behind an IN backward whose dx sums to zero over each channel,
+    so E's leaves are cancelled sums (its head's bias most): each E leaf is
+    held, in every comparison but the repeat, to STEP_SENS_FACTOR times its
+    own 1-ulp sensitivity; G and D as above. ``kernels``: the training
+    kernels the step must launch."""
+    nets = trained(model)
+    params = [p for m in nets.values() for p in m.parameters()]
 
     def run(ctx, b=batch):
-        model.netG.zero_grad(set_to_none=True)
-        model.netD.zero_grad(set_to_none=True)
+        for m in nets.values():
+            m.zero_grad(set_to_none=True)
         with ctx:
             total, metrics, _ = model.losses(b)
             total.backward()
@@ -1375,19 +1503,37 @@ def compare_step(model, batch, nudge="image", kernels=TRAIN_KERNELS):
         mp, gp = run(plain_path())
         if read_launches() != mid:
             raise AssertionError("the plain path launched a kernel")
-        repeat = _grad_diff(run(none())[1], gk)
-        alone = {k: _grad_diff(run(ctx())[1], gk) for k, ctx in swaps.items()}
-        sens_k = _grad_diff(nudged(none())[1], gk)
-        sens_p = _grad_diff(nudged(plain_path())[1], gp)
+        repeat = _worst(_leaf_diffs(run(none())[1], gk))
+        alone_all = {k: _leaf_diffs(run(ctx())[1], gk) for k, ctx in swaps.items()}
+        sens_k_all = _leaf_diffs(nudged(none())[1], gk)
+        sens_p_all = _leaf_diffs(nudged(plain_path())[1], gp)
     finally:
         torch.backends.cudnn.deterministic = prev
     loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in mk)
-    whole = _grad_diff(gk, gp)
+    whole_all = _leaf_diffs(gk, gp)
+
+    def g_or_d(name):
+        return not name.startswith("E.")
+
+    alone = {k: _worst(v, g_or_d) for k, v in alone_all.items()}
+    whole, sens_k, sens_p = (_worst(d, g_or_d) for d in (whole_all, sens_k_all, sens_p_all))
     sens = (max(sens_k[0], sens_p[0]), max(sens_k[1], sens_p[1]))
+    # each E leaf against its own sensitivity: (worst diff / (factor x sensitivity), where)
+    e_ratio = {}
+    for what, diffs in (("whole", whole_all), *alone_all.items()):
+        for name, d in diffs.items():
+            if not g_or_d(name):
+                s = [max(sens_k_all[name][i], sens_p_all[name][i]) for i in (0, 1)]
+                r = max(d[i] / max(STEP_SENS_FACTOR * s[i], 1e-30) for i in (0, 1))
+                if r >= e_ratio.get(what, (0.0, None))[0]:
+                    e_ratio[what] = (r, name)
     log(f"[step] kernel vs plain: losses {mk} vs {mp}, max rel {loss_rel:.3g}")
     log(f"[step] gradients (max|diff|/max|g|, ||diff||/||g||, worst leaf): kernel path "
         f"repeated {repeat}; one kernel plain at a time {alone}; whole plain path {whole}; "
         f"1-ulp {nudge} nudge, kernel path {sens_k}, plain path {sens_p}")
+    if e_ratio:
+        log(f"[step] E's leaves, worst diff / ({STEP_SENS_FACTOR}x its own 1-ulp sensitivity): "
+            f"{e_ratio}")
     if loss_rel > STEP_LOSS_RTOL or repeat[0] > STEP_GRAD_TOL:
         raise AssertionError(f"step: losses max rel {loss_rel}, repeat {repeat}")
     bad = {k: v for k, v in alone.items() if v[0] > STEP_GRAD_TOL}
@@ -1396,16 +1542,61 @@ def compare_step(model, batch, nudge="image", kernels=TRAIN_KERNELS):
     if whole[0] > STEP_SENS_FACTOR * sens[0] or whole[1] > STEP_SENS_FACTOR * sens[1]:
         raise AssertionError(f"kernel vs plain gradients {whole} beyond "
                              f"{STEP_SENS_FACTOR}x the 1-ulp sensitivity {sens}")
+    bad = {k: v for k, v in e_ratio.items() if v[0] > 1.0}
+    if bad:
+        raise AssertionError(f"E's gradients beyond {STEP_SENS_FACTOR}x their 1-ulp "
+                             f"sensitivity: {bad}")
     return dict(losses_kernel=mk, losses_plain=mp, max_loss_rel=loss_rel, repeat=repeat,
                 one_kernel_plain=alone, whole_plain_path=whole,
                 one_ulp_sensitivity={"kernel": sens_k, "plain": sens_p},
-                leaves=sum(g is not None for _, g in gk))
+                encoder_vs_own_sensitivity=e_ratio,
+                leaves=sum(g is not None for _, g in gk),
+                leaves_by_net={net: sum(g is not None and n.startswith(f"{net}.")
+                                        for n, g in gk) for net in nets})
+
+
+def time_train_step(step, state, batch, iters, per_step, what, per_variant=None,
+                    plain_iters=None):
+    """``iters`` train steps after two of warm-up, counters read around
+    them and held to ``per_step`` launches (and ``per_variant``) a step;
+    every loss finite; then the plain path's ms a step over ``plain_iters``
+    (default ``iters``) -> (ms, peak memory bytes, plain ms, losses, the
+    step's second output)."""
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, vbefore = read_launches(), read_variants()
+    t = time.perf_counter()
+    for _ in range(iters):
+        metrics, out = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    after, vafter = read_launches(), read_variants()
+    for k, n in per_step.items():
+        expect_launches(after[k] - before[k], n * iters, f"{what} {k}")
+    for kind, want in (per_variant or {}).items():
+        expect_launches({k: vafter[kind][k] - vbefore[kind][k] for k in want},
+                        {k: n * iters for k, n in want.items()}, f"{what}, {kind} variants")
+    losses = {k: v.item() for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{what}: losses {losses}")
+    plain_iters = plain_iters or iters
+    with plain_path():
+        step(state, batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(plain_iters):
+            step(state, batch)
+        torch.cuda.synchronize()
+    return ms, peak, (time.perf_counter() - t) / plain_iters * 1e3, losses, out
 
 
 def phase_train_step(dev, results):
     """make_train_step at STEP_HW fp32: times (kernel and plain path), peak
-    memory, the kernel-vs-plain step, and the calls one bs-1 step makes of
-    each training kernel (for the per-step kernel table)."""
+    memory, the launches a step, the kernel-vs-plain step, and the calls one
+    bs-1 step makes of each training kernel (for the per-step kernel table)."""
     opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **ARCH)
     model = create_model(opt)
     step = make_train_step(model)
@@ -1413,28 +1604,12 @@ def phase_train_step(dev, results):
     for bs, iters in ((1, 10), (4, 4)):
         batch = encode_inputs(bs, *STEP_HW, dev, seed=8)
         state = make_optimizers(opt, model, 1000)
-        for _ in range(2):
-            step(state, batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        for _ in range(iters):
-            metrics, _ = step(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) / iters * 1e3
-        peak = torch.cuda.max_memory_allocated()
-        with plain_path():
-            step(state, batch)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(max(2, iters // 2)):
-                step(state, batch)
-            torch.cuda.synchronize()
-            plain = (time.perf_counter() - t) / max(2, iters // 2) * 1e3
+        ms, peak, plain, losses, _ = time_train_step(
+            step, state, batch, iters, per_step_of(model), f"fp32 step bs {bs}",
+            plain_iters=max(2, iters // 2))
         row = dict(bs=bs, hw=list(STEP_HW), dtype="float32", precision="highest",
                    ms_per_step=ms, images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs,
-                   plain_ms_per_step=plain, peak_mem_bytes=peak,
-                   losses={k: v.item() for k, v in metrics.items()})
+                   plain_ms_per_step=plain, peak_mem_bytes=peak, losses=losses)
         rows.append(row)
         log(f"[step] {row}")
     batch = encode_inputs(1, *STEP_HW, dev, seed=10)
@@ -1456,13 +1631,12 @@ def phase_train_step(dev, results):
 
 
 def phase_train_step_bf16(dev, results):
-    """make_train_step in the bf16 tier at STEP_HW: times, peak memory and
-    the launches of every kernel per step."""
+    """make_train_step in the bf16 tier at STEP_HW: times (kernel and plain
+    path), peak memory and the launches of every kernel per step."""
     opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype="bfloat16", **ARCH)
     model = create_model(opt)
     step = make_train_step(model, torch.bfloat16)
-    g = model.netG
-    per_step = train_per_step(1 + 2 * g.n_downsampling + 2 * g.n_blocks, opt)
+    per_step = per_step_of(model)
     rows = []
     for bs, iters in ((1, 10), (4, 4)):
         batch = encode_inputs(bs, *STEP_HW, dev, seed=8)
@@ -1475,31 +1649,15 @@ def phase_train_step_bf16(dev, results):
                        for k in PLANNED + ("mse_to_scalar", "l1_to_scalar")}
         expect_launches({k: v["group"] for k, v in per_variant.items() if "group" in v},
                         loss_groups_per_step(opt), f"bf16 step bs {bs}, loss groups recorded")
-        for _ in range(2):
-            step(state, batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before, vbefore = read_launches(), read_variants()
-        t = time.perf_counter()
-        for _ in range(iters):
-            metrics, fake = step(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) / iters * 1e3
-        after = read_launches()
-        for k, n in per_step.items():
-            expect_launches(after[k] - before[k], n * iters, f"bf16 step bs {bs} {k}")
-        vafter = read_variants()
-        for kind, want in per_variant.items():
-            expect_launches({k: vafter[kind][k] - vbefore[kind][k] for k in want},
-                            {k: n * iters for k, n in want.items()},
-                            f"bf16 step bs {bs}, {kind} variants")
-        losses = {k: v.item() for k, v in metrics.items()}
-        if fake.dtype != torch.bfloat16 or not all(np.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"bf16 step bs {bs}: fake {fake.dtype}, losses {losses}")
+        ms, peak, plain, losses, fake = time_train_step(
+            step, state, batch, iters, per_step, f"bf16 step bs {bs}", per_variant,
+            plain_iters=max(2, iters // 2))
+        if fake.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 step bs {bs}: fake {fake.dtype}")
         row = dict(bs=bs, hw=list(STEP_HW), dtype="bfloat16",
                    precision=model.conv_precision_resolved, ms_per_step=ms,
-                   images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs,
-                   peak_mem_bytes=torch.cuda.max_memory_allocated(), losses=losses,
+                   images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs, plain_ms_per_step=plain,
+                   peak_mem_bytes=peak, losses=losses,
                    launches_per_step=per_step, variants_per_step=per_variant)
         rows.append(row)
         log(f"[step bf16] {row}")
@@ -1540,17 +1698,16 @@ def b2m_batch(bs, dev, seed):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def b2m_step_calls(model, dev, bs, dtype):
-    """The calls one box2mask train step (the objective and its backward,
-    fp32 or the bf16 tier) makes of each training kernel."""
-    params, b = _loss_inputs(model, b2m_batch(bs, dev, seed=40 + bs),
-                             dtype if dtype == torch.bfloat16 else None)
+def step_calls_of(model, batch, dtype):
+    """The calls one train step on ``batch`` (the objective and its
+    backward, fp32 or the bf16 tier) makes of each kernel."""
+    params, b = _loss_inputs(model, batch, dtype if dtype == torch.bfloat16 else None)
     with recording() as calls:
         total, _, _ = model.losses(b, params)
         total.backward()
     torch.cuda.synchronize()
-    model.netG.zero_grad(set_to_none=True)
-    model.netD.zero_grad(set_to_none=True)
+    for m in model.nets().values():
+        m.zero_grad(set_to_none=True)
     return calls
 
 
@@ -1582,6 +1739,60 @@ def check_loss_group(table, dev, gen, what):
     return check_close(got, want, torch.float32, 0.0, what, rtol=LOSS_RTOL)
 
 
+def check_recorded(recorded, dev, seed, tag):
+    """Each distinct recorded call of rows 4-7 (and of encode and
+    encode_cond, where recorded) on fresh inputs of its shape: against its
+    plain version on the variant its plan picks, the same bits twice (the
+    encodes bit-exact, in fp32 and bf16) -> (max |kernel - plain| by kind
+    and dtype, calls checked by kind)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    errs, counts = {}, {}
+
+    def keep(kind, dt, err):
+        key = f"{kind}/{str(dt)[6:]}"
+        errs[key] = max(errs.get(key, 0.0), err)
+        counts[kind] = counts.get(kind, 0) + 1
+
+    distinct = {k: sorted({tuple(c) for calls in recorded.values() for c in calls[k]}, key=str)
+                for k in PLANNED + ("loss_group", "encode", "encode_cond")}
+    for shape, dt, act, has_res in distinct["instance_norm"]:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+        r = torch.randn(shape, generator=gen, device=dev).to(dt) if has_res else None
+        keep("instance_norm", dt, check_in_fwd(x, act, r, f"{tag} IN {shape} {dt} {act}"))
+    for shape, dt, act, want_dres in distinct["instance_norm_bwd"]:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
+        gy = torch.randn(shape, generator=gen, device=dev).to(dt)
+        r = torch.randn(shape, generator=gen, device=dev).to(dt) if want_dres else None
+        keep("instance_norm_bwd", dt,
+             check_in_bwd(x, gy, act, r, f"{tag} IN bwd {shape} {dt} {act}"))
+    for shape, dt, pad in distinct["reflect_pad_bwd"]:
+        dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+        keep("reflect_pad_bwd", dt, check_pad_bwd(dy, pad, f"{tag} pad bwd {shape} p{pad}"))
+    for table in distinct["loss_group"]:
+        keep("loss_group", table[0][2],
+             check_loss_group(list(table), dev, gen, f"{tag} loss group {table}"))
+    for call in distinct["encode"]:
+        if len(call) != 2:      # a no-image call: encode_cond's, checked below
+            continue
+        (b, h, w), pad = call
+        inp = encode_inputs(b, h, w, dev, seed=seed)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (inp["label"], inp["inst"], inp["image"].to(dt), inp["boxes"], 35)
+            got, again = twice_on("encode", f"pad{pad}", lambda: kenc.encode(*args, pad=pad),
+                                  f"{tag} encode {call}")
+            if not (same_bits(got, again) and same_bits(got, kenc.encode_plain(*args, pad=pad))):
+                raise AssertionError(f"{tag} encode {call} {dt}: not bit-exact")
+            keep("encode", dt, 0.0)
+    for (b, h, w), has_inst, nc, dt in distinct["encode_cond"]:
+        inp = encode_inputs(b, h, w, dev, seed=seed + 1)
+        args = (inp["label"], inp["inst"] if has_inst else None, nc, dt)
+        got, again = kenc.encode_cond(*args), kenc.encode_cond(*args)
+        if not (same_bits(got, again) and same_bits(got, kenc.encode_cond_plain(*args))):
+            raise AssertionError(f"{tag} encode_cond {(b, h, w)} {dt}: not bit-exact")
+        keep("encode_cond", dt, 0.0)
+    return errs, counts
+
+
 def phase_b2m_kernels(dev, results):
     """Phase 13: rows 4-7 at box2mask's shapes. The calls one full-width
     train step makes of each kernel, recorded at bs 1 and 2, fp32 and bf16;
@@ -1589,7 +1800,7 @@ def phase_b2m_kernels(dev, results):
     plan picks, the same bits twice; the bs-1 fp32 step's calls timed."""
     model = create_model(BoxToMaskTrainOptions(gpu_ids=GPU_IDS, **B2M_ARCH))
     per_step = b2m_per_step(model.opt)
-    recorded = {(bs, dt): b2m_step_calls(model, dev, bs, dt)
+    recorded = {(bs, dt): step_calls_of(model, b2m_batch(bs, dev, seed=40 + bs), dt)
                 for bs in (1, 2) for dt in (torch.float32, torch.bfloat16)}
     del model
     torch.cuda.empty_cache()
@@ -1599,32 +1810,7 @@ def phase_b2m_kernels(dev, results):
         expect_launches(got, want, f"box2mask step bs {bs} {dt}, calls recorded")
         expect_launches(len(calls["loss_group"]), loss_groups_per_step(
             BoxToMaskTrainOptions())["mse_to_scalar"], f"box2mask step bs {bs} {dt}, loss groups")
-    gen = torch.Generator(device=dev).manual_seed(15)
-    errs, counts = {}, {}
-
-    def keep(kind, dt, err):
-        key = f"{kind}/{str(dt)[6:]}"
-        errs[key] = max(errs.get(key, 0.0), err)
-        counts[kind] = counts.get(kind, 0) + 1
-
-    distinct = {k: sorted({tuple(c) for calls in recorded.values() for c in calls[k]}, key=str)
-                for k in PLANNED + ("loss_group",)}
-    for shape, dt, act, has_res in distinct["instance_norm"]:
-        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
-        r = torch.randn(shape, generator=gen, device=dev).to(dt) if has_res else None
-        keep("instance_norm", dt, check_in_fwd(x, act, r, f"box2mask IN {shape} {dt} {act}"))
-    for shape, dt, act, want_dres in distinct["instance_norm_bwd"]:
-        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dt)
-        gy = torch.randn(shape, generator=gen, device=dev).to(dt)
-        r = torch.randn(shape, generator=gen, device=dev).to(dt) if want_dres else None
-        keep("instance_norm_bwd", dt,
-             check_in_bwd(x, gy, act, r, f"box2mask IN bwd {shape} {dt} {act}"))
-    for shape, dt, pad in distinct["reflect_pad_bwd"]:
-        dy = torch.randn(shape, generator=gen, device=dev).to(dt)
-        keep("reflect_pad_bwd", dt, check_pad_bwd(dy, pad, f"box2mask pad bwd {shape} p{pad}"))
-    for table in distinct["loss_group"]:
-        keep("loss_group", table[0][2],
-             check_loss_group(list(table), dev, gen, f"box2mask loss group {table}"))
+    errs, counts = check_recorded(recorded, dev, 15, "box2mask")
     log(f"[box2mask kernels] distinct calls checked {counts}; max|kernel - plain| {errs}")
     step_calls = recorded[(1, torch.float32)]
     table = [dict(name=name, **time_sites(name, step_calls[name], dev, seed=70 + i))
@@ -1720,31 +1906,9 @@ def phase_b2m_step(dev, results):
         for bs, iters in B2M_STEP_BS:
             batch = b2m_batch(bs, dev, seed=50 + bs)
             state = make_optimizers(opt, model, 1000)
-            for _ in range(2):
-                step(state, batch)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = read_launches()
-            t = time.perf_counter()
-            for _ in range(iters):
-                metrics, merged = step(state, batch)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) / iters * 1e3
-            peak = torch.cuda.max_memory_allocated()
-            after = read_launches()
-            for k, n in per_step.items():
-                expect_launches(after[k] - before[k], n * iters, f"box2mask step {dtype} bs {bs} {k}")
-            losses = {k: v.item() for k, v in metrics.items()}
-            if not all(np.isfinite(v) for v in losses.values()):
-                raise AssertionError(f"box2mask step {dtype} bs {bs}: losses {losses}")
-            with plain_path():
-                step(state, batch)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                for _ in range(max(2, iters // 2)):
-                    step(state, batch)
-                torch.cuda.synchronize()
-                plain = (time.perf_counter() - t) / max(2, iters // 2) * 1e3
+            ms, peak, plain, losses, merged = time_train_step(
+                step, state, batch, iters, per_step, f"box2mask step {dtype} bs {bs}",
+                plain_iters=max(2, iters // 2))
             row = dict(bs=bs, hw=[opt.fineSize] * 2, dtype=dtype,
                        precision=model.conv_precision_resolved, ms_per_step=ms,
                        crops_per_s=bs * 1e3 / ms, ms_per_crop=ms / bs, plain_ms_per_step=plain,
@@ -2205,6 +2369,409 @@ def phase_evaluate_cli(tmp, results):
     return total["launches"], total["variants"]
 
 
+# ---------------------------------------------------------------- 1024p, instance features
+
+def image_encodes(calls):
+    """The recorded encode calls that carry the masked image."""
+    return [c for c in calls["encode"] if len(c) == 2]
+
+
+def expect_recorded(calls, per_step, opt, what):
+    """One step's recorded calls against the architecture's per-step count."""
+    got = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar", "l1_to_scalar",
+                                               "encode_cond")}
+    got["encode"] = len(image_encodes(calls))
+    expect_launches(got, {k: per_step[k] for k in got}, f"{what}, calls recorded")
+    expect_launches(len(calls["loss_group"]), sum(loss_groups_per_step(opt).values()),
+                    f"{what}, loss groups recorded")
+
+
+def phase_local_kernels(dev, results):
+    """Phase 19: rows 1, 2 and 4-7 at the 1024p shapes. The calls one
+    full-width LocalEnhancer train step at 1024x512 makes of each kernel,
+    recorded at bs 1 and 2, fp32 and bf16, each held to the architecture's
+    count; each distinct call against its plain version on the variant its
+    plan picks, the same bits twice; the bs-1 fp32 step's calls timed
+    beside the bound and the library call (row 2, the pad-0 encode, at
+    (1, 512, 1024) among them)."""
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **LOCAL_G, **LOCAL_D)
+    model = create_model(opt)
+    per_step = per_step_of(model)
+    recorded = {(bs, dt): step_calls_of(model, encode_inputs(bs, *HW_1024, dev, seed=80 + bs),
+                                        dt)
+                for bs in (1, 2) for dt in (torch.float32, torch.bfloat16)}
+    del model
+    torch.cuda.empty_cache()
+    for (bs, dt), calls in recorded.items():
+        expect_recorded(calls, per_step, opt, f"1024p step bs {bs} {dt}")
+    errs, counts = check_recorded(recorded, dev, 85, "1024p")
+    log(f"[1024p kernels] per step {per_step}; distinct calls checked {counts}; "
+        f"max|kernel - plain| {errs}")
+    calls = dict(recorded[(1, torch.float32)], encode=image_encodes(recorded[(1, torch.float32)]))
+    table = []
+    for i, name in enumerate(("encode", "encode_cond") + PLANNED):
+        table.append(dict(name=name, **time_sites(name, calls[name], dev, seed=86 + i)))
+    for i, name in enumerate(("mse_to_scalar", "l1_to_scalar")):
+        table.append(dict(name=name, **time_loss_groups(name, calls["loss_group"], dev, 92 + i)))
+    for row in table:
+        log(f"[1024p step {HW_1024[1]}x{HW_1024[0]} bs 1 fp32] {row}")
+    results["local_kernels"] = dict(per_step=per_step, max_err=errs, distinct_calls=counts,
+                                    step_table=table)
+    return table
+
+
+def pretrain_counts(g, opt, pre_num_D):
+    """load_pretrain's (loaded, kept at init) for a GlobalGenerator run of
+    pre_num_D scales into this LocalEnhancer and D: the trunk's kernels and
+    biases and the head's bias (its kernel is narrower), D's shared scales;
+    the branches, the head's kernel and the new scales kept."""
+    t, n = getattr(g, "global"), g.n_local_enhancers
+    trunk = 2 * (1 + 2 * t.n_downsampling + 2 * t.n_blocks)
+    branches = 2 * n * (3 + 2 * g.n_blocks_local)
+    scale = 2 * (opt.n_layers_D + 2)
+    shared = min(pre_num_D, opt.num_D)
+    return trunk + 1 + shared * scale, branches + 1 + (opt.num_D - shared) * scale
+
+
+def serve_cli(tmp, name, ckpt, root, extra, results_dir, how_many=4):
+    """The serving CLI from a run's latest, counters zeroed before and read
+    after -> (stdout, launches, recorded calls, wall s)."""
+    out = io.StringIO()
+    zero_launches()
+    t = time.time()
+    with recording() as calls, contextlib.redirect_stdout(out):
+        mask2image_test.main(["--name", name, "--dataroot", root, "--checkpoints_dir", ckpt,
+                              "--gpu_ids", GPU_IDS, "--results_dir", results_dir,
+                              "--how_many", str(how_many), *extra])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    text = out.getvalue()
+    log(text.rstrip())
+    if "restored checkpoint 'latest'" not in text or "partial load" in text:
+        raise AssertionError(f"{name}: the serving CLI did not restore latest in full")
+    if f"wrote {how_many} results" not in text:
+        raise AssertionError(f"{name}: the serving CLI wrote no {how_many} results")
+    with open(os.path.join(results_dir, name, "test_latest", "index.html")) as f:
+        if f.read().count("synthesized_image") < how_many:
+            raise AssertionError(f"{name}: gallery incomplete")
+    return text, read_launches(), calls, wall
+
+
+def phase_local_cli(tmp, dev, results):
+    """Phase 20, main path 8: the train CLI with the 1024p recipe's flags
+    (LocalEnhancer, 3-scale D) and --load_pretrain from phase 6's run,
+    --niter_fix_global 1, two epochs at bs 1 over phase 6's scenes: counters
+    zeroed before and read after, held per step to the architecture's
+    counts and per variant to the plans; load_pretrain's counts; every
+    trunk parameter bit-for-bit the pretrained one after each step of epoch
+    1, and moved by the first step of epoch 2; every loss finite. Then the
+    serving CLI from its latest over phase 5's scenes. Each distinct call
+    both runs made of a kernel, against its plain version (check_recorded)."""
+    ckpt = os.path.join(tmp, "ckpt")
+    pre_dir = os.path.join(ckpt, "smoke_train")
+    with np.load(os.path.join(pre_dir, "ckpt", "latest_params.npz")) as data:
+        pre = params_from_jax({k: data[k] for k in data.files})
+        pre_num_D = len({k.split("/")[2] for k in data.files if k.startswith("D/params/scale")})
+    argv = ["--name", "smoke_1024p", "--dataroot", os.path.join(tmp, "city_train"),
+            "--checkpoints_dir", ckpt, "--gpu_ids", GPU_IDS, *flags(LOCAL_G), *flags(LOCAL_D),
+            *LOCAL_ARGV, "--load_pretrain", pre_dir,
+            "--niter_fix_global", "1", "--niter", "2", "--niter_decay", "0",
+            "--print_freq", "1", "--save_epoch_freq", "100", "--nThreads", "2"]
+    frozen, counts = [], []
+    orig_make, orig_load = train_loop.make_step_fn, train_loop.load_pretrain_into
+
+    def make_checked(opt, model):
+        step = orig_make(opt, model)
+        trunk = {n: p for n, p in model.netG.named_parameters() if n.startswith("global.")}
+        want = {n: pre[n[len("global."):]].to(p.device) for n, p in trunk.items()}
+
+        def checked(state, batch):
+            out = step(state, batch)
+            frozen.append(all(torch.equal(p, want[n]) for n, p in trunk.items()))
+            return out
+
+        return checked
+
+    def load_counted(*a, **k):
+        counts.append(orig_load(*a, **k))
+        return counts[-1]
+
+    with recording() as calls, mock.patch.object(train_loop, "make_step_fn", make_checked), \
+            mock.patch.object(train_loop, "load_pretrain_into", load_counted):
+        state, model, errors, wall, launches, per_step = drive_train_cli(argv)
+    steps = state.step
+    variants = read_variants()
+    spe = steps // 2
+    log(f"[1024p train CLI] {steps} steps in {wall:.1f} s (incl. model init, pretrain load, "
+        f"data, checkpoint write); launches {launches}; per step {per_step}; "
+        f"load_pretrain {counts}; trunk frozen after each step {frozen}")
+    if steps < 2 or steps % 2 or len(errors) != steps or len(frozen) != steps:
+        raise AssertionError(f"1024p train CLI: {steps} steps, {len(errors)} loss lines")
+    want_counts = pretrain_counts(model.netG, model.opt, pre_num_D)
+    if counts != [want_counts]:
+        raise AssertionError(f"load_pretrain counts {counts}, reckoned {want_counts}")
+    if not all(frozen[:spe]) or any(frozen[spe:]):
+        raise AssertionError(f"--niter_fix_global 1 over {spe} steps an epoch: {frozen}")
+    for k, n in per_step.items():
+        expect_launches(launches[k], n * steps, f"1024p train CLI {k}")
+    expect_groups({}, loss_groups_per_step(model.opt), steps, "1024p train CLI")
+    variants = expect_variants(calls, "1024p train CLI")
+    log(f"[1024p train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
+        f"variants {variants}")
+    g_sites = generator_counts(model.netG)[0]
+    del model, pre
+    torch.cuda.empty_cache()
+
+    how_many = 4
+    text, slaunches, scalls, swall = serve_cli(
+        tmp, "smoke_1024p", ckpt, os.path.join(tmp, "city"), flags(LOCAL_G),
+        os.path.join(tmp, "results_1024p"), how_many)
+    expect_launches(slaunches, dict({k: 0 for k in slaunches}, encode=how_many,
+                                    instance_norm=g_sites * how_many), "1024p serving CLI")
+    svariants = expect_variants(scalls, "1024p serving CLI")
+    if svariants["encode"] != {"pad0": how_many, "pad3": 0}:
+        raise AssertionError(f"1024p serving CLI: encode variants {svariants['encode']}")
+    log(f"[1024p test CLI] {swall:.1f} s; launches {slaunches}; variants {svariants}")
+    errs, checked = check_recorded({"train": calls, "serving": scalls}, dev, 97, "1024p CLIs")
+    log(f"[1024p CLIs] distinct calls checked {checked}; max|kernel - plain| {errs}")
+    results["local_cli"] = dict(
+        train=dict(wall_s=wall, steps=steps, launches=launches, per_step=per_step,
+                   losses=errors, load_pretrain=list(counts[0]), pre_num_D=pre_num_D,
+                   trunk_frozen=frozen, variants=variants),
+        serving=dict(wall_s=swall, windows=how_many, launches=slaunches, variants=svariants),
+        kernel_vs_plain=dict(max_err=errs, distinct_calls=checked))
+    return launches, variants, slaunches, svariants
+
+
+def phase_local_step(dev, results):
+    """Phase 21: make_train_step on the LocalEnhancer at 1024x512, bs 1 in
+    fp32 and bs 4 in the bf16 tier (the step of tools/bench_1024p.py): ms,
+    images/s, peak memory, per-step launches per kernel and variant, the
+    plain path's ms; the fp32 step's kernel path against its plain path
+    (compare_step); inference at 1024x512 fp32, bs 1 and 4: ms/image and the
+    kernel path against the plain path."""
+    rows, cmp = [], None
+    for bs, dtype, iters in LOCAL_STEP_BS:
+        opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype=dtype, **LOCAL_G, **LOCAL_D)
+        model = create_model(opt)
+        cdt = torch.bfloat16 if dtype == "bfloat16" else None
+        step = make_train_step(model, cdt)
+        per_step = per_step_of(model)
+        batch = encode_inputs(bs, *HW_1024, dev, seed=90 + bs)
+        state = make_optimizers(opt, model, 1000)
+        with recording() as calls:
+            step(state, batch)
+        per_variant = {k: plan_variants(k, calls[k], calls["loss_group"])
+                       for k in PLANNED + ("encode", "mse_to_scalar", "l1_to_scalar")}
+        ms, peak, plain, losses, fake = time_train_step(
+            step, state, batch, iters, per_step, f"1024p step {dtype} bs {bs}", per_variant)
+        row = dict(bs=bs, hw=list(HW_1024), dtype=dtype,
+                   precision=model.conv_precision_resolved, ms_per_step=ms,
+                   images_per_s=bs * 1e3 / ms, ms_per_image=ms / bs, plain_ms_per_step=plain,
+                   peak_mem_bytes=peak, fake_dtype=str(fake.dtype), losses=losses,
+                   launches_per_step=per_step, variants_per_step=per_variant)
+        rows.append(row)
+        log(f"[1024p step] {row}")
+        if dtype == "float32":
+            cmp = compare_step(model, encode_inputs(1, *HW_1024, dev, seed=95))
+        del model, state
+        torch.cuda.empty_cache()
+    model = create_model(MaskToImageTestOptions(gpu_ids=GPU_IDS, **LOCAL_G))
+    infer = []
+    for bs, iters in LOCAL_INFER_BS:
+        batch = encode_inputs(bs, *HW_1024, dev, seed=96)
+        out = model.inference(batch)
+        with plain_path():
+            ref = model.inference(batch)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs().max().item()
+        if not torch.isfinite(out).all() or diff > MODEL_ATOL:
+            raise AssertionError(f"1024p inference bs {bs}: kernel vs plain max|diff| {diff}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model.inference(batch), iters)
+        with plain_path():
+            plain = cuda_ms(lambda: model.inference(batch), iters)
+        row = dict(bs=bs, hw=list(HW_1024), dtype="float32", ms_per_batch=ms,
+                   ms_per_image=ms / bs, images_per_s=bs * 1e3 / ms, plain_ms_per_batch=plain,
+                   max_abs_diff_vs_plain=diff, peak_mem_bytes=torch.cuda.max_memory_allocated())
+        infer.append(row)
+        log(f"[1024p inference] {row}")
+    del model
+    torch.cuda.empty_cache()
+    results["local_step"] = dict(rows=rows, kernel_vs_plain=cmp, inference=infer)
+
+
+def segment_mean_check(dev, seed):
+    """nnops.segment_mean_2d on the card over a scene's instance map at
+    DATAROOT_HW (the Encoder's remap, its 3 feature channels), fp32 and
+    bf16: the forward and its gradient twice, the same bits both times;
+    against the fp64 segment mean the fp32 forward and gradient and the
+    bf16 forward (one rounding). The bf16 gradient is not: its gather's
+    backward sums in bf16, as the JAX package's does -> max |diff| by
+    dtype."""
+    inp = encode_inputs(1, *DATAROOT_HW, dev, seed=seed)
+    slots, nc = 64, 35
+    ids = inp["inst"].to(torch.int64)
+    seg = torch.clamp((ids // 1000) * slots + (ids % 1000) % slots, 0, nc * slots - 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feat = torch.rand((1, *DATAROOT_HW, 3), generator=gen, device=dev) * 2 - 1
+    gy = torch.randn((1, *DATAROOT_HW, 3), generator=gen, device=dev)
+    flat = seg.reshape(-1)
+    counts = torch.bincount(flat, minlength=nc * slots).double().clamp_min(1.0)[:, None]
+
+    def mean64(v):
+        sums = torch.zeros((nc * slots, 3), dtype=torch.float64, device=dev)
+        return (sums.index_add_(0, flat, v.double().reshape(-1, 3)) / counts)[flat]
+
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = feat.to(dt)
+
+        def run():
+            xg = x.clone().requires_grad_(True)
+            out = nnops.segment_mean_2d(xg, seg, nc * slots)
+            out.backward(gy.to(dt))
+            return out.detach(), xg.grad
+
+        (out, grad), (out2, grad2) = run(), run()
+        torch.cuda.synchronize()
+        if not (same_bits(out, out2) and same_bits(grad, grad2)):
+            raise AssertionError(f"segment_mean_2d {dt}: two runs differ")
+        err = 0.0
+        checked = ((out, x), (grad, gy)) if dt == torch.float32 else ((out, x),)
+        for got, v in checked:
+            want = mean64(v).reshape(got.shape)
+            diff = (got.double() - want).abs()
+            tol = SEG_FP32_ATOL + (2.0**-8 * want.abs() if dt == torch.bfloat16 else 0.0)
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"segment_mean_2d {dt}: max|diff| {diff.max().item()}")
+            err = max(err, diff.max().item())
+        errs[str(dt)[6:]] = err
+    return errs
+
+
+def phase_feat_step(dev, results):
+    """Phase 23: the instance-feature model at full width (the GlobalGenerator
+    flagship, the Encoder at nef 16, 4 downs, feat_num 3): one bs-1 step at
+    the train CLI's windows, kernel path against plain path (compare_step,
+    E's gradients among the leaves: they reach it through the stem's
+    42-channel pad); segment_mean_2d's forward and gradient on the card,
+    the same bits twice and against the fp64 mean."""
+    model = create_model(MaskToImageTrainOptions(gpu_ids=GPU_IDS, **FEAT, **ARCH))
+    cmp = compare_step(model, encode_inputs(1, *FEAT_STEP_HW, dev, seed=99))
+    if not cmp["leaves_by_net"].get("E"):
+        raise AssertionError(f"features step: no gradient reached E {cmp['leaves_by_net']}")
+    del model
+    torch.cuda.empty_cache()
+    seg = segment_mean_check(dev, 100)
+    log(f"[features step] leaves with a gradient {cmp['leaves_by_net']}; segment_mean_2d "
+        f"max|diff| vs fp64 {seg}, same bits twice")
+    results["feat_step"] = dict(kernel_vs_plain=cmp, segment_mean_max_diff=seg)
+
+
+def drive_tool(fn, argv, what):
+    """One run of a feature tool with the counters zeroed just before and
+    read just after -> (its return value, launches, recorded calls)."""
+    zero_launches()
+    with recording() as calls:
+        out = fn(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[{what}] launches {launches}")
+    return out, launches, calls
+
+
+def phase_feat_cli(tmp, dev, results):
+    """Phase 22, main path 9: the instance features at full width. The train
+    CLI with --instance_feat (the GlobalGenerator of phase 6, the Encoder at
+    nef 16, 4 downs, feat_num 3), one epoch at bs 1 over phase 6's scenes,
+    held per step to the counts with the Encoder's 9 + 9 IN sites; the port's
+    encode_features over the same scenes to a (35, 10, 3) clusters npy; the
+    serving CLI with --cluster_path over phase 5's scenes (4 windows, no
+    partial load); precompute_feature_maps, then one epoch of
+    --load_features over the aligned scenes. Counters zeroed before and read
+    after each run. Each distinct call the runs made of a kernel (the
+    Encoder's IN sites at 16-256 channels, the 42-channel stem's pad on the
+    gather variant among them), against its plain version (check_recorded)."""
+    ckpt = os.path.join(tmp, "ckpt_feat")
+    root = os.path.join(tmp, "city_train")
+    common = ["--dataroot", root, "--checkpoints_dir", ckpt, "--gpu_ids", GPU_IDS, *FEAT_ARGV,
+              *ARCH_ARGV]
+    run = ["--niter", "1", "--niter_decay", "0", "--print_freq", "1", "--save_epoch_freq",
+           "100", "--nThreads", "2"]
+    paths, recorded = {}, {}
+
+    def train(name, *extra):
+        with recording() as calls:
+            state, model, errors, wall, launches, per_step = drive_train_cli(
+                ["--name", name, *common, *run, *extra])
+        steps = state.step
+        if steps < 1 or len(errors) != steps:
+            raise AssertionError(f"{name}: {steps} steps, {len(errors)} loss lines")
+        for k, n in per_step.items():
+            expect_launches(launches[k], n * steps, f"{name} train CLI {k}")
+        expect_groups({}, loss_groups_per_step(model.opt), steps, f"{name} train CLI")
+        variants = expect_variants(calls, f"{name} train CLI")
+        log(f"[{name} train CLI] {steps} steps in {wall:.1f} s; per step {per_step}; "
+            f"losses, first step {errors[0]}, last {errors[-1]}; variants {variants}")
+        row = dict(wall_s=wall, steps=steps, launches=launches, per_step=per_step,
+                   losses=errors, variants=variants)
+        recorded[name] = calls
+        sites = generator_counts(model.netG)[0], 1 + 2 * model.netE.n_downsampling
+        del model
+        torch.cuda.empty_cache()
+        return row, sites
+
+    row, (g_sites, e_sites) = train("smoke_feat")
+    paths["train_instance_feat"] = row
+    npy = os.path.join(tmp, "features_clustered_010.npy")
+    clusters, launches, calls = drive_tool(
+        encode_features.main, ["--name", "smoke_feat", *common, "--out", npy], "encode_features")
+    if clusters.shape != (35, 10, 3) or not np.isfinite(clusters).all() \
+            or not np.abs(clusters[[24, 26, 33]]).max() > 0:
+        raise AssertionError(f"clusters {clusters.shape} not finite or empty")
+    if launches["instance_norm"] == 0 or launches["instance_norm"] % e_sites \
+            or any(n for k, n in launches.items() if k != "instance_norm"):
+        raise AssertionError(f"encode_features: launches {launches}, {e_sites} IN a window")
+    recorded["encode_features"] = calls
+    paths["encode_features"] = dict(launches=launches,
+                                    variants=expect_variants(calls, "encode_features"))
+    how_many = 4
+    text, slaunches, scalls, swall = serve_cli(
+        tmp, "smoke_feat", ckpt, os.path.join(tmp, "city"),
+        [*FEAT_ARGV, *ARCH_ARGV, "--cluster_path", npy], os.path.join(tmp, "results_feat"),
+        how_many)
+    if "loaded feature clusters (35, 10, 3)" not in text:
+        raise AssertionError("the serving CLI did not load the clusters")
+    expect_launches(slaunches, dict({k: 0 for k in slaunches}, encode=how_many,
+                                    instance_norm=g_sites * how_many), "clusters serving CLI")
+    recorded["serving_clusters"] = scalls
+    paths["serving_clusters"] = dict(wall_s=swall, launches=slaunches,
+                                     variants=expect_variants(scalls, "clusters serving CLI"))
+    feat_dir, launches, calls = drive_tool(
+        precompute_feature_maps.main, ["--name", "smoke_feat", *common], "precompute")
+    n_maps = len(os.listdir(feat_dir))
+    expect_launches(launches, dict({k: 0 for k in launches}, instance_norm=e_sites * n_maps),
+                    "precompute_feature_maps")
+    fmap = np.load(os.path.join(feat_dir, sorted(os.listdir(feat_dir))[0]))
+    if fmap.shape != (*DATAROOT_HW, 3) or not np.isfinite(fmap).all():
+        raise AssertionError(f"feature map {fmap.shape} not finite")
+    recorded["precompute_feature_maps"] = calls
+    paths["precompute_feature_maps"] = dict(
+        launches=launches, maps=n_maps, variants=expect_variants(calls, "precompute"))
+    row, _ = train("smoke_loadf", "--load_features", "--no-use_bbox_dataset",
+                   "--no-use_masked_image")
+    paths["train_load_features"] = row
+    stem = [c for c in recorded["smoke_feat"]["reflect_pad_bwd"] if c[0][3] == 42]
+    if not stem or any(plan_variant("reflect_pad_bwd", c) != "gather" for c in stem):
+        raise AssertionError(f"features train CLI: the stem's pad backward {stem}")
+    errs, checked = check_recorded(recorded, dev, 98, "features")
+    log(f"[features] distinct calls checked {checked}; max|kernel - plain| {errs}")
+    results["feat_cli"] = dict(paths, kernel_vs_plain=dict(max_err=errs, distinct_calls=checked))
+    return ({p: v["launches"] for p, v in paths.items()},
+            {p: v["variants"] for p, v in paths.items()})
+
+
 SOURCES = {
     "encode_cond": ("csrc/encode.cu", "ops/pallas/encode.py:104"),
     "instance_norm_bwd": ("csrc/instance_norm.cu", "ops/pallas/instance_norm.py:195"),
@@ -2307,13 +2874,17 @@ def profile_by_kind(fn, n, tag, host_ms_each, results):
                                           unprofiled_ms=host_ms_each, idle_share=idle)
 
 
-def phase_profile_train(dev, results, bf16=False, b2m=False):
+def phase_profile_train(dev, results, bf16=False, b2m=False, local=False):
     """Device time by kernel over train steps at STEP_HW bs 1 (fp32, or the
-    bf16 tier), or box2mask's fp32 step at bs 1, grouped by kind; the idle
-    share is that of the unprofiled step (phase 8, 12 or 15)."""
+    bf16 tier), box2mask's fp32 step at bs 1 or the 1024p LocalEnhancer's
+    fp32 step at bs 1, grouped by kind; the idle share is that of the
+    unprofiled step (phase 8, 12, 15 or 21)."""
     if b2m:
         opt = BoxToMaskTrainOptions(gpu_ids=GPU_IDS, lambda_ctx_neg=5.0, **B2M_ARCH)
         batch = b2m_batch(1, dev, seed=12)
+    elif local:
+        opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **LOCAL_G, **LOCAL_D)
+        batch = encode_inputs(1, *HW_1024, dev, seed=12)
     else:
         opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype="bfloat16" if bf16 else "float32",
                                       **ARCH)
@@ -2325,8 +2896,10 @@ def phase_profile_train(dev, results, bf16=False, b2m=False):
         step(state, batch)
     torch.cuda.synchronize()
     step_ms = (results["box2mask_step"]["rows"][0] if b2m else results["step_bf16"][0] if bf16
+               else results["local_step"]["rows"][0] if local
                else results["step"]["rows"][0])["ms_per_step"]
-    tag = "profile box2mask train" if b2m else "profile train bf16" if bf16 else "profile train"
+    tag = ("profile box2mask train" if b2m else "profile train bf16" if bf16
+           else "profile train 1024p" if local else "profile train")
     profile_by_kind(lambda: step(state, batch), 3, tag, step_ms, results)
     del model
     torch.cuda.empty_cache()
@@ -2554,10 +3127,9 @@ def phase_main_path_kernels(dev, sites, out_shape, results):
     nbytes, ops = encode_bytes(1, h, w, 35, 3, 4)
     bms, by = bound(nbytes, ops)
     enc = dict(
-        name="encode", route="cuda", source=f"{PKG}/csrc/encode.cu",
+        name="encode (pad 3)", variant="pad3", route="cuda", source=f"{PKG}/csrc/encode.cu",
         replaces=f"{JAX_PKG}/ops/pallas/encode.py:205",
-        also_replaces=[f"{JAX_PKG}/ops/pallas/encode.py:142"],
-        launches=results["launches"]["encode"], max_abs_err=err,
+        launches=results["serving"]["all_variants"]["encode"]["pad3"], max_abs_err=err,
         ms=graph_ms(lambda: kenc.encode(*args, pad=3), 50),
         eager_ms=cuda_ms(lambda: kenc.encode(*args, pad=3), 50),
         plain_ms=graph_ms(lambda: kenc.encode_plain(*args, pad=3)),
@@ -2574,6 +3146,23 @@ def phase_main_path_kernels(dev, sites, out_shape, results):
         row["max_abs_diff"], row["kernel_ms"] = row["max_abs_err"], row["ms"]
         log(f"[main-path kernel] {row}")
     return [enc, inn]
+
+
+def encode_pad0_row(local_table, train_variants, serve_variants):
+    """JSON row of row 2 (``encode_full``, the pad-0 encode): its launches on
+    main path 8 (the 1024p train and serving CLIs), timed on the call one
+    1024x512 LocalEnhancer step makes of it (phase 19)."""
+    t = next(r for r in local_table if r["name"] == "encode")
+    row = dict(name="encode (pad 0)", variant="pad0", route="cuda",
+               source=f"{PKG}/csrc/encode.cu", replaces=f"{JAX_PKG}/ops/pallas/encode.py:142",
+               launches=train_variants["encode"]["pad0"] + serve_variants["encode"]["pad0"],
+               max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+               bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+               per=f"the {t['launches_per_step']} call one {HW_1024[1]}x{HW_1024[0]} "
+                   "LocalEnhancer step makes, bs 1, fp32")
+    row["max_abs_diff"], row["kernel_ms"] = row["max_abs_err"], row["ms"]
+    log(f"[main-path kernel] {row}")
+    return row
 
 
 def phase_model(dev, results):
@@ -2675,6 +3264,7 @@ def main(argv=None):
     phase_train_kernels(dev, results)
     phase_conv_in(dev, results)
     phase_b2m_kernels(dev, results)
+    local_table = phase_local_kernels(dev, results)
     with tempfile.TemporaryDirectory() as tmp:
         sites, out_shape = phase_serving(tmp, results)
         cli_launches, cli_calls, cli_variants = phase_train_cli(tmp, results)
@@ -2685,12 +3275,17 @@ def main(argv=None):
         two_step_launches, two_step_variants = phase_two_step_cli(tmp, results)
         phase_two_step_pipeline(tmp, dev, results)
         eval_launches, eval_variants = phase_evaluate_cli(tmp, results)
+        local_launches, local_variants, local_serve_launches, local_serve_variants = \
+            phase_local_cli(tmp, dev, results)
+        feat_launches, feat_variants = phase_feat_cli(tmp, dev, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)
     phase_model(dev, results)
     step_calls = phase_train_step(dev, results)
     phase_train_step_bf16(dev, results)
     phase_b2m_step(dev, results)
+    phase_local_step(dev, results)
+    phase_feat_step(dev, results)
     kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants,
                                              step_calls, results)
     # every kernel's launches per variant on each main path
@@ -2698,7 +3293,16 @@ def main(argv=None):
                      "train_bf16_pool": results["train_cli_bf16"]["variants"],
                      "roofline": results["roofline"]["all_variants"],
                      "box2mask_train": b2m_variants, "box2mask_serving": b2m_serve_variants,
-                     "two_step": two_step_variants, "evaluate": eval_variants}
+                     "two_step": two_step_variants, "evaluate": eval_variants,
+                     "train_1024p": local_variants, "serving_1024p": local_serve_variants,
+                     **feat_variants}
+    path_launches = {"serving": results["launches"], "train": cli_launches,
+                     "train_bf16_pool": bf16_launches, "roofline": roofline_launches,
+                     "box2mask_train": b2m_launches, "box2mask_serving": b2m_serve_launches,
+                     "two_step": two_step_launches, "evaluate": eval_launches,
+                     "train_1024p": local_launches, "serving_1024p": local_serve_launches,
+                     **feat_launches}
+    kernels.append(encode_pad0_row(local_table, local_variants, local_serve_variants))
     kernels.append(conv_in_main_path_row(dev, results))
     kernels.append(conv_in_fp32_row(results, path_variants))
     # launches per variant on the main path of the row (the plan functions'
@@ -2714,11 +3318,11 @@ def main(argv=None):
         name = row["name"]
         if name == "conv3x3_in_act (fp32)":
             continue
-        row["launches_by_path"] = {
-            "serving": results["launches"][name], "train": cli_launches[name],
-            "train_bf16_pool": bf16_launches[name], "roofline": roofline_launches[name],
-            "box2mask_train": b2m_launches[name], "box2mask_serving": b2m_serve_launches[name],
-            "two_step": two_step_launches[name], "evaluate": eval_launches[name]}
+        if name.startswith("encode ("):    # the encode kernel's pad variants, a row each
+            row["launches_by_path"] = {p: v["encode"][row["variant"]]
+                                       for p, v in path_variants.items()}
+            continue
+        row["launches_by_path"] = {p: v[name] for p, v in path_launches.items()}
         if name in ("mse_to_scalar", "l1_to_scalar"):
             row["terms_by_path"] = row["launches_by_path"]
             row["launches_by_path"] = {p: v[name]["group"] for p, v in path_variants.items()}
@@ -2727,6 +3331,7 @@ def main(argv=None):
         phase_profile_train(dev, results)
         phase_profile_train(dev, results, bf16=True)
         phase_profile_train(dev, results, b2m=True)
+        phase_profile_train(dev, results, local=True)
         phase_profile_two_step(dev, results)
     results["kernels"] = kernels
     results["seconds"] = time.time() - t0

@@ -6,7 +6,12 @@
         --name NAME --dataroot DIR [--gpu_ids -1 for the CPU]
 
 Counterpart of ``cli/mask2image_test.py`` in the JAX package, without the
-W-sharded (--spatial_shards) and cluster-feature flows, which wait.
+W-sharded (--spatial_shards) flow, which waits. ``--netG local`` serves the
+1024p LocalEnhancer; under ``--instance_feat`` without
+``--use_encoded_image``, an existing ``--cluster_path`` npy
+(``tools/encode_features.py``) paints each instance with a cluster center
+of its class as the features (JAX ``:47-56,125-131``), else the Encoder
+encodes the real image.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 from ..configs.options import MaskToImageTestOptions, parse_cli
 from ..data.loader import CreateDataLoader
+from ..eval.features import sample_cluster_features
 from ..models.factory import create_model
 from ..utils import html as html_mod
 from ..utils.checkpoint import restore_params
@@ -39,8 +45,16 @@ def main(argv=None):
         web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, Epoch = {opt.which_epoch}"
     )
 
+    clusters = None
+    if opt.instance_feat and not opt.use_encoded_image and os.path.exists(opt.cluster_path):
+        clusters = np.load(opt.cluster_path)
+        print(f"loaded feature clusters {clusters.shape} from {opt.cluster_path}")
+
     done = 0
     for host_batch in loader:
+        if clusters is not None:
+            host_batch = dict(host_batch, feat=sample_cluster_features(
+                clusters, np.asarray(host_batch["inst"])))
         batch = {
             k: torch.from_numpy(v).to(model.device)
             for k, v in host_batch.items()

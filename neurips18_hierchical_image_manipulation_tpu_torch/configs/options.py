@@ -70,7 +70,7 @@ class BaseOptions:
     n_blocks_local: int = 3
     niter_fix_global: int = 0
 
-    # instance-feature encoder (not ported yet)
+    # instance-feature encoder (--instance_feat / --label_feat)
     no_instance: bool = False
     instance_feat: bool = False
     label_feat: bool = False
@@ -156,23 +156,23 @@ class TrainOptions(BaseOptions):
 # training flags whose path is not ported yet: (flag, is it set?, where it
 # is queued in ROADMAP.md)
 _TRAIN_NOT_PORTED = (
-    ("--load_pretrain", lambda o: bool(o.load_pretrain), "the 1024p hand-off, slice 6"),
-    ("--mesh_devices > 1", lambda o: o.mesh_devices > 1, "data parallel, slice 8"),
+    ("--mesh_devices > 1", lambda o: o.mesh_devices > 1, "data parallel, ROADMAP.md §A.6"),
     ("--device_resident_data", lambda o: o.device_resident_data,
-     "device-resident data, slice 9"),
-    ("--device_prefetch > 0", lambda o: o.device_prefetch > 0, "prefetch, slice 9"),
+     "device-resident data, ROADMAP.md §A.7"),
+    ("--device_prefetch > 0", lambda o: o.device_prefetch > 0, "prefetch, ROADMAP.md §A.7"),
     ("--use_dropout", lambda o: o.use_dropout,
-     "dropout in training, whose mask has yet to be held against the JAX package's"),
+     "dropout in training (ROADMAP.md §A.1), whose mask has yet to be held against the "
+     "JAX package's"),
     ("--remat / --remat_policy", lambda o: o.remat or o.remat_policy != "none",
-     "recomputation, slice 11 (tooling)"),
-    ("--debug_nans", lambda o: o.debug_nans, "tooling, slice 11"),
-    ("--profile_dir", lambda o: bool(o.profile_dir), "torch.profiler tooling, slice 11"),
+     "recomputation, ROADMAP.md §A.9 (tooling)"),
+    ("--debug_nans", lambda o: o.debug_nans, "tooling, ROADMAP.md §A.9"),
+    ("--profile_dir", lambda o: bool(o.profile_dir), "torch.profiler tooling, ROADMAP.md §A.9"),
 )
 
 
 def check_train_options(opt) -> None:
-    """Refuse every training flag whose path is not ported yet, naming the
-    slice that brings it, rather than ignoring it."""
+    """Refuse every training flag whose path is not ported yet, naming
+    where it waits, rather than ignoring it."""
     for flag, is_set, where in _TRAIN_NOT_PORTED:
         if is_set(opt):
             raise NotImplementedError(f"{flag} is not ported yet: it waits for {where}")

@@ -84,6 +84,16 @@ class AlignedDataset:
         img_dir = os.path.join(self.root, f"{phase}_img")
         if os.path.isdir(img_dir):
             self.image_paths = make_dataset(img_dir, opt.max_dataset_size)
+        # --load_features: per-image encoder feature maps from {phase}_feat/,
+        # keyed by the label file's basename (tools/precompute_feature_maps.py
+        # writes them as exact float .npy, JAX data/cityscapes.py:91-102)
+        self.feat_dir = None
+        if getattr(opt, "load_features", False):
+            self.feat_dir = os.path.join(self.root, f"{phase}_feat")
+            if not os.path.isdir(self.feat_dir):
+                raise FileNotFoundError(
+                    f"--load_features set but {self.feat_dir} is missing; run "
+                    "tools/precompute_feature_maps.py first")
         self.seed = getattr(opt, "seed", 0)
         self._epoch = 0
         self._cache = (
@@ -171,4 +181,14 @@ class AlignedDataset:
             arr = np.asarray(rgb)
             sample["image"] = arr if u8 else normalize_rgb(arr)
 
+        if self.feat_dir is not None:
+            stem = os.path.splitext(os.path.basename(self.label_paths[index]))[0]
+            feat = np.load(os.path.join(self.feat_dir, stem + ".npy"))
+            # piecewise constant per instance: NEAREST is exact; each channel
+            # an 'F' image under the label's (crop, flip) draw
+            sample["feat"] = np.stack([
+                np.asarray(apply_transform(
+                    Image.fromarray(feat[..., c].astype(np.float32), mode="F"),
+                    self.opt, params, Image.NEAREST), np.float32)
+                for c in range(feat.shape[-1])], -1)
         return sample

@@ -90,18 +90,33 @@ class DataLoader:
 
 def CreateDataLoader(opt, records=None):
     """opt.model / --use_bbox_dataset select the dataset family (aligned
-    scenes vs bbox-crop windows). The device-resident and grain loaders
-    and precomputed feature maps of the JAX package are not ported yet."""
-    for flag in ("device_resident_data", "load_features"):
-        if getattr(opt, flag, False):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    scenes vs bbox-crop windows). ``--load_features`` reads precomputed
+    feature maps into the aligned scenes' samples. The device-resident and
+    grain loaders of the JAX package are not ported yet."""
+    bbox = getattr(opt, "model", "pix2pixHD") == "box2mask" or getattr(
+        opt, "use_bbox_dataset", False)
+    if getattr(opt, "load_features", False):
+        if getattr(opt, "device_resident_data", False):
+            # the JAX package's refusal (its resident stores hold no maps)
+            raise ValueError(
+                "--device_resident_data does not support --load_features; "
+                "drop one of the two (on-the-fly --instance_feat works)"
+            )
+        if bbox:
+            # the JAX package's bbox windows carry no maps and silently train
+            # on the Encoder's features instead: refused here
+            raise ValueError(
+                "--load_features reads {phase}_feat maps into aligned scenes; pass "
+                "--no-use_bbox_dataset (the bbox-window dataset carries no feature maps)"
+            )
+    if getattr(opt, "device_resident_data", False):
+        raise NotImplementedError(
+            "--device_resident_data is not ported yet: it waits for ROADMAP.md §A.7")
     if getattr(opt, "data_backend", "threads") != "threads":
         raise NotImplementedError(
             f"--data_backend {opt.data_backend} is not ported yet (use threads)"
         )
-    if getattr(opt, "model", "pix2pixHD") == "box2mask" or getattr(
-        opt, "use_bbox_dataset", False
-    ):
+    if bbox:
         from .bbox import BboxCropDataset
 
         ds = BboxCropDataset(opt, records=records)

@@ -16,7 +16,9 @@ traffic; see the source for the numbers.
 ``encode_cond`` is the no-image mode, ``encode_cond`` / ``_expand_kernel``
 of the JAX package: the discriminator's conditioning (one-hot ⊕ edge) of
 the train step. Its launches count on ``encode_cond.launches``, the RGB
-modes' on ``encode.launches``.
+modes' on ``encode.launches``, and by pad on ``encode.variants`` ("pad3":
+the GlobalGenerator's stem input, ``encode_packed``'s counterpart; "pad0":
+the LocalEnhancer's and the instance-feature path's, ``encode_full``'s).
 
 ``encode`` takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors (or raises). No gradient flows through it.
@@ -116,10 +118,12 @@ def encode(label, inst: Optional[torch.Tensor], image: Optional[torch.Tensor],
         encode_cond.launches += 1
     else:
         encode.launches += 1
+        encode.variants[f"pad{pad}"] += 1
     return out
 
 
 encode.launches = 0
+encode.variants = {"pad0": 0, "pad3": 0}
 
 
 def encode_cond_plain(label, inst: Optional[torch.Tensor], nc: int, dtype=torch.float32):

@@ -65,6 +65,9 @@ def create_model(opt):
     # --no_pallas is accepted and changes nothing here: it selected the JAX
     # package's lax fallbacks over its TPU kernels, while on the card every
     # ported kernel IS the path (the plain versions serve CPU tensors only).
+    # The JAX factory also turns on its IN custom VJP and fused reflect conv
+    # for --netG local: rewrites of the same math that change only the
+    # rounding, with no counterpart here.
     if opt.model == "pix2pixHD":
         from .pix2pixhd import Pix2PixHDModel as Model
     elif opt.model == "box2mask":

@@ -1,12 +1,15 @@
 """Networks — PyTorch counterparts of ``models/networks.py`` in the JAX
-package (pix2pixHD lineage): the GlobalGenerator, the multiscale PatchGAN
-discriminator and the VGG19 feature taps (mask2image), and the two-stream
+package (pix2pixHD lineage): the GlobalGenerator, the 1024p LocalEnhancer,
+the instance-feature Encoder, the multiscale PatchGAN discriminator and the
+VGG19 feature taps (mask2image), and the two-stream
 structure generator with its layout discriminator (box2mask), NHWC
 activations.
 
 Module and parameter names follow the JAX param tree (``conv_in``,
 ``down{i}``, ``res{i}.conv1|conv2``, ``up{i}``, ``conv_out``, the batch
-norm ``norm*`` modules; ``scale{i}.layer{n}`` for D; ``conv{b}_{c}`` for
+norm ``norm*`` modules; the LocalEnhancer's ``global.*`` trunk and
+``local{n}_conv_in|down|res{i}|up``; the Encoder's, as the
+GlobalGenerator's; ``scale{i}.layer{n}`` for D; ``conv{b}_{c}`` for
 VGG; ``enc_in``, ``enc_down{i}``, ``cls_fuse``, ``cls_embed``,
 ``{ctx,obj}_up{i}``, ``{ctx,obj}_out`` and ``d.layer{n}`` for box2mask), so
 ``utils/checkpoint.py`` maps a JAX npz sidecar onto ``state_dict`` keys one
@@ -150,14 +153,14 @@ class ResnetBlock(nn.Module):
         return self.norm2(self.conv2(h), residual=x)
 
 
-class GlobalGenerator(nn.Module):
-    """pix2pixHD GlobalGenerator: c7s1-ngf, n_downsampling stride-2 convs,
-    n_blocks resnet blocks, mirrored transposed-conv ups, c7s1-output_nc +
-    tanh. Input NHWC (B,H,W,input_nc) or a ``PaddedStemInput``; output
-    NHWC (B,H,W,output_nc) in [-1, 1]."""
+class _GlobalBackbone(nn.Module):
+    """The GlobalGenerator without its head: c7s1-ngf, n_downsampling
+    stride-2 convs, n_blocks resnet blocks, mirrored transposed-conv ups
+    (JAX ``_GlobalBackbone``, ``networks.py:358-403``), the trunk of the
+    LocalEnhancer. Input NHWC or a ``PaddedStemInput``; output NHWC
+    (B,H,W,ngf) after the last up's norm and ReLU."""
 
-    def __init__(self, input_nc, output_nc=3, ngf=64, n_downsampling=4,
-                 n_blocks=9, norm="instance"):
+    def __init__(self, input_nc, ngf=64, n_downsampling=4, n_blocks=9, norm="instance"):
         super().__init__()
         self.norm, self.n_downsampling, self.n_blocks = norm, n_downsampling, n_blocks
         db = norm == "instance"
@@ -175,10 +178,6 @@ class GlobalGenerator(nn.Module):
             cout = ngf * mult // 2
             self.add_module(f"up{i}", ConvTranspose(ngf * mult, cout, dead_bias=db))
             self.add_module(f"norm_up{i}", NormAct(cout, norm, "relu"))
-        self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        _reset_convs(self, generator)
 
     def forward(self, x):
         if isinstance(x, PaddedStemInput):
@@ -192,7 +191,125 @@ class GlobalGenerator(nn.Module):
             h = getattr(self, f"res{i}")(h)
         for i in range(self.n_downsampling):
             h = getattr(self, f"norm_up{i}")(getattr(self, f"up{i}")(h))
-        return torch.tanh(self.conv_out(h))
+        return h
+
+
+class GlobalGenerator(_GlobalBackbone):
+    """pix2pixHD GlobalGenerator: the trunk, then c7s1-output_nc + tanh.
+    Input NHWC (B,H,W,input_nc) or a ``PaddedStemInput``; output NHWC
+    (B,H,W,output_nc) in [-1, 1]."""
+
+    def __init__(self, input_nc, output_nc=3, ngf=64, n_downsampling=4,
+                 n_blocks=9, norm="instance"):
+        super().__init__(input_nc, ngf, n_downsampling, n_blocks, norm)
+        self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+    def forward(self, x):
+        return torch.tanh(self.conv_out(super().forward(x)))
+
+
+class LocalEnhancer(nn.Module):
+    """pix2pixHD LocalEnhancer (JAX ``networks.py:406-508``): the global
+    trunk (``global``, at ngf * 2^n_local_enhancers) runs on the input
+    average-pooled n_local_enhancers times; branch n (``local{n}_*``, at
+    ngf * 2^(N-n)) takes the input pooled N-n times through a c7s1 stem and
+    one stride-2 down, adds the trunk's (or the previous branch's) output,
+    refines with n_blocks_local resnet blocks and upsamples once; the head
+    is c7s1-output_nc + tanh. The input is the unpadded NHWC tensor (its
+    pyramid pools it before any pad). The JAX package's packed stems and
+    packed-output up are TPU layouts of the same math and have no
+    counterpart."""
+
+    def __init__(self, input_nc, output_nc=3, ngf=32, n_downsample_global=4,
+                 n_blocks_global=9, n_local_enhancers=1, n_blocks_local=3,
+                 norm="instance"):
+        super().__init__()
+        self.norm, self.n_local_enhancers = norm, n_local_enhancers
+        self.n_blocks_local = n_blocks_local
+        db = norm == "instance"
+        self.add_module("global", _GlobalBackbone(
+            input_nc, ngf * 2**n_local_enhancers, n_downsample_global, n_blocks_global, norm))
+        for n in range(1, n_local_enhancers + 1):
+            c = ngf * 2 ** (n_local_enhancers - n)
+            self.add_module(f"local{n}_conv_in", Conv(input_nc, c, 7, reflect=3, dead_bias=db))
+            self.add_module(f"local{n}_norm_in", NormAct(c, norm, "relu"))
+            self.add_module(f"local{n}_down", Conv(c, 2 * c, 3, 2, 1, dead_bias=db))
+            self.add_module(f"local{n}_norm_down", NormAct(2 * c, norm, "relu"))
+            for i in range(n_blocks_local):
+                self.add_module(f"local{n}_res{i}", ResnetBlock(2 * c, norm))
+            self.add_module(f"local{n}_up", ConvTranspose(2 * c, c, dead_bias=db))
+            self.add_module(f"local{n}_norm_up", NormAct(c, norm, "relu"))
+        self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+    def forward(self, x):
+        pyramid = [x]
+        for _ in range(self.n_local_enhancers):
+            pyramid.append(nnops.avg_pool_3x3s2(pyramid[-1]))
+        out = getattr(self, "global")(pyramid[-1])
+        for n in range(1, self.n_local_enhancers + 1):
+            def layer(name, n=n):
+                return getattr(self, f"local{n}_{name}")
+
+            h = layer("norm_in")(layer("conv_in")(pyramid[self.n_local_enhancers - n]))
+            h = layer("norm_down")(layer("down")(h))
+            h = h + out     # the trunk's (or the previous branch's) features
+            for i in range(self.n_blocks_local):
+                h = layer(f"res{i}")(h)
+            out = layer("norm_up")(layer("up")(h))
+        return torch.tanh(self.conv_out(out))
+
+
+class Encoder(nn.Module):
+    """pix2pixHD instance-feature Encoder (JAX ``networks.py:591-631``): a
+    conv encoder-decoder (c7s1-nef, n_downsampling stride-2 convs, as many
+    transposed-conv ups, c7s1-feat_num + tanh), then instance-wise average
+    pooling: every pixel takes the mean feature of its instance.
+
+    Raw Cityscapes ids (class * 1000 + k) map to a static segment space of
+    label_nc * instance_slots segments, class * slots + k % slots (clipped):
+    two instances of one class collide only when its k differ by a
+    multiple of ``instance_slots`` (64), as in the JAX package."""
+
+    def __init__(self, input_nc=3, feat_num=3, nef=16, n_downsampling=4, norm="instance",
+                 label_nc=35, instance_slots=64):
+        super().__init__()
+        self.n_downsampling = n_downsampling
+        self.label_nc, self.instance_slots = label_nc, instance_slots
+        db = norm == "instance"
+        self.conv_in = Conv(input_nc, nef, 7, reflect=3, dead_bias=db)
+        self.norm_in = NormAct(nef, norm, "relu")
+        for i in range(n_downsampling):
+            cin, cout = nef * 2**i, nef * 2 ** (i + 1)
+            self.add_module(f"down{i}", Conv(cin, cout, 3, 2, 1, dead_bias=db))
+            self.add_module(f"norm_down{i}", NormAct(cout, norm, "relu"))
+        for i in range(n_downsampling):
+            mult = 2 ** (n_downsampling - i)
+            self.add_module(f"up{i}", ConvTranspose(nef * mult, nef * mult // 2, dead_bias=db))
+            self.add_module(f"norm_up{i}", NormAct(nef * mult // 2, norm, "relu"))
+        self.conv_out = Conv(nef, feat_num, 7, reflect=3)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_convs(self, generator)
+
+    def forward(self, img, inst):
+        """img (B,H,W,3) in [-1, 1], inst (B,H,W) int ids -> (B,H,W,feat_num)."""
+        h = self.norm_in(self.conv_in(img))
+        for i in range(self.n_downsampling):
+            h = getattr(self, f"norm_down{i}")(getattr(self, f"down{i}")(h))
+        for i in range(self.n_downsampling):
+            h = getattr(self, f"norm_up{i}")(getattr(self, f"up{i}")(h))
+        h = torch.tanh(self.conv_out(h))
+        ids = inst.to(torch.int64)
+        slots = self.instance_slots
+        seg = torch.clamp((ids // 1000) * slots + (ids % 1000) % slots,
+                          0, self.label_nc * slots - 1)
+        return nnops.segment_mean_2d(h, seg, self.label_nc * slots)
 
 
 def _reset_convs(module: nn.Module, generator: torch.Generator) -> None:
@@ -432,26 +549,37 @@ def define_D(opt, generator: torch.Generator) -> MultiscaleDiscriminator:
 
 
 def define_G(opt, input_nc: int, generator: torch.Generator) -> nn.Module:
-    """``define_G`` for ``--netG global`` and ``twostream`` (``local`` waits
-    for a later slice), initialized from ``generator``; ``input_nc`` is the
-    GlobalGenerator's (the structure generator's follows label_nc)."""
+    """``define_G`` for ``--netG global``, ``local`` and ``twostream``,
+    initialized from ``generator``; ``input_nc`` is the generator input's
+    channels (the structure generator's follow label_nc)."""
     if opt.netG == "twostream":
         if getattr(opt, "use_dropout", False):
             raise ValueError("--use_dropout is not supported for netG=twostream")
         g = TwoStreamStructureGenerator(
             label_nc=opt.label_nc, ngf=opt.ngf, n_downsampling=opt.n_downsample_global,
             n_blocks=opt.n_blocks_global, norm=opt.norm)
-        g.reset_parameters(generator)
-        return g
-    if opt.netG != "global":
-        raise NotImplementedError(f"--netG {opt.netG} is not ported yet")
-    g = GlobalGenerator(
-        input_nc,
-        output_nc=opt.output_nc,
-        ngf=opt.ngf,
-        n_downsampling=opt.n_downsample_global,
-        n_blocks=opt.n_blocks_global,
-        norm=opt.norm,
-    )
+    elif opt.netG == "local":
+        g = LocalEnhancer(
+            input_nc, output_nc=opt.output_nc, ngf=opt.ngf,
+            n_downsample_global=opt.n_downsample_global,
+            n_blocks_global=opt.n_blocks_global,
+            n_local_enhancers=opt.n_local_enhancers, n_blocks_local=opt.n_blocks_local,
+            norm=opt.norm)
+    elif opt.netG == "global":
+        g = GlobalGenerator(
+            input_nc, output_nc=opt.output_nc, ngf=opt.ngf,
+            n_downsampling=opt.n_downsample_global, n_blocks=opt.n_blocks_global,
+            norm=opt.norm)
+    else:
+        raise ValueError(f"unknown netG: {opt.netG}")
     g.reset_parameters(generator)
     return g
+
+
+def define_E(opt, generator: torch.Generator) -> Encoder:
+    """The instance-feature Encoder of ``--instance_feat`` / ``--label_feat``
+    (JAX ``Pix2PixHDModel.__post_init__``), initialized from ``generator``."""
+    e = Encoder(3, feat_num=opt.feat_num, nef=opt.nef, n_downsampling=opt.n_downsample_E,
+                norm=opt.norm, label_nc=opt.label_nc)
+    e.reset_parameters(generator)
+    return e

@@ -13,13 +13,17 @@ masters take the gradients. G's terms see D through detached parameters
 
 The generator is conditioned on the label one-hot, the instance edge
 plane and the box-masked RGB (the fork's change to pix2pixHD), all built
-in one pass by the encode kernel (``kernels/encode.py``):
+in one pass by the encode kernel (``kernels/encode.py``), and, under
+``--instance_feat`` / ``--label_feat``, the instance features (the
+Encoder's, ``netE``, trained with G; or ``batch["feat"]``):
 
-  * instance norm, ``n_downsampling >= 1`` and even H, W (the JAX
-    package's stem-pack conditions): the kernel emits the input already
-    reflect-padded by 3 and wraps it in ``PaddedStemInput``, so the stem
-    conv pads nothing itself;
-  * otherwise (``--norm batch``, odd sizes): the unpadded tensor.
+  * a GlobalGenerator under instance norm, ``n_downsampling >= 1``, even
+    H, W and no features (the JAX package's stem-pack conditions): the
+    kernel emits the input already reflect-padded by 3 and wraps it in
+    ``PaddedStemInput``, so the stem conv pads nothing itself;
+  * otherwise (the LocalEnhancer, whose pyramid pools the input first;
+    features, concatenated after the kernel; ``--norm batch``, odd sizes):
+    the unpadded tensor.
 """
 
 from __future__ import annotations
@@ -41,10 +45,6 @@ _COORD_KEYS = frozenset({"boxes"})
 
 class Pix2PixHDModel:
     def __init__(self, opt, device: torch.device):
-        if getattr(opt, "instance_feat", False) or getattr(opt, "label_feat", False):
-            raise NotImplementedError(
-                "--instance_feat / --label_feat (the feature encoder) is not ported yet"
-            )
         self.opt = opt
         self.device = torch.device(device)
         gen = torch.Generator().manual_seed(int(opt.seed))
@@ -59,6 +59,13 @@ class Pix2PixHDModel:
                 self.vgg.reset_parameters(gen)
                 self.vgg.requires_grad_(False)
                 self.vgg.to(self.device)
+        self.netE = None
+        if self.use_features():
+            self.netE = networks.define_E(opt, gen).to(self.device).train(opt.isTrain)
+
+    def use_features(self) -> bool:
+        return bool(getattr(self.opt, "instance_feat", False)
+                    or getattr(self.opt, "label_feat", False))
 
     def generator_input_nc(self) -> int:
         nc = self.opt.label_nc
@@ -66,16 +73,26 @@ class Pix2PixHDModel:
             nc += 1
         if getattr(self.opt, "use_masked_image", False):
             nc += 3
+        if self.use_features():
+            nc += self.opt.feat_num
         return nc
 
     def _padded_stem(self, h: int, w: int) -> bool:
+        """The JAX package's stem-pack conditions (``pix2pixhd.py:157-160``):
+        a GlobalGenerator under IN with a down and even H, W, and no encoder
+        features (they join the input after the encode kernel). The
+        LocalEnhancer pools its input before any pad."""
         g = self.netG
-        return g.norm == "instance" and g.n_downsampling >= 1 and h % 2 == 0 and w % 2 == 0
+        return (isinstance(g, networks.GlobalGenerator) and g.norm == "instance"
+                and g.n_downsampling >= 1 and h % 2 == 0 and w % 2 == 0
+                and not self.use_features())
 
     def encode_input(self, batch: Dict[str, torch.Tensor]):
         """batch: label (B,H,W) int ids; inst (B,H,W) int; image (B,H,W,3)
         in [-1,1] float, or raw uint8 (--uint8_transfer), normalized here
-        in the dtype the batch or the generator computes in; boxes (B,4).
+        in the dtype the batch or the generator computes in; boxes (B,4);
+        feat (B,H,W,feat_num), optional, the instance features (else the
+        Encoder's, under --instance_feat / --label_feat).
         Returns the generator input: a NHWC tensor or a PaddedStemInput."""
         return self._g_input(self._normalized(batch))
 
@@ -105,7 +122,20 @@ class Pix2PixHDModel:
         dt = batch["image"].dtype if "image" in batch else torch.float32
         return label, inst, dt
 
-    def _g_input(self, batch):
+    def _instance_features(self, batch, params=None):
+        """JAX ``_instance_features``: ``batch["feat"]`` when given
+        (cluster-sampled or precomputed maps), else the Encoder on the real
+        image, pooled over ``inst`` (--instance_feat) or ``label``
+        (--label_feat)."""
+        if "feat" in batch:
+            return batch["feat"]
+        seg = batch["inst"] if getattr(self.opt, "instance_feat", False) else batch["label"]
+        return self._apply(params, "E", batch["image"], seg)
+
+    def _g_input(self, batch, params=None):
+        """One-hot ⊕ edge ⊕ masked RGB from the encode kernel, ⊕ the
+        instance features when the model has them (the JAX channel order,
+        ``pix2pixhd.py:144-156``)."""
         label, inst, dt = self._ids(batch)
         image = boxes = None
         if getattr(self.opt, "use_masked_image", False):
@@ -115,7 +145,10 @@ class Pix2PixHDModel:
         nc = self.opt.label_nc
         if self._padded_stem(h, w):
             return PaddedStemInput(kenc.encode(label, inst, image, boxes, nc, pad=3, dtype=dt))
-        return kenc.encode(label, inst, image, boxes, nc, pad=0, dtype=dt)
+        g = kenc.encode(label, inst, image, boxes, nc, pad=0, dtype=dt)
+        if self.use_features():
+            g = torch.cat([g, self._instance_features(batch, params).to(dt)], -1)
+        return g
 
     def _cond(self, batch):
         """D's conditioning: one-hot ⊕ edge, no RGB (the JAX package's mode
@@ -131,9 +164,9 @@ class Pix2PixHDModel:
     # ---- training: the fused G + D objective ----
 
     def nets(self) -> Dict[str, torch.nn.Module]:
-        """The networks by their JAX param-tree names: G, D and VGG."""
-        return {k: m for k, m in (("G", self.netG), ("D", self.netD), ("VGG", self.vgg))
-                if m is not None}
+        """The networks by their JAX param-tree names: G, D, VGG and E."""
+        return {k: m for k, m in (("G", self.netG), ("D", self.netD), ("VGG", self.vgg),
+                                  ("E", self.netE)) if m is not None}
 
     def _params(self, params, net):
         return params[net] if params is not None else dict(self.nets()[net].named_parameters())
@@ -165,7 +198,7 @@ class Pix2PixHDModel:
         g_params = self._params(params, "G")
         batch = self._normalized(batch, next(iter(g_params.values())).dtype)
         real = batch.get("image")
-        g_input, cond = self._g_input(batch), self._cond(batch)
+        g_input, cond = self._g_input(batch, params), self._cond(batch)
         fake = functional_call(self.netG, g_params, (g_input,))
         use_lsgan = not opt.no_lsgan
         d_frozen = {k: v.detach() for k, v in self._params(params, "D").items()}

@@ -1,10 +1,11 @@
 """NN primitives with the JAX package's semantics, NHWC activations.
 
 Counterpart of the subset of ``ops/nnops.py`` (JAX package) that the
-GlobalGenerator, the multiscale discriminator and VGG19 need. Weights are in torch's layouts: conv
-(Cout, Cin, kh, kw), transposed conv (Cin, Cout, kh, kw). The JAX HWIO
-kernels map to them by ``transpose(3, 2, 0, 1)`` and ``transpose(2, 3, 0,
-1)`` (no spatial flip) — see ``utils/checkpoint.py``.
+generators, the Encoder, the multiscale discriminator and VGG19 need.
+Weights are in torch's layouts: conv (Cout, Cin, kh, kw), transposed
+conv (Cin, Cout, kh, kw). The JAX HWIO kernels map to them by
+``transpose(3, 2, 0, 1)`` and ``transpose(2, 3, 0, 1)`` (no spatial
+flip) — see ``utils/checkpoint.py``.
 
 The JAX package's TPU layout rewrites (space-to-depth packing, phasepack,
 lane padding, the strip-form reflect conv) have no counterpart: the port
@@ -127,6 +128,29 @@ def leaky_relu(x, negative_slope=0.2):
 
 def relu(x):
     return torch.clamp_min(x, 0)
+
+
+def segment_mean_2d(feat, seg_ids, num_segments: int):
+    """Instance-wise average pooling (the pix2pixHD Encoder's; JAX
+    ``nnops.segment_mean_2d``): feat (N,H,W,C), seg_ids (N,H,W) ints in
+    [0, num_segments) -> (N,H,W,C), every pixel the mean of its segment in
+    its image. Sums and counts accumulate in fp32 whatever feat's dtype (a
+    bf16 running sum stalls at 256), one rounding to feat's dtype at the
+    end. Differentiable. The sums are ``index_put(accumulate=True)`` and the
+    gather back is indexing of the rounded means, whose backward is the same
+    accumulation in feat's dtype (the JAX function's gradient sums in it
+    too, so a bf16 gradient carries its running-sum rounding): on a CUDA tensor
+    both take PyTorch's sort-based accumulation, a fixed order (no atomics),
+    so the result and its gradient are the same bits run to run."""
+    n, h, w, c = feat.shape
+    ids = seg_ids.reshape(n, h * w).to(torch.int64)
+    ids = (ids + num_segments * torch.arange(n, device=ids.device)[:, None]).reshape(-1)
+    f32 = feat.reshape(n * h * w, c).to(torch.float32)
+    sums = f32.new_zeros((n * num_segments, c)).index_put((ids,), f32, accumulate=True)
+    counts = f32.new_zeros((n * num_segments,)).index_put(
+        (ids,), f32.new_ones((n * h * w,)), accumulate=True)
+    means = (sums / torch.clamp_min(counts, 1.0)[:, None]).to(feat.dtype)
+    return means[ids].reshape(n, h, w, c)
 
 
 class PaddedStemInput:

@@ -9,7 +9,10 @@ checkpoint (``utils/checkpoint.CheckpointManager``).
 ``--pool_size > 0`` takes the split G/D steps with the host-side image
 pool between them (``:86-100``) for a model with a D-only objective
 (``d_losses``: mask2image); box2mask has none and trains the fused step,
-as in the JAX package. ``--continue_train`` restores
+as in the JAX package. ``--load_pretrain DIR`` initializes the networks
+from another run's ``--which_epoch`` weights (``utils/checkpoint.
+load_pretrain_into``) once the state is built and before a resume
+(``:54-69``). ``--continue_train`` restores
 ``--which_epoch`` and resumes at ``iter.txt``'s epoch, skipping the batches
 of it already done (``:61-71``, ``:250-262``). The loader's shuffle order
 is not part of a checkpoint (as in the JAX package): a resumed run repeats
@@ -24,7 +27,7 @@ import time
 
 import torch
 
-from ..utils.checkpoint import CheckpointManager
+from ..utils.checkpoint import CheckpointManager, load_pretrain_into
 from ..utils.image_pool import ImagePool
 from ..utils.imaging import tensor2im, tensor2label
 from ..utils.visualizer import Visualizer
@@ -65,6 +68,8 @@ def train(opt, model, loader, make_visuals=None):
     visualizer = Visualizer(opt)
     ckpt = CheckpointManager(opt)
     state = make_optimizers(opt, model, max(len(loader), 1))
+    if getattr(opt, "load_pretrain", ""):
+        load_pretrain_into(model, opt.load_pretrain, opt.which_epoch)
     start_epoch, epoch_iter0 = 1, 0
     if opt.continue_train:
         if ckpt.exists(opt.which_epoch):

@@ -15,22 +15,26 @@ param path joined with '/': ``G/params/conv_in/kernel``,
     ``cls_embed``) -> ``nn.Linear`` weight (out, in) by transpose;
   * batch-norm scale -> weight; every bias -> bias.
 
-The transposed convs are the modules named ``up{i}`` or ``{tag}_up{i}``
-(the GlobalGenerator's ``up{i}``, the structure generator's decoders'
-``ctx_up{i}`` / ``obj_up{i}``). The same map
+The transposed convs are the modules named ``up{i}``, ``{tag}_up{i}`` or
+``local{n}_up`` (the GlobalGenerator's, the LocalEnhancer trunk's and the
+Encoder's ``up{i}``, the structure generator's decoders' ``ctx_up{i}`` /
+``obj_up{i}``, the LocalEnhancer branches' ``local{n}_up``). The same map
 serves the discriminator (``D/params/scale{i}/layer{n}/{kernel,bias}``,
 ``norm{n}/{scale,bias}`` under batch norm) and VGG19
 (``VGG/params/conv{b}_{c}/{kernel,bias}``) and box2mask's layout
-discriminator (``D/params/d/layer{n}/...``): ``state_dicts_from_jax`` turns
-one JAX ``{G, D, VGG}`` tree into the port's three ``state_dict``s.
-``save_params`` writes ``{label}_params.npz`` in the JAX sidecar layout
-(G and D, as the JAX package saves its train state's params).
+discriminator (``D/params/d/layer{n}/...``) and the instance-feature
+Encoder (``E/params/...``): ``state_dicts_from_jax`` turns one JAX ``{G,
+D, VGG, E}`` tree into the port's ``state_dict``s. ``save_params`` writes
+``{label}_params.npz`` in the JAX sidecar layout (G, D and E, as the JAX
+package saves its train state's params). ``load_pretrain_into`` is
+``--load_pretrain``: the coarse-to-fine hand-off of a GlobalGenerator
+run's weights into a LocalEnhancer's trunk.
 
 ``CheckpointManager`` is the counterpart of the JAX package's
 (``utils/checkpoint.py:21-135``), in its on-disk layout under
 ``{checkpoints_dir}/{name}/``: ``ckpt/{label}/`` holds the resumable state
-(``state.pt``: G's and D's parameters, both Adams' and both schedules'
-state and the step, with ``torch.save``; the JAX package's is an orbax
+(``state.pt``: G's, D's (and E's) parameters, both Adams' and both
+schedules' state and the step, with ``torch.save``; the JAX package's is an orbax
 directory), ``ckpt/{label}_params.npz`` the params sidecar, and
 ``iter.txt`` "epoch,iter" — the epoch to resume and the batches of it
 already done.
@@ -46,8 +50,9 @@ import numpy as np
 import torch
 
 PREFIX = "G/params/"
-NETS = ("G", "D", "VGG")
-_UP = re.compile(r"(^|_)up\d+$")
+NETS = ("G", "D", "VGG", "E")
+# a transposed conv's module name: up{i}, {tag}_up{i}, local{n}_up
+_UP = re.compile(r"(^|_)up\d*$")
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], prefix: str = PREFIX) -> Dict[str, torch.Tensor]:
@@ -107,16 +112,21 @@ def state_dicts_to_jax(state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> Dict[
     return out
 
 
+def trained_nets(model) -> Dict[str, torch.nn.Module]:
+    """The model's trained networks by their JAX param-tree names: G, and
+    D and E where it has them (never the fixed VGG)."""
+    return {net: m for net, m in (("G", model.netG), ("D", getattr(model, "netD", None)),
+                                  ("E", getattr(model, "netE", None))) if m is not None}
+
+
 def save_params(opt, label, model) -> str:
     """Write ``{checkpoints_dir}/{name}/ckpt/{label}_params.npz``: the
-    model's G (and D, when training) in the JAX sidecar layout, which the
-    JAX package's ``load_params_npz`` and this package's ``restore_params``
-    read. Returns the path."""
+    model's G (D when training, E under instance features) in the JAX
+    sidecar layout, which the JAX package's ``load_params_npz`` and this
+    package's ``restore_params`` read. Returns the path."""
     ckpt = os.path.join(opt.checkpoints_dir, opt.name, "ckpt")
     os.makedirs(ckpt, exist_ok=True)
-    nets = {"G": model.netG.state_dict()}
-    if getattr(model, "netD", None) is not None:
-        nets["D"] = model.netD.state_dict()
+    nets = {net: m.state_dict() for net, m in trained_nets(model).items()}
     path = os.path.join(ckpt, f"{label}_params.npz")
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **state_dicts_to_jax(nets))
@@ -124,32 +134,70 @@ def save_params(opt, label, model) -> str:
     return path
 
 
+def _load_npz(path) -> Dict[str, np.ndarray]:
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
 def restore_params(opt, model) -> bool:
-    """Load ``{which_epoch}_params.npz`` into ``model.netG`` where present;
-    every parameter missing from the file (or of another shape) keeps its
-    init — the reference's partial-load fallback. Returns whether a file
-    was found."""
+    """Load ``{which_epoch}_params.npz`` into ``model.netG`` (and
+    ``model.netE``) where present; every parameter missing from the file
+    (or of another shape) keeps its init — the reference's partial-load
+    fallback. Returns whether a file was found."""
     path = os.path.join(
         opt.checkpoints_dir, opt.name, "ckpt", f"{opt.which_epoch}_params.npz"
     )
     if not os.path.exists(path):
         print("WARNING: no checkpoint found — using random init")
         return False
-    with np.load(path) as data:
-        loaded = params_from_jax({k: data[k] for k in data.files})
-    sd = model.netG.state_dict()
+    flat = _load_npz(path)
     missing = 0
     with torch.no_grad():
-        for key, t in sd.items():
-            src = loaded.get(key)
-            if src is not None and tuple(src.shape) == tuple(t.shape):
-                t.copy_(src.to(t.dtype))
-            else:
-                missing += 1
+        for net, module in trained_nets(model).items():
+            if net == "D":
+                continue
+            loaded = params_from_jax(flat, f"{net}/params/")
+            for key, t in module.state_dict().items():
+                src = loaded.get(key)
+                if src is not None and tuple(src.shape) == tuple(t.shape):
+                    t.copy_(src.to(t.dtype))
+                else:
+                    missing += 1
     if missing:
         print(f"checkpoint partial load: {missing} leaves kept at init")
     print(f"restored checkpoint '{opt.which_epoch}'")
     return True
+
+
+def load_pretrain_into(model, pretrain_dir: str, which: str = "latest"):
+    """``--load_pretrain`` (JAX ``CheckpointManager.load_pretrain_into``,
+    ``utils/checkpoint.py:95-122``): initialize the model's G, D (and E)
+    from ``{pretrain_dir}/ckpt/{which}_params.npz``. Each leaf, by its JAX
+    key, loads from the key itself, else from the key with ``/global/``
+    removed once (a GlobalGenerator's trunk into the LocalEnhancer's
+    ``global`` scope), where the shape is equal; every other leaf keeps its
+    init (the LocalEnhancer's 32-channel ``conv_out`` against the
+    GlobalGenerator's 64, a third D scale). Prints and returns the counts
+    (loaded, kept at init)."""
+    data = _load_npz(os.path.join(pretrain_dir, "ckpt", f"{which}_params.npz"))
+    n_loaded = n_missing = 0
+    with torch.no_grad():
+        for net, module in trained_nets(model).items():
+            prefix = f"{net}/params/"
+            out = {}
+            for key, arr in params_to_jax(module.state_dict(), prefix).items():
+                hit = next((c for c in (key, key.replace("/global/", "/", 1))
+                            if c in data and data[c].shape == arr.shape), None)
+                if hit is None:
+                    n_missing += 1
+                else:
+                    out[key] = data[hit].astype(arr.dtype)
+                    n_loaded += 1
+            sd = module.state_dict()
+            for key, t in params_from_jax(out, prefix).items():
+                sd[key].copy_(t)
+    print(f"load_pretrain: {n_loaded} leaves loaded, {n_missing} kept at init")
+    return n_loaded, n_missing
 
 
 class CheckpointManager:
@@ -167,7 +215,7 @@ class CheckpointManager:
         iter.txt: where a resumed run starts."""
         path = self._state_path(label)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        payload = {"params": {"G": model.netG.state_dict(), "D": model.netD.state_dict()},
+        payload = {"params": {net: m.state_dict() for net, m in trained_nets(model).items()},
                    **state.state_dict()}
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -177,10 +225,11 @@ class CheckpointManager:
             f.write(f"{epoch},{epoch_iter}")
 
     def restore(self, label, model, state) -> None:
-        """Load G, D, the optimizers, the schedules and the step in place."""
+        """Load G, D (and E), the optimizers, the schedules and the step in
+        place."""
         payload = torch.load(self._state_path(label), map_location=model.device)
-        model.netG.load_state_dict(payload["params"]["G"])
-        model.netD.load_state_dict(payload["params"]["D"])
+        for net, m in trained_nets(model).items():
+            m.load_state_dict(payload["params"][net])
         state.load_state_dict(payload)
 
     def exists(self, label) -> bool:

@@ -39,7 +39,7 @@ def test_port_imports_no_jax(tmp_path):
     proc = run_script(SCRIPT, str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if " " in ln)
-    assert int(lines["COUNT"]) >= 30
+    assert int(lines["COUNT"]) >= 59
     assert lines["BAD"] == "", f"the port pulled in: {lines['BAD']}"
 
 
@@ -51,7 +51,8 @@ def test_port_imports_no_jax(tmp_path):
      f"{PORT}.utils.checkpoint", f"{PORT}.utils.image_pool", f"{PORT}.cli.box2mask_train",
      f"{PORT}.cli.box2mask_test", f"{PORT}.models.box2mask", f"{PORT}.losses.layout",
      f"{PORT}.cli.two_step_demo", f"{PORT}.cli.evaluate", f"{PORT}.eval.two_step",
-     f"{PORT}.eval.metrics"],
+     f"{PORT}.eval.metrics", f"{PORT}.eval.features", f"{PORT}.tools.encode_features",
+     f"{PORT}.tools.precompute_feature_maps"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

@@ -194,6 +194,49 @@ def test_in_backward_kernel_matches_plain(cuda_device, dt, act, residual, shape)
     assert torch.equal(again, dx)  # no atomics: the same bits every run
 
 
+# the IN sites no other path runs: the 1024p LocalEnhancer's full-resolution
+# branch at 32 channels (bs 1 fp32; bs 4 bf16: 4 channel tiles of the split
+# form), the Encoder's 16-channel stem at a 512x1024 scene (half a 32-channel
+# tile), and its bottleneck-side 256 channels at 32x64
+@pytest.mark.parametrize("shape,dt", [((1, 512, 1024, 32), "float32"),
+                                      ((4, 512, 1024, 32), "bfloat16"),
+                                      ((1, 512, 1024, 16), "float32"),
+                                      ((1, 32, 64, 256), "float32")])
+@pytest.mark.parametrize("act,residual", [("relu", False), ("none", True)])
+def test_in_kernels_at_1024p_and_encoder_sites(cuda_device, shape, dt, act, residual):
+    """The forward and the backward at these shapes, each on its planned
+    variant, against the plain version, the same bits twice."""
+    tdt = getattr(torch, dt)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(tdt)
+    r = torch.randn(shape, generator=g, device=cuda_device).to(tdt) if residual else None
+    gy = torch.randn(shape, generator=g, device=cuda_device).to(tdt)
+    fv, bv = kin._fwd_plan(*shape, tdt)["variant"], kin._bwd_plan(*shape, tdt)["variant"]
+    f0, b0 = dict(kin.instance_norm.variants), dict(kin.instance_norm_bwd.variants)
+    y, mean, rstd = kin.instance_norm(x, act, r)
+    again = kin.instance_norm(x, act, r)
+    dx, dres = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, want_dres=residual)
+    dx2, _ = kin.instance_norm_bwd(x, y, gy, mean, rstd, act, want_dres=residual)
+    assert {k: n - f0[k] for k, n in kin.instance_norm.variants.items()} == dict(
+        {k: 0 for k in f0}, **{fv: 2})
+    assert {k: n - b0[k] for k, n in kin.instance_norm_bwd.variants.items()} == dict(
+        {k: 0 for k in b0}, **{bv: 2})
+    yp, meanp, rstdp = kin.instance_norm_plain(x, act, r)
+    dxp, dresp = kin.instance_norm_bwd_plain(x, y, gy, mean, rstd, act, want_dres=residual)
+    torch.cuda.synchronize()
+    for a, b in zip((y, mean, rstd, dx), (*again, dx2)):
+        assert bits_equal(a, b)
+    torch.testing.assert_close(mean, meanp, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstdp, atol=1e-5, rtol=1e-5)
+    if dt == "float32":
+        torch.testing.assert_close(y, yp, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(y.float(), yp.float(), atol=2.0**-7, rtol=2.0**-7)
+    close_bf16_ok(dx, dxp, tdt)
+    if residual:    # act 'none': the residual's gradient is the cotangent itself
+        assert bits_equal(dres, dresp)
+
+
 def test_in_autograd_through_kernels_matches_plain(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn((2, 16, 32, 128), generator=g, device=cuda_device, requires_grad=True)
@@ -215,7 +258,10 @@ def test_in_autograd_through_kernels_matches_plain(cuda_device):
     ((1, 16, 32, 1024), 1, "bulk"), ((32, 16, 32, 1024), 1, "bulk"),
     ((1, 256, 512, 64), 3, "bulk"), ((1, 64, 128, 64), 3, "bulk"), ((2, 2, 3, 8), 1, "bulk"),
     ((1, 4, 5, 16), 3, "bulk"), ((1, 5, 7, 3), 1, "gather"), ((1, 4, 5, 3), 3, "gather"),
-    ((2, 6, 9, 6), 1, "gather")])
+    ((2, 6, 9, 6), 1, "gather"),
+    # the instance-feature path: the GlobalGenerator stem's 35 + 1 + 3 + 3
+    # channels (their input takes the Encoder's gradient), the Encoder's head
+    ((1, 512, 512, 42), 3, "gather"), ((1, 512, 512, 16), 3, "bulk")])
 def test_reflect_pad_backward_kernel_matches_plain(cuda_device, dt, shape, pad, variant):
     """Each variant against the plain version, its launches counted per
     variant, and the same bits on a second call."""
@@ -400,23 +446,23 @@ def grad_diff(a, b):
     return mx, nr
 
 
-def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
-    """A small G+D+VGG step: every training kernel launches as often as the
-    architecture gives (each loss one group launch), and the loss terms and
-    gradients agree with the plain path. cuDNN deterministic and TF32 off,
-    so that repeated runs give the same bits; the gradient of a randomly
-    initialized GAN step amplifies last-ulp differences of its forward, so
-    the whole-path difference is held to twice the change a 1-ulp nudge of
-    the input image makes, measured on both paths."""
-    opt = MaskToImageTrainOptions(gpu_ids="0", label_nc=8, ngf=16, ndf=16,
-                                  n_downsample_global=2, n_blocks_global=2)
-    model = create_model(opt)
+def check_step_kernel_path(model, batch, launches, groups=(2, 2), nudges=("image",)):
+    """One step of ``model`` on ``batch``: the training kernels' launches
+    (IN backward, MSE terms, L1 terms, reflect-pad backward, encode_cond)
+    and the loss groups as given, and the loss terms and gradients against
+    the plain path. cuDNN deterministic and TF32 off, so that repeated runs
+    give the same bits; the gradient of a randomly initialized GAN step
+    amplifies last-ulp differences of its forward, so the whole-path
+    difference is held to twice the change a 1-ulp nudge of the input image
+    makes, measured on both paths ("params" in ``nudges``: also the change
+    a 1-ulp nudge of every trained parameter makes, the larger counting).
+    The gradients are G's, D's and, under instance features, E's -> the
+    kernel path's gradients."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=8, seed=6)
     bumped = dict(batch)
     bumped["image"] = torch.nextafter(batch["image"], torch.full_like(batch["image"], 2.0))
-    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
+    params = [p for net, m in model.nets().items() if net != "VGG" for p in m.parameters()]
 
     def plain_path():
         stack = contextlib.ExitStack()
@@ -436,17 +482,26 @@ def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precisi
             total.backward()
         return metrics, [p.grad.clone() if p.grad is not None else None for p in params]
 
+    def params_nudged(ctx):
+        saved = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p in params:
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+        try:
+            return run(batch, ctx)[1]
+        finally:
+            with torch.no_grad():
+                for p, v in zip(params, saved):
+                    p.copy_(v)
+
     counters = [kin.instance_norm_bwd, klosses.mse_to_scalar, klosses.l1_to_scalar,
                 krp.reflect_pad_bwd, kenc.encode_cond]
     before = [c.launches for c in counters]
-    groups = [klosses.mse_to_scalar.variants["group"], klosses.l1_to_scalar.variants["group"]]
+    groups0 = [klosses.mse_to_scalar.variants["group"], klosses.l1_to_scalar.variants["group"]]
     mk, gk = run(batch, contextlib.nullcontext())
-    # IN bwd: G 1 + 2*2 + 2*2 sites, D 2 applies x 2 scales x 3 sites;
-    # 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; 2*2 resblock pads + head
-    assert [c.launches - b for c, b in zip(counters, before)] == [9 + 12, 6, 13, 5, 1]
-    # one launch a loss: G's GAN term and D's; feature matching and VGG
-    assert [klosses.mse_to_scalar.variants["group"] - groups[0],
-            klosses.l1_to_scalar.variants["group"] - groups[1]] == [2, 2]
+    assert [c.launches - b for c, b in zip(counters, before)] == list(launches)
+    assert [klosses.mse_to_scalar.variants["group"] - groups0[0],
+            klosses.l1_to_scalar.variants["group"] - groups0[1]] == list(groups)
     mid = [c.launches for c in counters]
     mp, gp = run(batch, plain_path())
     assert [c.launches for c in counters] == mid  # the plain path launches nothing
@@ -458,8 +513,98 @@ def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precisi
     assert grad_diff(again, gk)[0] <= STEP_GRAD_TOL
     whole = grad_diff(gk, gp)
     sens = [max(a, b) for a, b in zip(grad_diff(gk_nudged, gk), grad_diff(gp_nudged, gp))]
+    if "params" in nudges:
+        sens = [max(a, b, c) for a, b, c in zip(
+            sens, grad_diff(params_nudged(contextlib.nullcontext()), gk),
+            grad_diff(params_nudged(plain_path()), gp))]
     assert whole[0] <= STEP_SENS_FACTOR * sens[0] and whole[1] <= STEP_SENS_FACTOR * sens[1], (
         whole, sens)
+    return gk
+
+
+def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
+    """A small G+D+VGG step: every training kernel launches as often as the
+    architecture gives (each loss one group launch), and the loss terms and
+    gradients agree with the plain path (check_step_kernel_path)."""
+    opt = MaskToImageTrainOptions(gpu_ids="0", label_nc=8, ngf=16, ndf=16,
+                                  n_downsample_global=2, n_blocks_global=2)
+    model = create_model(opt)
+    batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=8, seed=6)
+    # IN bwd: G 1 + 2*2 + 2*2 sites, D 2 applies x 2 scales x 3 sites;
+    # 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; 2*2 resblock pads + head
+    check_step_kernel_path(model, batch, [9 + 12, 6, 13, 5, 1])
+
+
+def test_local_enhancer_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
+    """The same for a small LocalEnhancer (the 1024p recipe's one enhancer,
+    a 3-scale D): its unpadded input takes the pad-0 encode."""
+    opt = MaskToImageTrainOptions(gpu_ids="0", label_nc=8, ngf=8, ndf=16, netG="local",
+                                  n_downsample_global=2, n_blocks_global=2,
+                                  n_local_enhancers=1, n_blocks_local=1, num_D=3)
+    model = create_model(opt)
+    assert isinstance(model.netG, networks.LocalEnhancer)
+    batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=8, seed=7)
+    pad0 = kenc.encode.variants["pad0"]
+    # IN bwd: the trunk's 1 + 2*2 + 2*2 and the branch's 3 + 2 sites, D 2
+    # applies x 3 scales x 3 sites; 9 MSE; FM 3 scales x 4 layers + 5 VGG
+    # taps; the trunk's 2*2 and the branch's 2 resblock pads + head
+    check_step_kernel_path(model, batch, [14 + 18, 9, 17, 7, 1])
+    assert kenc.encode.variants["pad0"] - pad0 == 3    # one a kernel-path run
+
+
+def test_instance_feat_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
+    """The same for a small --instance_feat model: E's gradients are among
+    those held to the plain path, and reach it through the generator stem's
+    42-channel pad (one-hot 35 + edge + RGB + 3 features), whose backward
+    takes the gather variant. The sensitivity counts the parameter nudge
+    too: the kernel and plain paths differ by an ulp or so at every IN
+    site, and with the Encoder those differences reach G through E as
+    well, which a nudge of the input image alone underestimates here."""
+    opt = MaskToImageTrainOptions(gpu_ids="0", ngf=16, ndf=16, n_downsample_global=2,
+                                  n_blocks_global=2, instance_feat=True, feat_num=3, nef=8,
+                                  n_downsample_E=2)
+    model = create_model(opt)
+    batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=35, seed=8)
+    gather = krp.reflect_pad_bwd.variants["gather"]
+    # IN bwd: G 1 + 2*2 + 2*2 and E 1 + 2*2 sites, D 2 applies x 2 scales x
+    # 3 sites; 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; G's 2*2 resblock
+    # pads, its head and its stem, E's head
+    grads = check_step_kernel_path(model, batch, [9 + 5 + 12, 6, 13, 7, 1],
+                                   nudges=("image", "params"))
+    assert krp.reflect_pad_bwd.variants["gather"] - gather >= 3   # the stem's, each run
+    e_grads = grads[-len(list(model.netE.parameters())):]     # E comes last in nets()
+    assert any(g is not None and bool(g.abs().max() > 0) for g in e_grads)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_segment_mean_2d_same_bits_on_card(cuda_device, dt):
+    """nnops.segment_mean_2d on a CUDA tensor, over segments of up to 20000
+    pixels: the forward and its gradient the same bits twice; the fp32 ones
+    against the fp64 segment mean."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+
+    tdt = getattr(torch, dt)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    seg = torch.randint(0, 12, (2, 128, 256), generator=g, device=cuda_device)
+    seg[1, :80] = 3
+    feat = (torch.rand((2, 128, 256, 3), generator=g, device=cuda_device) * 2 - 1).to(tdt)
+    gy = torch.randn((2, 128, 256, 3), generator=g, device=cuda_device).to(tdt)
+
+    def run():
+        x = feat.clone().requires_grad_(True)
+        out = nnops.segment_mean_2d(x, seg, 16)
+        out.backward(gy)
+        return out.detach(), x.grad
+
+    (out, grad), (out2, grad2) = run(), run()
+    assert bits_equal(out, out2) and bits_equal(grad, grad2)
+    if dt == "float32":
+        ids = (seg + 16 * torch.arange(2, device=cuda_device)[:, None, None]).reshape(-1)
+        counts = torch.bincount(ids, minlength=32).double().clamp_min(1.0)[:, None]
+        for got, v in ((out, feat), (grad, gy)):
+            sums = torch.zeros((32, 3), dtype=torch.float64, device=cuda_device)
+            want = (sums.index_add_(0, ids, v.double().reshape(-1, 3)) / counts)[ids]
+            torch.testing.assert_close(got.double().reshape(-1, 3), want, rtol=0, atol=1e-6)
 
 
 def test_box2mask_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
@@ -476,7 +621,7 @@ def test_box2mask_step_kernel_path_matches_plain(cuda_device, restore_torch_prec
     batch = synthetic_box2mask_batch(np.random.RandomState(7), 2, size=32, label_nc=8)
     batch["cls"][0], batch["gt_objmask"][0] = -1, 0.0
     batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
-    params = [p for m in (model.netG, model.netD) for p in m.parameters()]
+    params = [p for net, m in model.nets().items() if net != "VGG" for p in m.parameters()]
 
     def plain_path():
         stack = contextlib.ExitStack()
@@ -525,6 +670,7 @@ def test_box2mask_step_kernel_path_matches_plain(cuda_device, restore_torch_prec
     sens = [max(a, b) for a, b in zip(grad_diff(gk_nudged, gk), grad_diff(gp_nudged, gp))]
     assert whole[0] <= STEP_SENS_FACTOR * sens[0] and whole[1] <= STEP_SENS_FACTOR * sens[1], (
         whole, sens)
+    return gk
 
 
 @pytest.mark.parametrize("stacked", [1, 2])

@@ -111,7 +111,9 @@ def test_unported_train_flags_raise():
     check_train_options(MaskToImageTrainOptions())
     check_train_options(MaskToImageTrainOptions(dtype="bfloat16", pool_size=50,
                                                 continue_train=True))
-    for kw in (dict(mesh_devices=4), dict(device_resident_data=True), dict(use_dropout=True),
-               dict(load_pretrain="x")):
+    # ported: the 1024p hand-off and the instance features
+    check_train_options(MaskToImageTrainOptions(netG="local", load_pretrain="x",
+                                                niter_fix_global=1, instance_feat=True))
+    for kw in (dict(mesh_devices=4), dict(device_resident_data=True), dict(use_dropout=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             check_train_options(MaskToImageTrainOptions(**kw))
