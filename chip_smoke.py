@@ -1,15 +1,18 @@
 """Drive the PyTorch port's mask2image and box2mask serving and training
 paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
-generator and the instance features on one CUDA card.
+generator, the instance features and the device-resident data path on one
+CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
-22, 7, 8, 12, 15, 21 (any failure raises and the script exits non-zero):
+22, 24-28, 7, 8, 12, 15, 21 (any failure raises and the script exits
+non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
-              source, all at once) and prints the -Xptxas -v register/smem
-              lines
+              source) and csrc/dataio.cpp (the host data tier) with g++, all
+              at once, and prints the -Xptxas -v register/smem lines; the
+              native data tier must build
   3. kernels  at the serving shapes (512x256, bs 1 and 8; fp32 and bf16)
               each serving kernel against its plain PyTorch version on the
               card: encode bit-exact in both pad modes, IN at the 5
@@ -171,6 +174,38 @@ Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
               precompute_feature_maps, then one epoch of --load_features
               over the aligned scenes; counters zeroed before and read after
               each run
+ 24. resident train CLI  (main path 10) the train CLI with
+              --device_resident_data over phase 6's scenes, one epoch at bs
+              1: under --uint8_transfer (the uint16 ids on the card) with
+              cuDNN deterministic, its mid-epoch latest copied aside, then
+              --continue_train from it: losses and parameters bit for bit
+              the straight run's; then --dtype bfloat16 --display_freq 4
+              (the visuals from the fused step's batch); counters zeroed
+              before and read after each run, held per step to the
+              architecture and per variant to phase 6's launches a step; the
+              latest weights served
+ 25. resident box2mask CLI  (main path 11) the box2mask train CLI with
+              --device_resident_data (phase 14's flags but --bg_box_prob,
+              which it refuses) and the same resume check; then the streamed
+              CLI with --device_prefetch 2 against its synchronous run: every
+              loss and parameter bit for bit; launches per variant a step
+              those of phase 14
+ 26. dropout  (main path 12) the train CLI with --use_dropout for two
+              epochs, --profile_dir tracing its 21st step (the trace file on
+              disk), a dropout mask drawn for each resblock a step; a
+              full-width dropout step's kernel path against its plain path
+              with the same masks (compare_step) and the masks' keep rate
+              (0.5 within 5 sigma) and scale (2)
+ 27. data measure  at phase 6's 512x512 windows, bs 1 and 4, fp32 and bf16:
+              the streaming loader's wait in next() a batch (nThreads 2),
+              the resident sampler's ms a batch, the fused resident step's
+              ms against the streamed step's, the bytes a step copies host
+              to device (the profiler's Memcpy HtoD), the device's idle
+              share; extract_bboxes native against numpy (1024x512, 30
+              objects)
+ 28. resident scale  the Cityscapes train split (2975 scenes at 1024x512)
+              as a uint8 store made on the card: its bytes, the memory
+              guard's verdict, a bs-4 draw at 512x512 timed
 With --profile: torch.profiler tables of one serving forward, of train
 steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
 1 and of a two-step add at bs 1.
@@ -186,6 +221,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -209,9 +245,11 @@ from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     BoxToMaskTrainOptions,
     MaskToImageTestOptions,
     MaskToImageTrainOptions,
+    parse_cli,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.data.bbox import bboxes_from_instance_map
 from neurips18_hierchical_image_manipulation_tpu_torch.data.cityscapes import AlignedDataset
+from neurips18_hierchical_image_manipulation_tpu_torch.data.loader import CreateDataLoader
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
     synthetic_batch,
     synthetic_box2mask_batch,
@@ -240,12 +278,14 @@ from neurips18_hierchical_image_manipulation_tpu_torch.tools import (
     roofline_resblock,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.train import loop as train_loop
+from neurips18_hierchical_image_manipulation_tpu_torch.train import steps as train_steps
 from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
 from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import (
     _loss_inputs,
     make_train_step,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
     params_from_jax,
     restore_params,
 )
@@ -598,11 +638,22 @@ def recording():
 # ---------------------------------------------------------------- phases
 
 def phase_build():
+    """Every csrc/*.cu with nvcc and csrc/dataio.cpp (the host data tier)
+    with g++, all at once."""
+    import threading
+
+    from neurips18_hierchical_image_manipulation_tpu_torch.data import native
+
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
     t = time.time()
+    cxx = threading.Thread(target=native.build)
+    cxx.start()
     _build.build_all(sources)
-    log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel ({', '.join(sources)}): "
-        f"{time.time() - t:.1f} s")
+    cxx.join()
+    if not native.available():
+        raise AssertionError(f"csrc/dataio.cpp did not build: {native.build_error}")
+    log(f"[build] nvcc sm_90a, {len(sources)} sources in parallel ({', '.join(sources)}), "
+        f"g++ csrc/dataio.cpp ({native.tier()} data tier): {time.time() - t:.1f} s")
     for name in sources:
         info = _build.ptxas_info.get(name, "(already built)")
         for line in info.splitlines():
@@ -1195,7 +1246,9 @@ def drive_train_cli(argv, cli=mask2image_train):
     orig_create = cli.create_model
 
     def record_errors(self, epoch, i, errs, t):
-        errors.append(dict(errs))
+        # the loss terms; the line's throughput (img_per_s_per_chip) is a
+        # clock reading, not a loss
+        errors.append({k: v for k, v in errs.items() if k != "img_per_s_per_chip"})
         return orig_print(self, epoch, i, errs, t)
 
     def create_and_keep(opt):
@@ -2772,6 +2825,364 @@ def phase_feat_cli(tmp, dev, results):
             {p: v["variants"] for p, v in paths.items()})
 
 
+# ---------------------------------------------------------------- the data path (slice 10)
+
+# the scale check: the Cityscapes train split at --loadSize 1024 as a uint8
+# resident store (label u8, inst as int16 bits, RGB u8), SCALE_RECORDS
+# context windows a scene
+SCALE_SCENES = 2975
+SCALE_HW = (512, 1024)
+SCALE_RECORDS = 30
+SCALE_WINDOW = 512           # the windows of the scale check's draw (fineSize)
+MEASURE_BS = (1, 4)
+MEASURE_SCENES = 40          # ~120 windows: 30 batches at bs 4
+MEASURE_WARMUP = 4
+MEASURE_STEPS = 16
+MEASURE_OBJECTS = 30         # objects of the extract_bboxes timing's map
+MEASURE_MAP_HW = (512, 1024)
+DROPOUT_HW = STEP_HW         # the dropout step's compare_step shape
+
+
+@contextlib.contextmanager
+def snapshot_latest(at_step, dst_root):
+    """Copy a run's directory to dst_root right after its train loop writes
+    'latest' at train step at_step (a mid-epoch checkpoint to resume from)."""
+    orig = CheckpointManager.save
+
+    def save(self, label, model, state, epoch, epoch_iter):
+        orig(self, label, model, state, epoch, epoch_iter)
+        if label == "latest" and state.step == at_step:
+            run = os.path.dirname(self.dir)
+            shutil.copytree(run, os.path.join(dst_root, os.path.basename(run)))
+
+    with mock.patch.object(CheckpointManager, "save", save):
+        yield
+
+
+def saved_params(ckpt, name):
+    path = os.path.join(ckpt, name, "ckpt", "latest", "state.pt")
+    return torch.load(path, map_location="cpu", weights_only=False)["params"]
+
+
+def same_params(a, b, what):
+    bad = [f"{net}.{k}" for net in a for k, t in a[net].items() if not same_bits(t, b[net][k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} parameters differ, first {bad[:3]}")
+
+
+def run_cli_checked(argv, cli, what, done=0, ref=None):
+    """One train CLI run, counters zeroed before and read after, held per
+    step to the architecture's launches, per variant to the plans and, with
+    ``ref`` = (variants, steps) of a streamed run of the same windows, to
+    its launches per variant a step -> a dict of the run."""
+    with recording() as calls:
+        state, model, errors, wall, launches, per_step = drive_train_cli(argv, cli)
+    steps = state.step - done
+    if steps < 1 or len(errors) != steps:
+        raise AssertionError(f"{what}: {steps} steps, {len(errors)} loss lines")
+    for k, n in per_step.items():
+        expect_launches(launches[k], n * steps, f"{what} {k}")
+    expect_groups({}, loss_groups_per_step(model.opt), steps, what)
+    variants = expect_variants(calls, what)
+    if ref is not None:
+        ref_variants, ref_steps = ref
+        for kind, counts in variants.items():
+            expect_launches({v: n * ref_steps for v, n in counts.items()},
+                            {v: n * steps for v, n in ref_variants[kind].items()},
+                            f"{what}, {kind} variants a step against the streamed path")
+    log(f"[{what}] {steps} steps in {wall:.1f} s; launches {launches}; losses first "
+        f"{errors[0]}, last {errors[-1]}")
+    run = dict(steps=steps, wall_s=wall, launches=launches, variants=variants,
+               per_step=per_step, losses=errors, state_step=state.step)
+    del model
+    torch.cuda.empty_cache()
+    return run
+
+
+def resident_resume(argv, cli, name, tmp, what, ref):
+    """A device-resident run of one epoch with cuDNN's deterministic
+    algorithms (TF32 is off in the fp32 tier), its mid-epoch 'latest'
+    copied aside; then --continue_train from that copy: its losses and its
+    final parameters bit for bit the straight run's."""
+    ckpt = argv[argv.index("--checkpoints_dir") + 1]
+    mid_root = os.path.join(tmp, f"{name}_mid")
+    fused = []
+    orig_make = train_loop.make_resident_train_step
+
+    def make_fused(*a, **k):
+        fused.append(1)
+        return orig_make(*a, **k)
+
+    with cudnn_deterministic(), mock.patch.object(train_loop, "make_resident_train_step",
+                                                  make_fused):
+        n = drive_steps_of(argv, cli)
+        at = n // 2
+        with snapshot_latest(at, mid_root):
+            straight = run_cli_checked(argv + ["--save_latest_freq", str(at)], cli, what,
+                                       ref=ref)
+        resumed = run_cli_checked(
+            [a if a != ckpt else mid_root for a in argv] + ["--continue_train"], cli,
+            f"{what} resumed at step {at}", done=at, ref=ref)
+    if len(fused) != 2:
+        raise AssertionError(f"{what}: the fused resident step was not taken ({fused})")
+    if resumed["losses"] != straight["losses"][at:]:
+        raise AssertionError(f"{what}: resumed losses {resumed['losses'][:2]} vs straight "
+                             f"{straight['losses'][at:at + 2]}")
+    same_params(saved_params(ckpt, name), saved_params(mid_root, name), f"{what} resumed")
+    log(f"[{what}] resumed from the step-{at} latest: {resumed['steps']} losses and every "
+        "parameter bit for bit the straight run's")
+    shutil.rmtree(mid_root)
+    return straight, resumed, at
+
+
+def drive_steps_of(argv, cli):
+    """Steps an epoch of a train CLI's loader (its records over the batch)."""
+    opt_cls = BoxToMaskTrainOptions if cli is box2mask_train else MaskToImageTrainOptions
+    opt = parse_cli(opt_cls, argv)
+    opt.device_resident_data = False
+    return len(CreateDataLoader(opt))
+
+
+def phase_resident_cli(tmp, results, ref):
+    """Main path 10: the mask2image train CLI with --device_resident_data at
+    full width over phase 6's scenes: under --uint8_transfer (the uint16
+    instance store on the card) with a mid-epoch resume, then in the bf16
+    tier with the HTML visuals of the fused step's batch; the latest weights
+    served."""
+    ckpt = os.path.join(tmp, "ckpt_res")
+    base = ["--dataroot", os.path.join(tmp, "city_train"), "--checkpoints_dir", ckpt,
+            "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+            "--save_epoch_freq", "100", "--nThreads", "2", "--device_resident_data",
+            *ARCH_ARGV]
+    u8, resumed, at = resident_resume(base + ["--name", "res_u8", "--uint8_transfer"],
+                                      mask2image_train, "res_u8", tmp, "resident train CLI u8",
+                                      ref)
+    bf16 = run_cli_checked(base + ["--name", "res_bf16", "--dtype", "bfloat16",
+                                   "--display_freq", "4"], mask2image_train,
+                           "resident train CLI bf16")
+    with open(os.path.join(ckpt, "res_bf16", "web", "index.html")) as f:
+        html = f.read()
+    if "epoch [1]" not in html or "real_image" not in html:
+        raise AssertionError("resident bf16 run: web/index.html lacks the batch's visuals")
+    opt = MaskToImageTestOptions(gpu_ids=GPU_IDS, name="res_u8", checkpoints_dir=ckpt, **ARCH)
+    serve = create_model(opt)
+    if not restore_params(opt, serve):
+        raise AssertionError("resident run: latest_params.npz not found")
+    trained_g = saved_params(ckpt, "res_u8")["G"]
+    for k, t in serve.netG.state_dict().items():
+        if not same_bits(t.cpu(), trained_g[k]):
+            raise AssertionError(f"served G differs from the resident run's at {k}")
+    out = serve.inference(encode_inputs(1, 512, 512, serve.device, seed=9))
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("resident run's weights serve a non-finite output")
+    log(f"[resident train CLI] latest served: output {tuple(out.shape)} finite")
+    results["resident_cli"] = dict(u8=u8, u8_resumed=resumed, resumed_at=at, bf16=bf16)
+    del serve
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    return {"train_resident_u8": u8, "train_resident_resume": resumed,
+            "train_resident_bf16": bf16}
+
+
+def phase_resident_b2m_cli(tmp, results, ref):
+    """Main path 11: the box2mask train CLI with --device_resident_data
+    (phase 14's flags; --bg_box_prob, whose background boxes the resident
+    records do not hold, is refused with it) for one epoch with a mid-epoch
+    resume; then the streamed box2mask CLI with --device_prefetch 2 against
+    its synchronous run, bit for bit."""
+    ckpt = os.path.join(tmp, "ckpt_res_b2m")
+    base = ["--dataroot", os.path.join(tmp, "city_train"), "--checkpoints_dir", ckpt,
+            "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+            "--save_epoch_freq", "100", "--nThreads", "2", "--lambda_ctx_neg", "5.0",
+            *flags(B2M_ARCH)]
+    res, resumed, at = resident_resume(base + ["--name", "res_b2m", "--device_resident_data"],
+                                       box2mask_train, "res_b2m", tmp,
+                                       "resident box2mask train CLI", ref)
+    runs = {}
+    with cudnn_deterministic():
+        for depth in ("0", "2"):
+            runs[depth] = run_cli_checked(
+                base + ["--name", f"pf{depth}", "--bg_box_prob", "0.25", "--device_prefetch",
+                        depth], box2mask_train, f"box2mask train CLI --device_prefetch {depth}",
+                ref=ref)
+    if runs["2"]["losses"] != runs["0"]["losses"]:
+        raise AssertionError("--device_prefetch 2 losses differ from the synchronous run's")
+    same_params(saved_params(ckpt, "pf0"), saved_params(ckpt, "pf2"), "--device_prefetch 2")
+    log("[box2mask prefetch] --device_prefetch 2: every loss and parameter bit for bit the "
+        "synchronous run's")
+    results["resident_b2m_cli"] = dict(resident=res, resumed=resumed, resumed_at=at,
+                                       prefetch=runs["2"], synchronous=runs["0"])
+    shutil.rmtree(ckpt)
+    return {"box2mask_resident": res, "box2mask_resident_resume": resumed,
+            "box2mask_prefetch": runs["2"]}
+
+
+def phase_dropout(tmp, dev, results, ref):
+    """Main path 12: the flagship train CLI with --use_dropout for two
+    epochs, the 21st step traced under --profile_dir (the trace file found
+    on disk), the dropout masks counted; then a full-width dropout step, the
+    kernel path against the plain path with the same masks (compare_step),
+    and the law of the masks the card draws (keep rate 0.5 within 5 sigma,
+    kept values scaled by 2)."""
+    ckpt = os.path.join(tmp, "ckpt_drop")
+    prof = os.path.join(tmp, "profile_drop")
+    argv = ["--name", "drop", "--dataroot", os.path.join(tmp, "city_train"),
+            "--checkpoints_dir", ckpt, "--gpu_ids", GPU_IDS, "--niter", "2", "--niter_decay",
+            "0", "--print_freq", "1", "--save_epoch_freq", "100", "--nThreads", "2",
+            "--use_dropout", "--profile_dir", prof, *ARCH_ARGV]
+    draws = []
+    orig_keep = networks.dropout_keep_mask
+
+    def keep_counted(*a, **k):
+        draws.append(1)
+        return orig_keep(*a, **k)
+
+    with mock.patch.object(networks, "dropout_keep_mask", keep_counted):
+        run = run_cli_checked(argv, mask2image_train, "dropout train CLI", ref=ref)
+    n_blocks = MaskToImageTrainOptions(**ARCH).n_blocks_global
+    if len(draws) != n_blocks * run["steps"]:
+        raise AssertionError(f"dropout masks drawn {len(draws)}, expected {n_blocks} a step")
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1 or run["steps"] <= train_loop.PROFILE_STEP:
+        raise AssertionError(f"--profile_dir wrote {traces} over {run['steps']} steps")
+    trace_bytes = os.path.getsize(os.path.join(prof, traces[0]))
+    log(f"[dropout train CLI] {len(draws)} masks drawn; --profile_dir trace {traces[0]} "
+        f"({trace_bytes} bytes)")
+    shutil.rmtree(ckpt)
+
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, use_dropout=True, **ARCH)
+    model = create_model(opt)
+    g = train_steps.seeded_generator(dev, opt.seed, train_steps._DROPOUT_TAG, 0)
+    h, w = DROPOUT_HW
+    n_down = model.netG.n_downsampling
+    shape = (1, h >> n_down, w >> n_down, opt.ngf * 2 ** n_down)
+    blocks = [m for m in model.netG.modules() if isinstance(m, networks.ResnetBlock)]
+    masks = [networks.dropout_keep_mask(shape, dev, g) for _ in blocks]
+    keep_all = torch.stack(masks)
+    n = keep_all.numel()
+    rate = keep_all.float().mean().item()
+    scaled = networks.dropout(torch.ones(shape, device=dev), masks[0])
+    values = set(torch.unique(scaled).tolist())
+    sigma = 0.5 / math.sqrt(n)
+    if abs(rate - 0.5) > 5 * sigma or values != {0.0, 2.0}:
+        raise AssertionError(f"dropout masks: keep rate {rate} over {n} (5 sigma "
+                             f"{5 * sigma}), values {values}")
+    orig_losses = model.losses
+    with mock.patch.object(model, "losses", lambda b, params=None, g_only=False:
+                           orig_losses(b, params, g_only, rng=dict(zip(blocks, masks)))):
+        cmp = compare_step(model, encode_inputs(1, h, w, dev, seed=14))
+    log(f"[dropout step] keep rate {rate:.6f} over {n} draws; kept values x2; kernel vs "
+        f"plain {cmp['whole_plain_path']} (1-ulp sensitivity "
+        f"{cmp['one_ulp_sensitivity']})")
+    results["dropout"] = dict(cli=run, masks_drawn=len(draws), trace_file=traces[0],
+                              trace_bytes=trace_bytes, keep_rate=rate, draws=n,
+                              kernel_vs_plain=cmp)
+    del model
+    torch.cuda.empty_cache()
+    return {"train_dropout": run}
+
+
+def phase_data_measure(tmp, dev, results):
+    """The host data path against the resident one at phase 6's 512x512
+    windows, bs 1 and 4, fp32 and bf16, by the port's
+    ``tools/bench_loop.py`` at a short steady state (MEASURE_SCENES scenes
+    made from the seed; per config MEASURE_WARMUP steps, then
+    MEASURE_STEPS timed steps of each path, streamed, prefetched
+    (--device_prefetch 2) and fused, all by ``measure_steps``): the
+    loop's wait in next() a batch (nThreads 2),
+    the epoch's first batch apart; the resident sampler's ms a batch; ms a
+    step of each path; the bytes each step copies host to device
+    (torch.profiler's Memcpy HtoD) and the device's idle share (1 - the
+    kernels' device ms of one profiled step over the ms a step);
+    extract_bboxes native against numpy at 1024x512 with 30 objects."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.tools import bench_loop
+
+    root, ckpt = os.path.join(tmp, "city_measure"), os.path.join(tmp, "measure")
+    bench_loop.write_dataroot(root, MEASURE_SCENES, seed=0)
+    resident = bench_loop.resident_sampler(bench_loop.train_argv(root, ckpt, 1, "float32",
+                                                                 GPU_IDS, ARCH_ARGV))
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        for bs in MEASURE_BS:
+            row = bench_loop.measure(bench_loop.train_argv(root, ckpt, bs, dtype, GPU_IDS,
+                                                           ARCH_ARGV),
+                                     resident, dev, tmp, MEASURE_WARMUP, MEASURE_STEPS, 1)
+            if row["fused_h2d_bytes_per_step"]:
+                raise AssertionError(f"the fused step copied from the host: {row}")
+            rows.append(row)
+            log(f"[data measure] {row}")
+    del resident
+    torch.cuda.empty_cache()
+    from neurips18_hierchical_image_manipulation_tpu_torch.data import hostops, native
+
+    if not native.available():
+        raise AssertionError(f"the native data tier did not build: {native.build_error}")
+    rng = np.random.RandomState(3)
+    inst = rng.randint(0, 34, MEASURE_MAP_HW).astype(np.int32)
+    for k in range(MEASURE_OBJECTS):
+        y, x = rng.randint(0, MEASURE_MAP_HW[0] - 64), rng.randint(0, MEASURE_MAP_HW[1] - 96)
+        inst[y:y + rng.randint(16, 64), x:x + rng.randint(16, 96)] = 24000 + 1000 * (k % 10) + k
+    if native.extract_bboxes(inst) != hostops.extract_bboxes(inst):
+        raise AssertionError("native extract_bboxes differs from numpy's")
+    bbox_ms = {}
+    for tier, fn in (("native", native.extract_bboxes), ("numpy", hostops.extract_bboxes)):
+        fn(inst)
+        t = time.perf_counter()
+        for _ in range(10):
+            fn(inst)
+        bbox_ms[tier] = (time.perf_counter() - t) * 100
+    log(f"[data measure] extract_bboxes at {MEASURE_MAP_HW[1]}x{MEASURE_MAP_HW[0]}, {MEASURE_OBJECTS} "
+        f"objects: native {bbox_ms['native']:.3f} ms, numpy {bbox_ms['numpy']:.3f} ms")
+    results["data_measure"] = dict(rows=rows, scenes=MEASURE_SCENES, warmup=MEASURE_WARMUP,
+                                   steps=MEASURE_STEPS, extract_bboxes_ms=bbox_ms,
+                                   tier=native.tier())
+
+
+def phase_resident_scale(dev, results):
+    """The Cityscapes train split as a uint8 resident store made on the
+    card (2975 scenes at 1024x512, 30 context windows each): the memory
+    guard's verdict, the store's bytes, and a bs-4 bbox draw at 512x512
+    windows timed on it."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.data import device_resident as pdr
+
+    n, (h, w) = SCALE_SCENES, SCALE_HW
+    g = torch.Generator(dev).manual_seed(0)
+    base = {"label": torch.randint(0, 35, (n, h, w), generator=g, device=dev,
+                                   dtype=torch.uint8),
+            "inst": torch.randint(-32768, 32767, (n, h, w), generator=g, device=dev,
+                                  dtype=torch.int16),
+            "image": torch.randint(0, 256, (n, h, w, 3), generator=g, device=dev,
+                                   dtype=torch.uint8)}
+    m = n * SCALE_RECORDS
+    side = torch.randint(h // 8, h, (m,), generator=g, device=dev).float()
+    wy = (torch.rand(m, generator=g, device=dev) * (h - side)).floor()
+    wx = (torch.rand(m, generator=g, device=dev) * (w - side)).floor()
+    recs = {"window": torch.stack([wy, wx, side, side], 1),
+            "box": torch.stack([side * 0, side * 0, side / 2, side / 2], 1),
+            "image_index": torch.arange(m, device=dev, dtype=torch.int32) // SCALE_RECORDS,
+            "cls": torch.full((m,), 26, device=dev, dtype=torch.int32),
+            "inst_id": torch.full((m,), 26000, device=dev, dtype=torch.int32)}
+    nbytes = sum(t.numel() * t.element_size() for t in (*base.values(), *recs.values()))
+    free, total = torch.cuda.mem_get_info(dev)
+    pdr._check_hbm_fit(nbytes, f"{n} scenes", dev)
+    idx = torch.randint(0, m, (4,), generator=g, device=dev)
+    s = SCALE_WINDOW
+    ms = cuda_ms(lambda: pdr.bbox_batch_impl(base, recs, idx, s, True), 10)
+    batch = pdr.bbox_batch_impl(base, recs, idx, s, True)
+    torch.cuda.synchronize()
+    if tuple(batch["image"].shape) != (4, s, s, 3) or batch["inst"].dtype != torch.uint16:
+        raise AssertionError(f"scale draw: {batch['image'].shape} {batch['inst'].dtype}")
+    log(f"[resident scale] {n} scenes at {w}x{h} + {m} windows: {nbytes / 1e9:.3f} GB on the "
+        f"card ({nbytes / n / 1e6:.3f} MB a scene), fits the resident budget (free "
+        f"{free / 1e9:.1f} of {total / 1e9:.1f} GB); bs-4 draw at {s}x{s} {ms:.3f} ms")
+    results["resident_scale"] = dict(scenes=n, hw=[h, w], records=m, store_bytes=nbytes,
+                                     free_bytes=free, total_bytes=total, fits=True,
+                                     bs4_draw_ms=ms)
+    del base, recs, batch
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "encode_cond": ("csrc/encode.cu", "ops/pallas/encode.py:104"),
     "instance_norm_bwd": ("csrc/instance_norm.cu", "ops/pallas/instance_norm.py:195"),
@@ -3278,6 +3689,13 @@ def main(argv=None):
         local_launches, local_variants, local_serve_launches, local_serve_variants = \
             phase_local_cli(tmp, dev, results)
         feat_launches, feat_variants = phase_feat_cli(tmp, dev, results)
+        m2i_ref = (cli_variants, results["train_cli"]["steps"])
+        b2m_ref = (b2m_variants, results["box2mask_cli"]["train"]["steps"])
+        data_paths = {**phase_resident_cli(tmp, results, m2i_ref),
+                      **phase_resident_b2m_cli(tmp, results, b2m_ref),
+                      **phase_dropout(tmp, dev, results, m2i_ref)}
+        phase_data_measure(tmp, dev, results)
+    phase_resident_scale(dev, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)
     phase_model(dev, results)
@@ -3295,13 +3713,13 @@ def main(argv=None):
                      "box2mask_train": b2m_variants, "box2mask_serving": b2m_serve_variants,
                      "two_step": two_step_variants, "evaluate": eval_variants,
                      "train_1024p": local_variants, "serving_1024p": local_serve_variants,
-                     **feat_variants}
+                     **feat_variants, **{p: r["variants"] for p, r in data_paths.items()}}
     path_launches = {"serving": results["launches"], "train": cli_launches,
                      "train_bf16_pool": bf16_launches, "roofline": roofline_launches,
                      "box2mask_train": b2m_launches, "box2mask_serving": b2m_serve_launches,
                      "two_step": two_step_launches, "evaluate": eval_launches,
                      "train_1024p": local_launches, "serving_1024p": local_serve_launches,
-                     **feat_launches}
+                     **feat_launches, **{p: r["launches"] for p, r in data_paths.items()}}
     kernels.append(encode_pad0_row(local_table, local_variants, local_serve_variants))
     kernels.append(conv_in_main_path_row(dev, results))
     kernels.append(conv_in_fp32_row(results, path_variants))

@@ -48,14 +48,14 @@ class BaseOptions:
     no_flip: bool = False
     nThreads: int = 2
     max_dataset_size: int = 2**31 - 1
-    data_backend: str = "threads"  # only "threads" is ported
+    data_backend: str = "threads"  # only "threads" is ported (no grain)
     grain_workers: int = 0
     decode_cache: bool = False  # decode-once .npy sidecars (data/cityscapes.py)
     ram_cache_mb: int = 0  # in-RAM decoded-array cache budget (MB)
     uint8_transfer: bool = False  # ship uint8 images, normalize on device
-    device_prefetch: int = 0
-    device_resident_data: bool = False  # not ported yet
-    fused_resident_step: bool = True
+    device_prefetch: int = 0  # batches staged ahead on the device (0: in line)
+    device_resident_data: bool = False  # upload once, sample on the device
+    fused_resident_step: bool = True  # JAX CLI parity: resident data always fuses
 
     # display
     display_winsize: int = 512
@@ -135,7 +135,7 @@ class TrainOptions(BaseOptions):
     beta1: float = 0.5
     lr: float = 0.0002
 
-    profile_dir: str = ""
+    profile_dir: str = ""  # torch.profiler trace of the 21st step here
 
     # losses
     lambda_feat: float = 10.0
@@ -157,16 +157,9 @@ class TrainOptions(BaseOptions):
 # is queued in ROADMAP.md)
 _TRAIN_NOT_PORTED = (
     ("--mesh_devices > 1", lambda o: o.mesh_devices > 1, "data parallel, ROADMAP.md §A.6"),
-    ("--device_resident_data", lambda o: o.device_resident_data,
-     "device-resident data, ROADMAP.md §A.7"),
-    ("--device_prefetch > 0", lambda o: o.device_prefetch > 0, "prefetch, ROADMAP.md §A.7"),
-    ("--use_dropout", lambda o: o.use_dropout,
-     "dropout in training (ROADMAP.md §A.1), whose mask has yet to be held against the "
-     "JAX package's"),
     ("--remat / --remat_policy", lambda o: o.remat or o.remat_policy != "none",
      "recomputation, ROADMAP.md §A.9 (tooling)"),
     ("--debug_nans", lambda o: o.debug_nans, "tooling, ROADMAP.md §A.9"),
-    ("--profile_dir", lambda o: bool(o.profile_dir), "torch.profiler tooling, ROADMAP.md §A.9"),
 )
 
 

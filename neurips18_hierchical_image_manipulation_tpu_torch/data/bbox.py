@@ -26,7 +26,7 @@ import numpy as np
 from PIL import Image
 
 from ..ops.boxcomposite import context_window_math
-from . import hostops
+from . import native
 from .cityscapes import AlignedDataset
 
 
@@ -34,7 +34,7 @@ def bboxes_from_instance_map(inst: np.ndarray, min_size=16, max_size=10_000):
     """(H,W) instance ids -> list of {cls, bbox=(y0,x0,h,w)} for thing ids.
     """
     records = []
-    for rec in hostops.extract_bboxes(inst, min_id=1000):
+    for rec in native.extract_bboxes(inst, min_id=1000):
         h, w = rec["bbox"][2], rec["bbox"][3]
         if min(h, w) < min_size or max(h, w) > max_size:
             continue
@@ -212,14 +212,14 @@ class BboxCropDataset:
 
         def crop_resize_nearest(arr):
             win = arr[wy0 : wy0 + wh, wx0 : wx0 + ww]
-            return hostops.nearest_resize_i32(win, s, s)
+            return native.nearest_resize_i32(win, s, s)
 
         gt_layout = crop_resize_nearest(label)
         inst_win = crop_resize_nearest(inst)
 
         # object box in window coords, scaled to the fixed crop
         by0, bx0, bh, bw = _scaled_box(bbox, wy0, wx0, wh, ww, s)
-        boxmask = hostops.box_mask_f32(s, s, by0, bx0, bh, bw)
+        boxmask = native.box_mask_f32(s, s, by0, bx0, bh, bw)
 
         if bg:
             # background sample: null class (-1 -> all-zeros one-hot),

@@ -1,8 +1,6 @@
-"""Host-side numpy helpers of the data pipeline.
-
-Counterparts of the entry points of ``data/native.py`` in the JAX package,
-which binds a C++ library with numpy fallbacks; the port keeps the numpy
-forms only (same results, no native build).
+"""Host-side numpy helpers of the data pipeline: the plain forms of the
+C++ tier (``data/native.py``, ``csrc/dataio.cpp``), which returns the same
+results and falls back to these where it cannot be built.
 """
 
 from __future__ import annotations

@@ -90,13 +90,15 @@ class DataLoader:
 
 def CreateDataLoader(opt, records=None):
     """opt.model / --use_bbox_dataset select the dataset family (aligned
-    scenes vs bbox-crop windows). ``--load_features`` reads precomputed
-    feature maps into the aligned scenes' samples. The device-resident and
-    grain loaders of the JAX package are not ported yet."""
+    scenes vs bbox-crop windows). ``--device_resident_data`` uploads the
+    dataset to the device once and samples batches there
+    (``data/device_resident.py``); ``--load_features`` reads precomputed
+    feature maps into the aligned scenes' samples."""
     bbox = getattr(opt, "model", "pix2pixHD") == "box2mask" or getattr(
         opt, "use_bbox_dataset", False)
+    resident = getattr(opt, "device_resident_data", False)
     if getattr(opt, "load_features", False):
-        if getattr(opt, "device_resident_data", False):
+        if resident:
             # the JAX package's refusal (its resident stores hold no maps)
             raise ValueError(
                 "--device_resident_data does not support --load_features; "
@@ -109,13 +111,14 @@ def CreateDataLoader(opt, records=None):
                 "--load_features reads {phase}_feat maps into aligned scenes; pass "
                 "--no-use_bbox_dataset (the bbox-window dataset carries no feature maps)"
             )
-    if getattr(opt, "device_resident_data", False):
-        raise NotImplementedError(
-            "--device_resident_data is not ported yet: it waits for ROADMAP.md §A.7")
     if getattr(opt, "data_backend", "threads") != "threads":
         raise NotImplementedError(
-            f"--data_backend {opt.data_backend} is not ported yet (use threads)"
+            f"--data_backend {opt.data_backend} is not ported yet: the grain pipeline "
+            "waits for ROADMAP.md §A.7, and the card's machine has no grain package "
+            "(use threads)"
         )
+    kw = dict(batch_size=opt.batchSize, shuffle=not opt.serial_batches,
+              seed=getattr(opt, "seed", 0))
     if bbox:
         from .bbox import BboxCropDataset
 
@@ -124,10 +127,10 @@ def CreateDataLoader(opt, records=None):
         from .cityscapes import AlignedDataset
 
         ds = AlignedDataset(opt)
-    return DataLoader(
-        ds,
-        batch_size=opt.batchSize,
-        shuffle=not opt.serial_batches,
-        seed=getattr(opt, "seed", 0),
-        num_threads=opt.nThreads,
-    )
+    if resident:
+        from ..models.factory import resolve_device
+        from .device_resident import DeviceResidentBboxLoader, DeviceResidentLoader
+
+        cls = DeviceResidentBboxLoader if bbox else DeviceResidentLoader
+        return cls(ds, device=resolve_device(opt), **kw)
+    return DataLoader(ds, num_threads=opt.nThreads, **kw)

@@ -62,8 +62,8 @@ def apply_transform(img: Image.Image, opt, params, method=Image.BICUBIC):
 
 def normalize_rgb(arr: np.ndarray) -> np.ndarray:
     """uint8 HWC -> float32 [-1,1] (Normalize(0.5, 0.5))."""
-    from . import hostops
+    from . import native
 
     if arr.dtype == np.uint8:
-        return hostops.u8_to_pm1(arr)
+        return native.u8_to_pm1(arr)
     return arr.astype(np.float32) / 127.5 - 1.0

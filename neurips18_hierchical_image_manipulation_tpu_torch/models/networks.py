@@ -29,7 +29,8 @@ as a parameter (the checkpoint layout is unchanged) but does not apply it
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -135,14 +136,50 @@ class NormAct(nn.Module):
         return norm_act(x, self.norm, self.act, residual)
 
 
-class ResnetBlock(nn.Module):
-    """ReflectPad1 -> Conv3x3 -> norm -> ReLU -> ReflectPad1 -> Conv3x3 ->
-    norm, plus the block input. Under IN the add rides in the second IN's
-    epilogue. (--use_dropout's Dropout is inactive at inference.)"""
+_DROPOUT_RATE = 0.5
+_dropout_sources: list = []   # the open dropout_masks scopes' sources, innermost last
 
-    def __init__(self, dim, norm="instance"):
+
+@contextlib.contextmanager
+def dropout_masks(source: Optional[Union[torch.Generator, Mapping]]):
+    """Dropout acts inside this scope only (the training objective opens
+    it; inference never does): each block draws its keep mask from
+    ``source``, the train step's per-step generator, or reads it from
+    ``source[block]`` when ``source`` maps blocks to masks (a seam: the
+    masks another implementation drew). None opens no scope."""
+    if source is None:
+        yield
+        return
+    _dropout_sources.append(source)
+    try:
+        yield
+    finally:
+        _dropout_sources.pop()
+
+
+def dropout_keep_mask(shape, device, generator: torch.Generator) -> torch.Tensor:
+    """A keep mask of Dropout(0.5): uniform fp32 draws below the keep
+    probability, the law of the JAX package's ``nn.Dropout``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - _DROPOUT_RATE
+
+
+def dropout(h: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Kept elements scaled by 1 / keep probability (2), the rest 0."""
+    return torch.where(keep, h / (1.0 - _DROPOUT_RATE), torch.zeros((), dtype=h.dtype,
+                                                                     device=h.device))
+
+
+class ResnetBlock(nn.Module):
+    """ReflectPad1 -> Conv3x3 -> norm -> ReLU -> [Dropout(0.5)] ->
+    ReflectPad1 -> Conv3x3 -> norm, plus the block input. Under IN the add
+    rides in the second IN's epilogue. Dropout (``--use_dropout``, JAX
+    ``networks.py:245-266``) acts inside a ``dropout_masks`` scope only,
+    with the innermost scope's masks."""
+
+    def __init__(self, dim, norm="instance", use_dropout=False):
         super().__init__()
         db = norm == "instance"
+        self.use_dropout = use_dropout
         self.conv1 = Conv(dim, dim, 3, reflect=1, dead_bias=db)
         self.norm1 = NormAct(dim, norm, "relu")
         self.conv2 = Conv(dim, dim, 3, reflect=1, dead_bias=db)
@@ -150,6 +187,11 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x):
         h = self.norm1(self.conv1(x))
+        if self.use_dropout and _dropout_sources:
+            src = _dropout_sources[-1]
+            keep = (src[self] if isinstance(src, Mapping)
+                    else dropout_keep_mask(h.shape, h.device, src))
+            h = dropout(h, keep)
         return self.norm2(self.conv2(h), residual=x)
 
 
@@ -160,7 +202,8 @@ class _GlobalBackbone(nn.Module):
     LocalEnhancer. Input NHWC or a ``PaddedStemInput``; output NHWC
     (B,H,W,ngf) after the last up's norm and ReLU."""
 
-    def __init__(self, input_nc, ngf=64, n_downsampling=4, n_blocks=9, norm="instance"):
+    def __init__(self, input_nc, ngf=64, n_downsampling=4, n_blocks=9, norm="instance",
+                 use_dropout=False):
         super().__init__()
         self.norm, self.n_downsampling, self.n_blocks = norm, n_downsampling, n_blocks
         db = norm == "instance"
@@ -172,7 +215,7 @@ class _GlobalBackbone(nn.Module):
             self.add_module(f"norm_down{i}", NormAct(cout, norm, "relu"))
         dim = ngf * 2**n_downsampling
         for i in range(n_blocks):
-            self.add_module(f"res{i}", ResnetBlock(dim, norm))
+            self.add_module(f"res{i}", ResnetBlock(dim, norm, use_dropout))
         for i in range(n_downsampling):
             mult = 2 ** (n_downsampling - i)
             cout = ngf * mult // 2
@@ -200,8 +243,8 @@ class GlobalGenerator(_GlobalBackbone):
     (B,H,W,output_nc) in [-1, 1]."""
 
     def __init__(self, input_nc, output_nc=3, ngf=64, n_downsampling=4,
-                 n_blocks=9, norm="instance"):
-        super().__init__(input_nc, ngf, n_downsampling, n_blocks, norm)
+                 n_blocks=9, norm="instance", use_dropout=False):
+        super().__init__(input_nc, ngf, n_downsampling, n_blocks, norm, use_dropout)
         self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -225,13 +268,14 @@ class LocalEnhancer(nn.Module):
 
     def __init__(self, input_nc, output_nc=3, ngf=32, n_downsample_global=4,
                  n_blocks_global=9, n_local_enhancers=1, n_blocks_local=3,
-                 norm="instance"):
+                 norm="instance", use_dropout=False):
         super().__init__()
         self.norm, self.n_local_enhancers = norm, n_local_enhancers
         self.n_blocks_local = n_blocks_local
         db = norm == "instance"
         self.add_module("global", _GlobalBackbone(
-            input_nc, ngf * 2**n_local_enhancers, n_downsample_global, n_blocks_global, norm))
+            input_nc, ngf * 2**n_local_enhancers, n_downsample_global, n_blocks_global, norm,
+            use_dropout))
         for n in range(1, n_local_enhancers + 1):
             c = ngf * 2 ** (n_local_enhancers - n)
             self.add_module(f"local{n}_conv_in", Conv(input_nc, c, 7, reflect=3, dead_bias=db))
@@ -239,7 +283,7 @@ class LocalEnhancer(nn.Module):
             self.add_module(f"local{n}_down", Conv(c, 2 * c, 3, 2, 1, dead_bias=db))
             self.add_module(f"local{n}_norm_down", NormAct(2 * c, norm, "relu"))
             for i in range(n_blocks_local):
-                self.add_module(f"local{n}_res{i}", ResnetBlock(2 * c, norm))
+                self.add_module(f"local{n}_res{i}", ResnetBlock(2 * c, norm, use_dropout))
             self.add_module(f"local{n}_up", ConvTranspose(2 * c, c, dead_bias=db))
             self.add_module(f"local{n}_norm_up", NormAct(c, norm, "relu"))
         self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
@@ -305,7 +349,7 @@ class Encoder(nn.Module):
         for i in range(self.n_downsampling):
             h = getattr(self, f"norm_up{i}")(getattr(self, f"up{i}")(h))
         h = torch.tanh(self.conv_out(h))
-        ids = inst.to(torch.int64)
+        ids = nnops.ids_int32(inst).to(torch.int64)
         slots = self.instance_slots
         seg = torch.clamp((ids // 1000) * slots + (ids % 1000) % slots,
                           0, self.label_nc * slots - 1)
@@ -564,12 +608,12 @@ def define_G(opt, input_nc: int, generator: torch.Generator) -> nn.Module:
             n_downsample_global=opt.n_downsample_global,
             n_blocks_global=opt.n_blocks_global,
             n_local_enhancers=opt.n_local_enhancers, n_blocks_local=opt.n_blocks_local,
-            norm=opt.norm)
+            norm=opt.norm, use_dropout=getattr(opt, "use_dropout", False))
     elif opt.netG == "global":
         g = GlobalGenerator(
             input_nc, output_nc=opt.output_nc, ngf=opt.ngf,
             n_downsampling=opt.n_downsample_global, n_blocks=opt.n_blocks_global,
-            norm=opt.norm)
+            norm=opt.norm, use_dropout=getattr(opt, "use_dropout", False))
     else:
         raise ValueError(f"unknown netG: {opt.netG}")
     g.reset_parameters(generator)

@@ -28,14 +28,14 @@ Encoder's, ``netE``, trained with G; or ``batch["feat"]``):
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import torch
 from torch.func import functional_call
 
 from ..kernels import encode as kenc
 from ..losses import discriminator_loss, feature_matching_loss, gan_loss, vgg_loss
-from ..ops.nnops import PaddedStemInput
+from ..ops.nnops import PaddedStemInput, ids_int32
 from . import networks
 
 # batch keys that hold pixel coordinates: never a dtype witness (the JAX
@@ -117,8 +117,8 @@ class Pix2PixHDModel:
         return batch
 
     def _ids(self, batch):
-        label = batch["label"].to(torch.int32).contiguous()
-        inst = None if self.opt.no_instance else batch["inst"].to(torch.int32).contiguous()
+        label = ids_int32(batch["label"]).contiguous()
+        inst = None if self.opt.no_instance else ids_int32(batch["inst"]).contiguous()
         dt = batch["image"].dtype if "image" in batch else torch.float32
         return label, inst, dt
 
@@ -184,7 +184,13 @@ class Pix2PixHDModel:
         nb = real.shape[0]
         return [[f[:nb] for f in sc] for sc in d_rf], [[f[nb:] for f in sc] for sc in d_rf]
 
-    def losses(self, batch: Dict[str, torch.Tensor], params=None, g_only: bool = False):
+    def wants_rng(self) -> bool:
+        """True when the train step must hand ``losses`` a per-step
+        generator (``--use_dropout``: G's training forward is random)."""
+        return bool(getattr(self.opt, "use_dropout", False))
+
+    def losses(self, batch: Dict[str, torch.Tensor], params=None, g_only: bool = False,
+               rng: Optional[Union[torch.Generator, Mapping]] = None):
         """-> (total, metrics, fake). ``params``: ``{G, D, VGG: {name:
         tensor}}`` to run the networks under (None: their own parameters).
         ``total.backward()`` gives both gradients at the same (θG, θD), as
@@ -193,13 +199,20 @@ class Pix2PixHDModel:
         terms see one batched apply over [real; fake.detach()] with live D
         parameters, whose D(real) the feature-matching loss reuses,
         detached. ``g_only``: G's terms alone (D's apply on real, for
-        feature matching, under the detached parameters)."""
+        feature matching, under the detached parameters). ``rng``: the
+        generator G's dropout draws from (``--use_dropout``, JAX
+        ``pix2pixhd.py:313-330``), or the keep mask of each ``ResnetBlock``
+        (``networks.dropout_masks``)."""
         opt = self.opt
         g_params = self._params(params, "G")
         batch = self._normalized(batch, next(iter(g_params.values())).dtype)
         real = batch.get("image")
         g_input, cond = self._g_input(batch, params), self._cond(batch)
-        fake = functional_call(self.netG, g_params, (g_input,))
+        if self.wants_rng() and rng is None:
+            raise ValueError("--use_dropout needs a per-step generator; the train "
+                             "step must pass losses(..., rng=generator)")
+        with networks.dropout_masks(rng if self.wants_rng() else None):
+            fake = functional_call(self.netG, g_params, (g_input,))
         use_lsgan = not opt.no_lsgan
         d_frozen = {k: v.detach() for k, v in self._params(params, "D").items()}
         d_fake_for_g = functional_call(self.netD, d_frozen, (cond, fake))

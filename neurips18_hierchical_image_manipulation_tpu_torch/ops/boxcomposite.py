@@ -71,16 +71,67 @@ def _gather(images, yi, xi):
     return images[bidx, yi, xi]
 
 
+def _pil_cubic(t):
+    """PIL's bicubic kernel (Keys, a = -0.5), support 2."""
+    at = t.abs()
+    near = ((1.5 * at - 2.5) * at) * at + 1.0
+    far = ((-0.5 * at + 2.5) * at - 4.0) * at + 2.0
+    return torch.where(at < 1.0, near, torch.where(at < 2.0, far, torch.zeros_like(at)))
+
+
+def _pil_resample_weights(start, size, out_size: int, full: int):
+    """(B,) start, size -> (B, out_size, full) resample matrices of PIL's
+    bicubic resize of the window [start, start + size) to out_size, over the
+    full axis (JAX ``_pil_resample_weights``, ``boxcomposite.py:56-89``): a
+    downscale widens the kernel by size / out_size, taps outside the window
+    are dropped and each row is normalized over the taps left. A row whose
+    taps sum to about 0 (a window of size 0, or outside the axis) is zeros,
+    not NaN."""
+    scale = size / out_size
+    fscale = torch.clamp_min(scale, 1.0)
+    i = torch.arange(out_size, dtype=torch.float32, device=start.device)
+    centers = start[:, None] + (i + 0.5)[None, :] * scale[:, None]
+    j = torch.arange(full, dtype=torch.float32, device=start.device)[None, None, :]
+    w = _pil_cubic((j + 0.5 - centers[:, :, None]) / fscale[:, None, None])
+    inside = (j >= start[:, None, None]) & (j < (start + size)[:, None, None])
+    w = torch.where(inside, w, torch.zeros_like(w))
+    denom = w.sum(-1, keepdim=True)
+    ok = denom.abs() > 1e-6
+    return torch.where(ok, w / torch.where(ok, denom, torch.ones_like(denom)),
+                       torch.zeros_like(w))
+
+
+def _crop_resize_pil(images, boxes, out_hw):
+    """PIL-bicubic crop + resize as two products a window (JAX
+    ``_crop_resize_pil_one``): rows, then columns, in fp32. A float input
+    keeps its dtype; an unsigned one is clipped to its range, as PIL clamps
+    the cubic's overshoot (PIL also rounds its intermediate pass to the
+    integer type, which this does not). The products run on the matmul
+    precision the caller's tier set: TF32 moves them by about 1e-3 relative,
+    so the fp32 tier keeps it off (models/factory.precision_scope)."""
+    b = boxes.to(torch.float32)
+    wy = _pil_resample_weights(b[:, 0], b[:, 2], out_hw[0], images.shape[1])
+    wx = _pil_resample_weights(b[:, 1], b[:, 3], out_hw[1], images.shape[2])
+    f = images.to(torch.float32).permute(0, 3, 1, 2)           # (B,C,H,W)
+    y = torch.matmul(torch.matmul(wy[:, None], f), wx[:, None].transpose(-1, -2))
+    y = y.permute(0, 2, 3, 1)                                   # (B,oh,ow,C)
+    if images.dtype.is_floating_point:
+        return y.to(images.dtype)
+    if images.dtype in (torch.uint8, torch.uint16):
+        return y.clamp(0.0, float(torch.iinfo(images.dtype).max))
+    return y
+
+
 def crop_resize(images: torch.Tensor, boxes: torch.Tensor, out_hw, method: str = "bilinear"):
     """Crop each image's box and resize it to out_hw.
 
     images (B,H,W,C); boxes (B,4) = (y0,x0,h,w) -> (B,out_h,out_w,C).
     "nearest" keeps the dtype; "bilinear" (edge clamp) returns a float
-    input's dtype, else fp32."""
+    input's dtype, else fp32; "pil_bicubic" (PIL's bicubic with its
+    downscale antialiasing, the streaming bbox loader's resample) returns a
+    float input's dtype, else fp32 clipped to an unsigned input's range."""
     if method == "pil_bicubic":
-        raise NotImplementedError(
-            "crop_resize 'pil_bicubic' is not ported yet: its one user is the "
-            "device-resident loader, which waits for ROADMAP slice A.7")
+        return _crop_resize_pil(images, boxes, out_hw)
     if method not in ("nearest", "bilinear"):
         raise ValueError(f"unknown crop_resize method {method!r}")
     h_img, w_img = images.shape[1], images.shape[2]

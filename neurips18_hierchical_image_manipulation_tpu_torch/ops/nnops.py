@@ -32,6 +32,15 @@ def _nhwc(y):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def ids_int32(t):
+    """Integer ids as int32. A uint16 plane (``--uint8_transfer`` instance
+    ids, up to 65535) goes through its int16 bits, masked back to unsigned:
+    the card's kernels do not all take uint16."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
 def conv2d(x, w, b=None, *, stride=1, padding=0):
     """torch.nn.Conv2d on NHWC x; w (Cout, Cin, kh, kw), zero padding."""
     return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding))

@@ -1,28 +1,45 @@
-"""Training loop — counterpart of the streamed path of ``train/loop.py`` in
-the JAX package: epochs over the loader, the G+D step (fp32, or the bf16
-tier under ``--dtype bfloat16``), the loss line every ``print_freq``
-steps, the HTML visuals every ``display_freq`` steps (``:229-245``),
-``latest`` every ``save_latest_freq`` steps, ``{epoch}`` and ``latest``
-every ``save_epoch_freq`` epochs and a final ``latest``, each a resumable
-checkpoint (``utils/checkpoint.CheckpointManager``).
+"""Training loop — counterpart of ``train/loop.py`` in the JAX package:
+epochs over the loader, the G+D step (fp32, or the bf16 tier under
+``--dtype bfloat16``), the loss line every ``print_freq`` steps with the
+throughput (``img_per_s_per_chip``, ``:198-201``), the HTML visuals every
+``display_freq`` steps, ``latest`` every ``save_latest_freq`` steps,
+``{epoch}`` and ``latest`` every ``save_epoch_freq`` epochs and a final
+``latest``, each a resumable checkpoint (``utils/checkpoint``).
+
+Two paths run an epoch:
+
+  * the fused resident path (``:112-131``, ``:172-214``), whenever the
+    loader is device-resident (``--device_resident_data``) and no image
+    pool splits the step (``--fused_resident_step`` is accepted for the
+    JAX CLI's sake and changes nothing): each iteration samples its
+    batch on the device from ``state.step`` and trains on it
+    (``steps.make_resident_train_step``), with no host-to-device copy;
+    display iterations take the batch back for the visuals. Sampling is a
+    function of (seed, step), so a resumed run continues the same stream
+    and the resume's skip only aligns the epoch's bookkeeping;
+  * the streamed path (``:216-246``): the loader's batches, staged on the
+    device ``--device_prefetch`` batches ahead (``prefetch.device_prefetch``;
+    0 stages each in line).
 
 ``--pool_size > 0`` takes the split G/D steps with the host-side image
 pool between them (``:86-100``) for a model with a D-only objective
 (``d_losses``: mask2image); box2mask has none and trains the fused step,
 as in the JAX package. ``--load_pretrain DIR`` initializes the networks
-from another run's ``--which_epoch`` weights (``utils/checkpoint.
-load_pretrain_into``) once the state is built and before a resume
-(``:54-69``). ``--continue_train`` restores
-``--which_epoch`` and resumes at ``iter.txt``'s epoch, skipping the batches
-of it already done (``:61-71``, ``:250-262``). The loader's shuffle order
-is not part of a checkpoint (as in the JAX package): a resumed run repeats
-the straight run's batches exactly under ``--serial_batches``, except where
-box2mask's ``--bg_box_prob`` places background boxes by the loader's own
-epoch count, which a new process starts at 0 (so does the JAX package's).
+from another run's ``--which_epoch`` weights once the state is built and
+before a resume. ``--continue_train`` restores ``--which_epoch`` and
+resumes at ``iter.txt``'s epoch, skipping the batches of it already done.
+The streaming loader's shuffle order is not part of a checkpoint (as in
+the JAX package): a resumed streamed run repeats the straight run's
+batches exactly under ``--serial_batches``, except where box2mask's
+``--bg_box_prob`` places background boxes by the loader's own epoch count,
+which a new process starts at 0 (so does the JAX package's).
+``--profile_dir`` traces the 21st step of the run (``trace``, the step the
+JAX loop traces).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import torch
@@ -31,26 +48,27 @@ from ..utils.checkpoint import CheckpointManager, load_pretrain_into
 from ..utils.image_pool import ImagePool
 from ..utils.imaging import tensor2im, tensor2label
 from ..utils.visualizer import Visualizer
+from .prefetch import H2DStager, device_prefetch, ready, to_device
+from .profiler import ThroughputMeter, trace
 from .state import make_optimizers
-from .steps import make_pooled_train_steps, make_train_step
+from .steps import make_pooled_train_steps, make_resident_train_step, make_train_step
 
-
-def to_device(host_batch, device):
-    return {
-        k: torch.from_numpy(v).to(device)
-        for k, v in host_batch.items()
-        if not isinstance(v, list)
-    }
+PROFILE_STEP = 20   # --profile_dir traces the step after this many
 
 
 def _host(t):
-    return t.to(torch.float32).cpu().numpy()
+    """A device tensor as numpy: floats (bf16 too) as fp32, ids as they are."""
+    return t.to(torch.float32).cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+
+
+def _pooled(opt, model) -> bool:
+    return opt.pool_size > 0 and hasattr(model, "d_losses")
 
 
 def make_step_fn(opt, model):
     """-> step(state, batch) -> (metrics, fake) for the options' path."""
     compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else None
-    if opt.pool_size <= 0 or not hasattr(model, "d_losses"):
+    if not _pooled(opt, model):
         return make_train_step(model, compute_dtype)
     pool = ImagePool(opt.pool_size, seed=opt.seed)
     g_step, d_step = make_pooled_train_steps(model, compute_dtype)
@@ -81,25 +99,65 @@ def train(opt, model, loader, make_visuals=None):
                 f"WARNING: --continue_train set but no '{opt.which_epoch}' "
                 "checkpoint found — training from scratch"
             )
-    step_fn = make_step_fn(opt, model)
+    device = model.device
+    fused = hasattr(loader, "fused_sampler") and not _pooled(opt, model)
+    if fused:
+        sample_fn, resident = loader.fused_sampler()
+        fused_step, fused_step_wb = make_resident_train_step(
+            model, sample_fn, loader.n_samples, opt.batchSize,
+            torch.bfloat16 if opt.dtype == "bfloat16" else None,
+            shuffle=not opt.serial_batches, seed=opt.seed)
+    else:
+        step_fn = make_step_fn(opt, model)
+        depth = getattr(opt, "device_prefetch", 0)
+        stage = (H2DStager(device) if depth > 0 and device.type == "cuda"
+                 else lambda hb: to_device(hb, device))
+    meter = ThroughputMeter(opt.batchSize, window=opt.print_freq, device=device)
+    profile_dir = getattr(opt, "profile_dir", "")
+
+    def after_step(epoch, i, metrics, fake, host_batch, iter_start):
+        """The loss line, the visuals and the periodic ``latest``."""
+        ips = meter.tick()
+        if state.step % opt.print_freq == 0:
+            errors = {k: float(v) for k, v in metrics.items()}
+            if ips:
+                errors["img_per_s_per_chip"] = ips
+            visualizer.print_current_errors(epoch, i + 1, errors, time.time() - iter_start)
+            visualizer.plot_current_errors(errors, state.step)
+        if make_visuals is not None and state.step % opt.display_freq == 0:
+            visualizer.display_current_results(
+                make_visuals(host_batch(), _host(fake)), epoch, state.step)
+        if state.step % opt.save_latest_freq == 0:
+            ckpt.save("latest", model, state, epoch, i + 1)
+
+    def fused_epoch(epoch, skip):
+        for i in range(skip, max(loader.n_samples // opt.batchSize, 1)):
+            iter_start = time.time()
+            want_batch = make_visuals is not None and (state.step + 1) % opt.display_freq == 0
+            with trace(profile_dir if state.step == PROFILE_STEP else None):
+                if want_batch:
+                    metrics, fake, batch = fused_step_wb(state, resident)
+                else:
+                    metrics, fake = fused_step(state, resident)
+                    batch = None
+            after_step(epoch, i, metrics, fake,
+                       lambda: {k: _host(v) for k, v in batch.items()}, iter_start)
+
+    def streamed_epoch(epoch, skip):
+        batches = device_prefetch(itertools.islice(loader, skip, None), stage, depth)
+        for i, (staged, host_batch) in enumerate(batches, start=skip):
+            iter_start = time.time()
+            with trace(profile_dir if state.step == PROFILE_STEP else None):
+                metrics, fake = step_fn(state, ready(staged))
+            after_step(epoch, i, metrics, fake,
+                       lambda: {k: _host(v) if torch.is_tensor(v) else v
+                                for k, v in host_batch.items()}, iter_start)
+
     n_epochs = opt.niter + opt.niter_decay
     for epoch in range(start_epoch, n_epochs + 1):
         epoch_start = time.time()
         skip = epoch_iter0 if epoch == start_epoch else 0
-        for i, host_batch in enumerate(loader):
-            if i < skip:
-                continue
-            iter_start = time.time()
-            metrics, fake = step_fn(state, to_device(host_batch, model.device))
-            if state.step % opt.print_freq == 0:
-                errors = {k: float(v) for k, v in metrics.items()}
-                visualizer.print_current_errors(epoch, i + 1, errors, time.time() - iter_start)
-                visualizer.plot_current_errors(errors, state.step)
-            if make_visuals is not None and state.step % opt.display_freq == 0:
-                visualizer.display_current_results(
-                    make_visuals(host_batch, _host(fake)), epoch, state.step)
-            if state.step % opt.save_latest_freq == 0:
-                ckpt.save("latest", model, state, epoch, i + 1)
+        (fused_epoch if fused else streamed_epoch)(epoch, skip)
         if epoch % opt.save_epoch_freq == 0:
             ckpt.save(epoch, model, state, epoch + 1, 0)
             ckpt.save("latest", model, state, epoch + 1, 0)

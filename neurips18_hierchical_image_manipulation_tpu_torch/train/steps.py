@@ -10,6 +10,13 @@ evaluated before either step; see ``Pix2PixHDModel.losses``).
 path: a G step over G's terms alone, then a D step against the fake the
 image pool hands back (``utils/image_pool.py``, on the host between them).
 
+``make_resident_train_step`` (JAX ``:86-156``): the device-resident batch
+sampled and trained on in one step, a function of (seed, step).
+
+``--use_dropout``: the model's ``losses`` takes the step's dropout
+generator, seeded from (seed, step) like the resident draws
+(``dropout_generator``).
+
 The bf16 tier (JAX ``_make_loss_fn``, ``:46-67``): the parameters stay fp32
 masters. At the step boundary G's, D's and VGG's floating parameters and
 the batch's float leaves are cast to bf16, except the box coordinates
@@ -28,6 +35,32 @@ from typing import Optional
 import torch
 
 from ..models.pix2pixhd import _COORD_KEYS
+
+# the streams a step draws from, each seeded afresh from (seed, tag, n)
+_SHUFFLE_TAG, _SAMPLE_TAG, _DROPOUT_TAG = 0x5EED, 0xA3C0, 0xD50
+
+
+def seeded_generator(device, seed: int, tag: int, n: int) -> torch.Generator:
+    """A generator on ``device`` seeded from a fixed integer mix of (seed,
+    tag, n): the same numbers give the same stream in any process, so a
+    stream that is a function of the step resumes exactly."""
+    mix = (int(seed) * 0x9E3779B97F4A7C15 + tag * 0xBF58476D1CE4E5B9
+           + int(n) * 0x94D049BB133111EB) % 2**63
+    return torch.Generator(torch.device(device)).manual_seed(mix)
+
+
+def dropout_generator(model, step: int) -> Optional[torch.Generator]:
+    """The step's dropout generator when the model wants one (JAX
+    ``_make_loss_fn``'s per-step rng, ``steps.py:46-67``), else None: a
+    function of (``--seed``, step), advanced by nothing else."""
+    if not (callable(getattr(model, "wants_rng", None)) and model.wants_rng()):
+        return None
+    return seeded_generator(model.device, model.opt.seed, _DROPOUT_TAG, step)
+
+
+def _rng_kw(model, step):
+    rng = dropout_generator(model, step)
+    return {} if rng is None else {"rng": rng}
 
 
 def cast_params(model, dtype):
@@ -60,7 +93,7 @@ def make_train_step(model, compute_dtype: Optional[torch.dtype] = None):
         state.opt_g.zero_grad(set_to_none=True)
         state.opt_d.zero_grad(set_to_none=True)
         params, b = _loss_inputs(model, batch, compute_dtype)
-        total, metrics, fake = model.losses(b, params)
+        total, metrics, fake = model.losses(b, params, **_rng_kw(model, state.step))
         total.backward()
         for o in (state.opt_g, state.opt_d, state.sched_g, state.sched_d):
             o.step()
@@ -68,6 +101,56 @@ def make_train_step(model, compute_dtype: Optional[torch.dtype] = None):
         return metrics, fake.detach()
 
     return step
+
+
+def make_resident_train_step(model, sample_fn, n_samples: int, batch_size: int,
+                             compute_dtype: Optional[torch.dtype] = None, shuffle: bool = True,
+                             seed: int = 0):
+    """The fused resident step (JAX ``make_resident_train_step``,
+    ``steps.py:86-156``): the batch is sampled on the device from the
+    resident stores, then trained on, with no host-to-device copy.
+
+      epoch, i = divmod(state.step, steps_per_epoch)
+      perm     = randperm(n_samples), generator seeded from (seed, epoch)
+      idx      = perm[i * batch_size : (i + 1) * batch_size]
+      batch    = sample_fn(data, idx, generator seeded from (seed, step))
+
+    Every generator is seeded afresh from the step's numbers and advanced by
+    nothing else, so sampling is a function of (seed, state.step): a run
+    resumed from a checkpoint's step continues the same stream. The laws
+    are the host loader's (a fair shuffle, uniform crops, fair flips); the
+    stream is the card's own.
+
+    Returns ``step(state, data) -> (metrics, fake)`` and
+    ``step_with_batch(state, data) -> (metrics, fake, batch)``, the latter
+    for display iterations, which show the batch."""
+    train_step = make_train_step(model, compute_dtype)
+    steps_per_epoch = max(n_samples // batch_size, 1)   # drop_last, as the loaders do
+    device = model.device
+    perms = {}   # the current epoch's permutation, a function of (seed, epoch)
+
+    def batch_of(state, data):
+        epoch, i = divmod(state.step, steps_per_epoch)
+        perm = perms.get(epoch)
+        if perm is None:
+            perms.clear()
+            perm = perms[epoch] = (
+                torch.randperm(n_samples, device=device,
+                               generator=seeded_generator(device, seed, _SHUFFLE_TAG, epoch))
+                if shuffle else torch.arange(n_samples, device=device))
+        idx = perm[i * batch_size: (i + 1) * batch_size]
+        return dict(sample_fn(data, idx,
+                              seeded_generator(device, seed, _SAMPLE_TAG, state.step)))
+
+    def step(state, data):
+        return train_step(state, batch_of(state, data))
+
+    def step_with_batch(state, data):
+        batch = batch_of(state, data)
+        metrics, fake = train_step(state, batch)
+        return metrics, fake, batch
+
+    return step, step_with_batch
 
 
 def make_pooled_train_steps(model, compute_dtype: Optional[torch.dtype] = None):
@@ -82,7 +165,8 @@ def make_pooled_train_steps(model, compute_dtype: Optional[torch.dtype] = None):
     def g_step(state, batch):
         state.opt_g.zero_grad(set_to_none=True)
         params, b = _loss_inputs(model, batch, compute_dtype)
-        total, metrics, fake = model.losses(b, params, g_only=True)
+        total, metrics, fake = model.losses(b, params, g_only=True,
+                                            **_rng_kw(model, state.step))
         total.backward()
         state.opt_g.step()
         state.sched_g.step()

@@ -81,8 +81,14 @@ def test_crop_resize_integer_input():
 
 
 def test_crop_resize_pil_bicubic_raises():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pbc.crop_resize(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4), (2, 2), method="pil_bicubic")
+    # pil_bicubic is ported (tests/test_torch_device_resident.py holds it
+    # against the JAX package); an unknown method still raises, and a
+    # degenerate window gives zeros, not a NaN
+    with pytest.raises(ValueError, match="unknown crop_resize method"):
+        pbc.crop_resize(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4), (2, 2), method="bicubic")
+    out = pbc.crop_resize(torch.ones(1, 4, 4, 3), torch.zeros(1, 4), (2, 2),
+                          method="pil_bicubic")
+    assert torch.equal(out, torch.zeros(1, 2, 2, 3))
 
 
 @pytest.mark.parametrize("kind", sorted(BOXES))

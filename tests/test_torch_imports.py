@@ -52,7 +52,9 @@ def test_port_imports_no_jax(tmp_path):
      f"{PORT}.cli.box2mask_test", f"{PORT}.models.box2mask", f"{PORT}.losses.layout",
      f"{PORT}.cli.two_step_demo", f"{PORT}.cli.evaluate", f"{PORT}.eval.two_step",
      f"{PORT}.eval.metrics", f"{PORT}.eval.features", f"{PORT}.tools.encode_features",
-     f"{PORT}.tools.precompute_feature_maps"],
+     f"{PORT}.tools.precompute_feature_maps", f"{PORT}.data.device_resident",
+     f"{PORT}.data.native", f"{PORT}.train.prefetch", f"{PORT}.train.profiler",
+     f"{PORT}.train.steps", f"{PORT}.data.loader", f"{PORT}.tools.bench_loop"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

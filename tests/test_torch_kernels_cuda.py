@@ -855,3 +855,77 @@ def test_two_step_kernel_path_matches_plain(cuda_device, restore_torch_precision
         inside = sum(boxcomposite.box_mask(b, label.shape[1:3])[..., 0] for b in boxes) > 0
         assert torch.equal(out["edited_image"][~inside], image[~inside])
         assert torch.equal(out["completed_label"][~inside], label[~inside])
+
+
+def test_resident_draws_on_card_within_their_laws(cuda_device):
+    """The fused resident step's draws on the card: crop corners in range
+    and covering it, a fair coin, the same draws from the same (seed, step),
+    an epoch's permutation a permutation, and no host copy needed."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.data import device_resident as pdr
+    from neurips18_hierchical_image_manipulation_tpu_torch.train import steps
+
+    def draws(step):
+        g = steps.seeded_generator(cuda_device, 3, steps._SAMPLE_TAG, step)
+        return pdr.sample_draws(20000, (256, 512), 128, True, True, g, cuda_device)
+
+    ys, xs, coin = draws(7)
+    assert ys.device.type == "cuda" and ys.is_cuda and coin.is_cuda
+    assert int(ys.min()) == 0 and int(ys.max()) == 128
+    assert int(xs.min()) == 0 and int(xs.max()) == 384
+    assert abs(float(coin.float().mean()) - 0.5) < 5 * 0.5 / np.sqrt(20000)
+    again = draws(7)
+    assert all(torch.equal(a, b) for a, b in zip((ys, xs, coin), again))
+    assert not torch.equal(ys, draws(8)[0])
+    g = steps.seeded_generator(cuda_device, 3, steps._SHUFFLE_TAG, 0)
+    perm = torch.randperm(2975, generator=g, device=cuda_device)
+    assert torch.equal(perm.sort().values, torch.arange(2975, device=cuda_device))
+    # the resident gather of a uint16 store through its int16 bits
+    store = {"label": torch.randint(0, 35, (4, 64, 96), dtype=torch.uint8, device=cuda_device),
+             "inst": torch.randint(-32768, 32767, (4, 64, 96), dtype=torch.int16,
+                                   device=cuda_device),
+             "image": torch.randint(0, 256, (4, 64, 96, 3), dtype=torch.uint8,
+                                    device=cuda_device)}
+    idx = torch.tensor([2, 0, 3], device=cuda_device)
+    ys, xs, coin = (t[:3] for t in draws(9))
+    ys, xs = ys % 33, xs % 33
+    out = pdr.sample_batch_impl(store, idx, ys, xs, coin, 32, True, True, as_float=False)
+    cpu = pdr.sample_batch_impl({k: v.cpu() for k, v in store.items()}, idx.cpu(), ys.cpu(),
+                                xs.cpu(), coin.cpu(), 32, True, True, as_float=False)
+    torch.cuda.synchronize()
+    assert out["inst"].dtype == torch.uint16
+    for k in store:
+        assert torch.equal(out[k].cpu().view(torch.uint8), cpu[k].view(torch.uint8)), k
+
+
+def test_prefetch_path_bit_equal_to_synchronous(cuda_device, restore_torch_precision):
+    """Batches staged on a side stream from pinned memory and read on the
+    compute stream train the same bits as in-line copies (the event and
+    record_stream keep the copy from being read early or its memory reused
+    while the step reads it)."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.train.prefetch import (
+        H2DStager,
+        device_prefetch,
+        ready,
+        to_device,
+    )
+
+    opt = BoxToMaskTrainOptions(gpu_ids="0", label_nc=8, ngf=8, ndf=8, n_downsample_global=2,
+                                n_blocks_global=1, n_layers_D=2, fineSize=32)
+    torch.backends.cudnn.deterministic = True
+    host = [synthetic_box2mask_batch(np.random.RandomState(i), 2, size=32, label_nc=8)
+            for i in range(6)]
+    results = {}
+    for depth in (0, 2):
+        from neurips18_hierchical_image_manipulation_tpu_torch.train.state import make_optimizers
+        from neurips18_hierchical_image_manipulation_tpu_torch.train.steps import make_train_step
+
+        model = create_model(opt)
+        state = make_optimizers(opt, model, 6)
+        step = make_train_step(model)
+        stage = H2DStager(cuda_device) if depth else (lambda hb: to_device(hb, cuda_device))
+        for staged, _ in device_prefetch(iter(host), stage, depth):
+            step(state, ready(staged))
+        torch.cuda.synchronize()
+        results[depth] = {k: v.detach().clone() for k, v in model.netG.state_dict().items()}
+    for k, v in results[0].items():
+        assert bits_equal(v, results[2][k]), k
