@@ -1,13 +1,14 @@
 """Drive the PyTorch port's mask2image and box2mask serving and training
 paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
-generator, the instance features and the device-resident data path on one
-CUDA card.
+generator, the instance features, the device-resident data path, data
+parallelism, resblock recomputation and W-sharded inference on one CUDA
+card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
-22, 24-28, 7, 8, 12, 15, 21 (any failure raises and the script exits
-non-zero):
+22, 24-27, 31-33, 28, 7, 8, 12, 15, 21, 23, 29, 30 (any failure raises and
+the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source) and csrc/dataio.cpp (the host data tier) with g++, all
@@ -206,6 +207,32 @@ non-zero):
  28. resident scale  the Cityscapes train split (2975 scenes at 1024x512)
               as a uint8 store made on the card: its bytes, the memory
               guard's verdict, a bs-4 draw at 512x512 timed
+ 29. remat    --remat_policy none, block and conv_out on the fp32 512x256
+              bs-4 step and the bf16 1024x512 bs-4 step: the forward
+              convolutions backward launches again (0, 2 a resblock, 0),
+              every kernel's launches (the IN forward's recompute apart,
+              equal to none's), losses and gradients against none's within
+              2x none's 1-ulp sensitivity (bit-equality recorded), ms a
+              step, peak memory
+ 30. debug_nans  a step fed a NaN pixel raises FloatingPointError before
+              the optimizers step; a clean step trains
+ 31. parallel  the DP step at world size 1 over NCCL against the single
+              step; then two gloo ranks sharing the card (rank_phase): the
+              DP step at global bs 2, each rank's launches per kernel and
+              variant those of a single-card bs-1 step, its mean gradients
+              against the single-process step on the concatenated batch
+              (2x the 1-ulp sensitivity); the resident DP step over phase
+              6's scenes; the W-sharded GlobalGenerator and LocalEnhancer
+              at SPATIAL_HW against their unsharded forwards (MODEL_ATOL),
+              0 launches of the port's kernels; ms and per-rank peak
+              memory, each time labelled with its transport
+ 32. DP CLI   (main path 13) the mask2image train CLI with --gpu_ids 0,0
+              --mesh_devices 2 --device_resident_data: the CLI starts two
+              gloo ranks on the card; one epoch; rank 0 alone writes the
+              loss log, iter.txt and the checkpoint; losses finite
+ 33. spatial CLI  the serving CLI with --spatial_shards 2 over two gloo
+              ranks on the card against phase 5's unsharded gallery (each
+              synthesized PNG within one level)
 With --profile: torch.profiler tables of one serving forward, of train
 steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
 1 and of a two-step add at bs 1.
@@ -221,6 +248,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -231,6 +259,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils._python_dispatch
 
 from neurips18_hierchical_image_manipulation_tpu_torch.cli import (
     box2mask_test,
@@ -2533,8 +2562,8 @@ def phase_local_cli(tmp, dev, results):
     frozen, counts = [], []
     orig_make, orig_load = train_loop.make_step_fn, train_loop.load_pretrain_into
 
-    def make_checked(opt, model):
-        step = orig_make(opt, model)
+    def make_checked(opt, model, mesh=None):
+        step = orig_make(opt, model, mesh)
         trunk = {n: p for n, p in model.netG.named_parameters() if n.startswith("global.")}
         want = {n: pre[n[len("global."):]].to(p.device) for n, p in trunk.items()}
 
@@ -2841,6 +2870,16 @@ MEASURE_STEPS = 16
 MEASURE_OBJECTS = 30         # objects of the extract_bboxes timing's map
 MEASURE_MAP_HW = (512, 1024)
 DROPOUT_HW = STEP_HW         # the dropout step's compare_step shape
+
+# data parallel, remat, --debug_nans and spatial sharding (phases 29-33)
+REMAT_CASES = (((256, 512), 4, "float32"), ((512, 1024), 4, "bfloat16"))   # (hw, bs, dtype)
+REMAT_ITERS = 3
+DP_GPU_IDS = "0,0"           # two ranks on the one card (gloo: NCCL refuses a shared card)
+DP_BS = 2                    # the global batch: 1 a rank
+DP_ITERS = 3
+SPATIAL_HW = (1024, 2048)    # the W-sharded forwards' images
+SPATIAL_ITERS = 2
+RANK_JOIN_S = 600
 
 
 @contextlib.contextmanager
@@ -3658,6 +3697,460 @@ def phase_profile(dev, results):
     results["profile_table"] = table
 
 
+# ------------------------------------------- data parallel, remat, spatial
+
+class ConvCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the forward convolutions dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def grads_after(model, batch, dtype=None, nudge=False):
+    """(metrics, gradients) of one G+D objective from zeroed gradients,
+    cuDNN deterministic; ``nudge`` moves the image up by one ulp of the
+    dtype the step computes in first (bf16: the image's bf16 bits plus 1,
+    which the step's cast keeps)."""
+    if nudge:
+        img = batch["image"]
+        if dtype == torch.bfloat16:
+            bits = img.to(torch.bfloat16).view(torch.int16)
+            img = (bits + 1).view(torch.bfloat16).to(img.dtype)   # images lie in [-1, 1]
+        else:
+            img = torch.nextafter(img, torch.full_like(img, 2.0))
+        batch = dict(batch, image=img)
+    for m in trained(model).values():
+        m.zero_grad(set_to_none=True)
+    with cudnn_deterministic():
+        params, b = _loss_inputs(model, batch, dtype)
+        total, metrics, _ = model.losses(b, params)
+        total.backward()
+    return {k: v.item() for k, v in metrics.items()}, grads_of(model)
+
+
+def held_to_sensitivity(got, want, sens, metrics, want_metrics, what):
+    """``got`` gradients against ``want`` within STEP_SENS_FACTOR times the
+    1-ulp sensitivity ``sens`` (compare_step's bar), the metrics within
+    STEP_LOSS_RTOL -> the record."""
+    diffs = _leaf_diffs(got, want)
+    whole = _worst(diffs)
+    bits = all(x is None and y is None or torch.equal(x, y) for (_, x), (_, y) in zip(got, want))
+    loss_rel = max(abs(metrics[k] - want_metrics[k]) / max(abs(want_metrics[k]), 1e-30)
+                   for k in want_metrics)
+    log(f"[{what}] gradients (max|diff|/max|g|, ||diff||/||g||, leaf) {whole}, bit-equal "
+        f"{bits}; 1-ulp sensitivity {sens}; losses max rel {loss_rel:.3g}")
+    if loss_rel > STEP_LOSS_RTOL or whole[0] > STEP_SENS_FACTOR * max(sens[0], 1e-30) or \
+            whole[1] > STEP_SENS_FACTOR * max(sens[1], 1e-30):
+        raise AssertionError(f"{what}: gradients {whole} beyond {STEP_SENS_FACTOR}x the "
+                             f"sensitivity {sens}, or losses {loss_rel}")
+    return dict(gradients=whole, bit_equal=bits, sensitivity=sens, max_loss_rel=loss_rel)
+
+
+def expect_remat_launches(policy, launches, none):
+    """A remat policy launches what ``none`` launches, but for the IN
+    forwards its recompute adds (none under ``none``) -> their count."""
+    extra = launches["instance_norm"] - none["instance_norm"]
+    if {k: v for k, v in launches.items() if k != "instance_norm"} != \
+            {k: v for k, v in none.items() if k != "instance_norm"} or \
+            (policy == "none") != (extra == 0):
+        raise AssertionError(f"remat {policy}: launches {launches} vs none {none}")
+    return extra
+
+
+def phase_remat(dev, results):
+    """Phase 29: --remat_policy none / block / conv_out on the flagship step
+    (fp32 512x256 bs 4 and bf16 1024x512 bs 4): ms a step, peak memory, the
+    convolutions backward launches again, every kernel's launches, and the
+    losses and gradients against none's (cuDNN deterministic)."""
+    rows = []
+    for hw, bs, dtype in REMAT_CASES:
+        compute = torch.bfloat16 if dtype == "bfloat16" else None
+        batch = encode_inputs(bs, *hw, dev, seed=12)
+        ref = None
+        for policy in networks.REMAT_POLICIES:
+            opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, dtype=dtype, remat_policy=policy,
+                                          **ARCH)
+            model = create_model(opt)
+            zero_launches()
+            for m in trained(model).values():
+                m.zero_grad(set_to_none=True)
+            with cudnn_deterministic():
+                params, b = _loss_inputs(model, batch, compute)
+                total, metrics, _ = model.losses(b, params)
+                fwd = read_launches()
+                with ConvCount() as convs:
+                    total.backward()
+            torch.cuda.synchronize()
+            launches, variants = read_launches(), read_variants()
+            in_bwd = {k: launches[k] - fwd[k] for k in launches}
+            metrics = {k: v.item() for k, v in metrics.items()}
+            grads = grads_of(model)
+            row = dict(hw=list(hw), bs=bs, dtype=dtype, policy=policy,
+                       convs_recomputed_in_backward=convs.n, launches=launches,
+                       variants=variants, launches_in_backward=in_bwd)
+            if ref is None:
+                sens = _worst(_leaf_diffs(grads_after(model, batch, compute, nudge=True)[1],
+                                          grads))
+                ref = (grads, metrics, sens, launches)
+            else:
+                row["vs_none"] = held_to_sensitivity(grads, ref[0], ref[2], metrics, ref[1],
+                                                     f"remat {policy} {dtype} bs {bs}")
+            want_convs = 0 if policy != "block" else 2 * model.netG.n_blocks
+            if convs.n != want_convs:
+                raise AssertionError(f"remat {policy}: {convs.n} convolutions in backward, "
+                                     f"want {want_convs}")
+            row["instance_norm_recomputed"] = expect_remat_launches(policy, launches, ref[3])
+            del grads
+            state = make_optimizers(opt, model, 1000)
+            step = make_train_step(model, compute)
+            for _ in range(2):
+                step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            for _ in range(REMAT_ITERS):
+                step(state, batch)
+            torch.cuda.synchronize()
+            row["ms_per_step"] = (time.perf_counter() - t) / REMAT_ITERS * 1e3
+            row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            log(f"[remat] {row}")
+            rows.append(row)
+            del model, state, step
+            torch.cuda.empty_cache()
+    results["remat"] = rows
+    first = [r for r in rows if r["hw"] == list(REMAT_CASES[0][0])]
+    return ({f"remat_{r['policy']}": r["launches"] for r in first},
+            {f"remat_{r['policy']}": r["variants"] for r in first})
+
+
+def phase_debug_nans(dev, results):
+    """Phase 30: --debug_nans on the card: a batch with a NaN pixel raises
+    FloatingPointError before the optimizers step; a clean one trains."""
+    opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, debug_nans=True, **ARCH)
+    model = create_model(opt)
+    state = make_optimizers(opt, model, 1000)
+    step = make_train_step(model, debug_nans=True)
+    batch = encode_inputs(1, *STEP_HW, dev, seed=13)
+    metrics, _ = step(state, batch)
+    poisoned = dict(batch, image=batch["image"].clone())
+    poisoned["image"][0, 5, 7, 1] = float("nan")
+    w = model.netG.conv_in.weight.detach().clone()
+    try:
+        step(state, poisoned)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("--debug_nans: a NaN batch trained without a word")
+    if state.step != 1 or not torch.equal(w, model.netG.conv_in.weight):
+        raise AssertionError("--debug_nans: the poisoned step moved the parameters")
+    log(f"[debug_nans] clean step losses {({k: v.item() for k, v in metrics.items()})}; "
+        f"poisoned step raised: {raised}")
+    results["debug_nans"] = dict(raised=raised)
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def _spatial_nets(dev):
+    """The flagship GlobalGenerator and the 1024p LocalEnhancer (mask2image's
+    39 input channels), random weights from a seed, on ``dev``."""
+    gen = torch.Generator().manual_seed(21)
+    g = networks.GlobalGenerator(39, ngf=ARCH.get("ngf", 64),
+                                 n_downsampling=ARCH.get("n_downsample_global", 4),
+                                 n_blocks=ARCH.get("n_blocks_global", 9))
+    g.reset_parameters(gen)
+    le = networks.LocalEnhancer(39, ngf=LOCAL_G["ngf"],
+                                n_downsample_global=ARCH.get("n_downsample_global", 4),
+                                n_blocks_global=ARCH.get("n_blocks_global", 9),
+                                n_local_enhancers=LOCAL_G["n_local_enhancers"],
+                                n_blocks_local=LOCAL_G["n_blocks_local"])
+    le.reset_parameters(gen)
+    return {"global": g.to(dev).eval(), "local": le.to(dev).eval()}
+
+
+def _spatial_fwd(kind, net, mesh):
+    from neurips18_hierchical_image_manipulation_tpu_torch.parallel import spatial
+
+    if kind == "local":
+        return spatial.make_spatial_local_enhancer(
+            mesh, net, n_downsample_global=getattr(net, "global").n_downsampling,
+            n_blocks_global=getattr(net, "global").n_blocks,
+            n_local_enhancers=net.n_local_enhancers, n_blocks_local=net.n_blocks_local)
+    return spatial.make_spatial_generator(mesh, net, n_downsampling=net.n_downsampling,
+                                          n_blocks=net.n_blocks)
+
+
+def rank_phase(rank, world, init, cfg, out_dir):
+    """One of phase 31's ranks (two gloo ranks sharing the card): the DP
+    step (against the single-process step on the concatenated batch, rank
+    0), the resident DP step and the W-sharded forwards (against the
+    unsharded ones, rank 0); its launches and times to a JSON file."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.parallel import distributed, make_mesh
+    from neurips18_hierchical_image_manipulation_tpu_torch.parallel import spatial
+
+    global ARCH, LOCAL_G
+    ARCH, LOCAL_G = cfg["arch"], cfg["local_g"]
+    dev = distributed.rank_devices(cfg["gpu_ids"], world)[rank]
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
+    distributed.maybe_initialize(init, world, rank, "gloo", dev, timeout_s=300)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    peak = ((lambda: torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda"
+            else (lambda: 0))
+    try:
+        mesh = make_mesh((world,), ("data",))
+        out = {"rank": rank, "device": str(dev)}
+        opt = MaskToImageTrainOptions(gpu_ids=cfg["gpu_ids"], **ARCH)
+        model = create_model(opt)
+        state = make_optimizers(opt, model, 1000)
+        train_steps.replicate(model, state)
+        gbatch = encode_inputs(cfg["bs"], *cfg["hw"], dev, seed=14)
+        shard = train_steps.shard_batch(gbatch, mesh)
+        step = train_steps.make_dp_train_step(model, mesh)
+        zero_launches()
+        with cudnn_deterministic():
+            metrics, _ = step(state, shard)
+        sync()
+        out["dp_launches"], out["dp_variants"] = read_launches(), read_variants()
+        dp = ({k: v.item() for k, v in metrics.items()}, grads_of(model))
+        for _ in range(1):
+            step(state, shard)
+        sync()
+        t = time.perf_counter()
+        for _ in range(cfg["iters"]):
+            step(state, shard)
+        sync()
+        out["dp_ms"] = (time.perf_counter() - t) / cfg["iters"] * 1e3
+        out["dp_peak_mem_bytes"] = peak()
+        if rank == 0:
+            ref = create_model(opt)
+            single = grads_after(ref, gbatch)
+            sens = _worst(_leaf_diffs(grads_after(ref, gbatch, nudge=True)[1], single[1]))
+            out["dp_vs_single"] = held_to_sensitivity(dp[1], single[1], sens, dp[0], single[0],
+                                                      "DP step vs single-process step")
+            rstate = make_optimizers(opt, ref, 1000)
+            zero_launches()
+            make_train_step(ref)(rstate, shard)    # the single-card step at the rank's batch
+            sync()
+            out["single_launches"], out["single_variants"] = read_launches(), read_variants()
+            del ref, rstate, single
+        del dp
+        # the resident DP step over the train CLI's dataroot
+        ropt = MaskToImageTrainOptions(gpu_ids=cfg["gpu_ids"], dataroot=cfg["dataroot"],
+                                       device_resident_data=True, batchSize=cfg["bs"],
+                                       **{k: v for k, v in ARCH.items() if k != "batchSize"})
+        loader = CreateDataLoader(ropt)
+        sample_fn, data = loader.fused_sampler()
+        rstep, _ = train_steps.make_resident_dp_train_step(model, mesh, sample_fn,
+                                                           loader.n_samples, cfg["bs"], seed=5)
+        zero_launches()
+        for _ in range(2):
+            metrics, _ = rstep(state, data)
+        sync()
+        out["resident_launches"], out["resident_variants"] = read_launches(), read_variants()
+        out["resident_losses"] = {k: v.item() for k, v in metrics.items()}
+        del model, state, step, rstep, loader, data
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # the W-sharded forwards
+        out["spatial"] = {}
+        for kind, net in _spatial_nets(dev).items():
+            x = torch.randn((1, *cfg["spatial_hw"], 39), generator=torch.Generator(dev).manual_seed(
+                22), device=dev)
+            fwd = _spatial_fwd(kind, net, mesh)
+            slab = spatial.shard_w(x, mesh).contiguous()
+            zero_launches()
+            y = fwd(slab)
+            sync()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+            t = time.perf_counter()
+            for _ in range(cfg["spatial_iters"]):
+                y = fwd(slab)
+            sync()
+            rec = dict(ms=(time.perf_counter() - t) / cfg["spatial_iters"] * 1e3,
+                       peak_mem_bytes=peak(), resident_bytes=base, launches=read_launches(),
+                       slab=list(slab.shape))
+            full = spatial.gather_w(y, mesh)
+            if rank == 0:
+                with torch.no_grad():
+                    want = net(x)
+                    sync()
+                    if dev.type == "cuda":
+                        torch.cuda.reset_peak_memory_stats(dev)
+                    t = time.perf_counter()
+                    for _ in range(cfg["spatial_iters"]):
+                        want = net(x)
+                    sync()
+                rec.update(unsharded_ms=(time.perf_counter() - t) / cfg["spatial_iters"] * 1e3,
+                           unsharded_peak_mem_bytes=peak(),
+                           max_abs_err=(full - want).abs().max().item(),
+                           shape=list(full.shape))
+                del want
+            out["spatial"][kind] = rec
+            del x, y, full, net
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    finally:
+        distributed.shutdown(True)
+
+
+def phase_parallel(tmp, dev, results):
+    """Phase 31: the DP step at world size 1 over NCCL in this process
+    (against the single step, bit for bit where cuDNN is deterministic),
+    then two gloo ranks sharing the card (``rank_phase``): the DP step per
+    rank against the single-card step at the rank's batch (launches per
+    kernel and variant) and against the single-process step on the
+    concatenated batch, the resident DP step, and the W-sharded
+    GlobalGenerator and LocalEnhancer at SPATIAL_HW against their unsharded
+    forwards, which launch none of the port's kernels. The DP times over
+    gloo measure the host-staged transport of one card, not scaling."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.parallel import distributed, make_mesh
+
+    init = os.path.join(tmp, "nccl_init")
+    distributed.maybe_initialize(f"file://{init}", 1, 0, "nccl" if dev.type == "cuda" else "gloo",
+                                 dev, timeout_s=300)
+    try:
+        backend = torch.distributed.get_backend()
+        opt = MaskToImageTrainOptions(gpu_ids=GPU_IDS, **ARCH)
+        model = create_model(opt)
+        batch = encode_inputs(1, *STEP_HW, dev, seed=15)
+        single = grads_after(model, batch)
+        sens = _worst(_leaf_diffs(grads_after(model, batch, nudge=True)[1], single[1]))
+        mesh = make_mesh((1,), ("data",))
+        state = make_optimizers(opt, model, 1000)
+        step = train_steps.make_dp_train_step(model, mesh)
+        zero_launches()
+        with cudnn_deterministic():
+            metrics, _ = step(state, batch)
+        torch.cuda.synchronize()
+        w1_launches, w1_variants = read_launches(), read_variants()
+        w1 = held_to_sensitivity(grads_of(model), single[1], sens,
+                                 {k: v.item() for k, v in metrics.items()}, single[0],
+                                 f"DP step, world size 1 over {backend}")
+        step(state, batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(DP_ITERS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        w1["ms_per_step"] = (time.perf_counter() - t) / DP_ITERS * 1e3
+        w1["transport"] = f"{backend}, world size 1"
+        del model, state, step, single
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown(True)
+    log(f"[parallel] world size 1: {w1}")
+    out_dir = os.path.join(tmp, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = dict(gpu_ids=DP_GPU_IDS, arch=ARCH, local_g=LOCAL_G, hw=list(STEP_HW), bs=DP_BS,
+               iters=DP_ITERS, dataroot=os.path.join(tmp, "city_train"),
+               spatial_hw=list(SPATIAL_HW), spatial_iters=SPATIAL_ITERS)
+    t = time.time()
+    distributed.spawn(rank_phase, 2, args=(2, f"file://{os.path.join(tmp, 'gloo_init')}", cfg,
+                                           out_dir), join_timeout_s=RANK_JOIN_S)
+    wall = time.time() - t
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0, r1 = ranks
+    for r in ranks:   # every rank launches what one single-card step at its batch launches
+        expect_launches(r["dp_launches"], r0["single_launches"], f"DP step rank {r['rank']}")
+        if r["dp_variants"] != r0["single_variants"]:
+            raise AssertionError(f"DP rank {r['rank']} variants {r['dp_variants']} vs "
+                                 f"{r0['single_variants']}")
+        expect_launches(r["resident_launches"],
+                        {k: 2 * n for k, n in r0["single_launches"].items()},
+                        f"resident DP step rank {r['rank']}")
+        if not all(np.isfinite(v) for v in r["resident_losses"].values()):
+            raise AssertionError(f"resident DP losses {r['resident_losses']}")
+        for kind, rec in r["spatial"].items():
+            expect_launches(rec["launches"], {k: 0 for k in rec["launches"]},
+                            f"spatial {kind} rank {r['rank']}")
+    for kind, rec in r0["spatial"].items():
+        if rec["max_abs_err"] > MODEL_ATOL:
+            raise AssertionError(f"spatial {kind}: max |diff| {rec['max_abs_err']} vs unsharded")
+    transport = "gloo, 2 ranks sharing one card (host-staged collectives)"
+    log(f"[parallel] {transport}: DP step {r0['dp_ms']:.2f} / {r1['dp_ms']:.2f} ms (rank 0 / 1), "
+        f"peak {r0['dp_peak_mem_bytes']} B; vs single {r0['dp_vs_single']}; spawn + phase "
+        f"{wall:.1f} s")
+    for kind in r0["spatial"]:
+        a, b = r0["spatial"][kind], r1["spatial"][kind]
+        log(f"[parallel] spatial {kind} {SPATIAL_HW[1]}x{SPATIAL_HW[0]} ({transport}): "
+            f"{a['ms']:.1f} / {b['ms']:.1f} ms, peak {a['peak_mem_bytes']} / "
+            f"{b['peak_mem_bytes']} B (rank 0 / 1); unsharded {a['unsharded_ms']:.1f} ms, peak "
+            f"{a['unsharded_peak_mem_bytes']} B; max |diff| {a['max_abs_err']:.3g}")
+    results["parallel"] = dict(world1=w1, ranks=ranks, transport=transport, wall_s=wall,
+                               world1_launches=w1_launches)
+    return ({"dp_world1": w1_launches, "dp_rank0": r0["dp_launches"],
+             "dp_rank1": r1["dp_launches"], "resident_dp_rank0": r0["resident_launches"],
+             "spatial_rank0": r0["spatial"]["global"]["launches"]},
+            {"dp_world1": w1_variants, "dp_rank0": r0["dp_variants"],
+             "dp_rank1": r1["dp_variants"], "resident_dp_rank0": r0["resident_variants"],
+             "spatial_rank0": {k: {v: 0 for v in d} for k, d in w1_variants.items()}})
+
+
+def phase_parallel_clis(tmp, results):
+    """Phases 32-33: main path 13, the mask2image train CLI over two gloo
+    ranks on the card (``--gpu_ids 0,0 --mesh_devices 2``, the fused
+    resident DP step) one epoch, rank 0 alone writing; and the serving CLI
+    ``--spatial_shards 2`` against phase 5's unsharded gallery."""
+    from PIL import Image
+
+    ckpt = os.path.join(tmp, "ckpt_dp")
+    root = os.path.join(tmp, "city_dp")
+    write_dataroot(root, n=1, phase="train", seed=3)
+    argv = ["--name", "smoke_dp", "--dataroot", root,
+            "--checkpoints_dir", ckpt, "--gpu_ids", DP_GPU_IDS, "--mesh_devices", "2",
+            "--batchSize", str(DP_BS), "--device_resident_data", "--niter", "1",
+            "--niter_decay", "0", "--print_freq", "1", "--save_epoch_freq", "100", *ARCH_ARGV]
+    t = time.time()
+    if mask2image_train.main(argv) is not None:
+        raise AssertionError("the DP train CLI trained in this process")
+    wall = time.time() - t
+    with open(os.path.join(ckpt, "smoke_dp", "loss_log.txt")) as f:
+        log_txt = f.read()
+    lines = [ln for ln in log_txt.splitlines() if ln.startswith("(epoch: ")]
+    with open(os.path.join(ckpt, "smoke_dp", "iter.txt")) as f:
+        it = f.read()
+    if log_txt.count("Training Loss") != 1 or not lines or it != "2,0" or \
+            not os.path.exists(os.path.join(ckpt, "smoke_dp", "ckpt", "latest_params.npz")):
+        raise AssertionError(f"DP CLI wrote {log_txt!r}, iter.txt {it!r}")
+    vals = [float(v) for ln in lines for v in re.findall(r": (-?[0-9.]+|nan|inf)", ln)[1:]]
+    if not all(np.isfinite(v) for v in vals):
+        raise AssertionError(f"DP CLI losses {lines}")
+    log(f"[DP CLI] 2 gloo ranks on the card, {len(lines)} steps in {wall:.1f} s (spawn, "
+        f"model init, upload, checkpoint writes)")
+    res = os.path.join(tmp, "results_spatial")
+    argv = ["--name", "smoke", "--dataroot", os.path.join(tmp, "city"),
+            "--checkpoints_dir", os.path.join(tmp, "ckpt"), "--results_dir", res,
+            "--gpu_ids", DP_GPU_IDS, "--how_many", "4", "--spatial_shards", "2", *ARCH_ARGV]
+    t = time.time()
+    mask2image_test.main(argv)
+    swall = time.time() - t
+    worst, n = 0, 0
+    ref_dir = os.path.join(tmp, "results", "smoke", "test_latest", "images")
+    got_dir = os.path.join(res, "smoke", "test_latest", "images")
+    for name in sorted(os.listdir(ref_dir)):
+        if name.endswith("_synthesized_image.png"):
+            a = np.asarray(Image.open(os.path.join(ref_dir, name))).astype(int)
+            b = np.asarray(Image.open(os.path.join(got_dir, name))).astype(int)
+            worst, n = max(worst, int(np.abs(a - b).max())), n + 1
+    if n == 0 or worst > 1:
+        raise AssertionError(f"spatial serving CLI: {n} images, worst level diff {worst}")
+    log(f"[spatial CLI] --spatial_shards 2 over 2 gloo ranks on the card: {n} images equal to "
+        f"the unsharded gallery within {worst} level(s), {swall:.1f} s")
+    results["parallel_clis"] = dict(dp_cli_steps=len(lines), dp_cli_wall_s=wall,
+                                    spatial_cli_images=n, spatial_cli_worst_level=worst,
+                                    spatial_cli_wall_s=swall)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every result to this JSON file")
@@ -3695,6 +4188,8 @@ def main(argv=None):
                       **phase_resident_b2m_cli(tmp, results, b2m_ref),
                       **phase_dropout(tmp, dev, results, m2i_ref)}
         phase_data_measure(tmp, dev, results)
+        par_launches, par_variants = phase_parallel(tmp, dev, results)
+        phase_parallel_clis(tmp, results)
     phase_resident_scale(dev, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)
@@ -3704,6 +4199,8 @@ def main(argv=None):
     phase_b2m_step(dev, results)
     phase_local_step(dev, results)
     phase_feat_step(dev, results)
+    remat_launches, remat_variants = phase_remat(dev, results)
+    phase_debug_nans(dev, results)
     kernels += phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants,
                                              step_calls, results)
     # every kernel's launches per variant on each main path
@@ -3713,13 +4210,15 @@ def main(argv=None):
                      "box2mask_train": b2m_variants, "box2mask_serving": b2m_serve_variants,
                      "two_step": two_step_variants, "evaluate": eval_variants,
                      "train_1024p": local_variants, "serving_1024p": local_serve_variants,
-                     **feat_variants, **{p: r["variants"] for p, r in data_paths.items()}}
+                     **feat_variants, **{p: r["variants"] for p, r in data_paths.items()},
+                     **par_variants, **remat_variants}
     path_launches = {"serving": results["launches"], "train": cli_launches,
                      "train_bf16_pool": bf16_launches, "roofline": roofline_launches,
                      "box2mask_train": b2m_launches, "box2mask_serving": b2m_serve_launches,
                      "two_step": two_step_launches, "evaluate": eval_launches,
                      "train_1024p": local_launches, "serving_1024p": local_serve_launches,
-                     **feat_launches, **{p: r["launches"] for p, r in data_paths.items()}}
+                     **feat_launches, **{p: r["launches"] for p, r in data_paths.items()},
+                     **par_launches, **remat_launches}
     kernels.append(encode_pad0_row(local_table, local_variants, local_serve_variants))
     kernels.append(conv_in_main_path_row(dev, results))
     kernels.append(conv_in_fp32_row(results, path_variants))

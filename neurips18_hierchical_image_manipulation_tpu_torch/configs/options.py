@@ -6,9 +6,10 @@ for either package. ``parse()`` creates ``{checkpoints_dir}/{name}`` and
 writes ``opt.txt`` and ``config.json`` like ``BaseOptions.parse``.
 
 Device: ``--gpu_ids -1`` runs on the CPU; any other value asks for that
-CUDA device and fails without one (models/factory.resolve_device). Flags
-that select a path not ported yet are accepted and refused where the
-path would start.
+CUDA device and fails without one (models/factory.resolve_device); under
+several ranks rank r takes the r-th listed id (``parallel/distributed.py``).
+``--data_backend grain`` is accepted and refused where the loader would
+start (no machine here has the package).
 """
 
 from __future__ import annotations
@@ -55,7 +56,9 @@ class BaseOptions:
     uint8_transfer: bool = False  # ship uint8 images, normalize on device
     device_prefetch: int = 0  # batches staged ahead on the device (0: in line)
     device_resident_data: bool = False  # upload once, sample on the device
-    fused_resident_step: bool = True  # JAX CLI parity: resident data always fuses
+    # resident data trains the fused sample+step (False: the loader's own
+    # host-shuffled batches through the streamed step, as in the JAX loop)
+    fused_resident_step: bool = True
 
     # display
     display_winsize: int = 512
@@ -86,22 +89,25 @@ class BaseOptions:
     # (full fp32 convolutions) otherwise; see models/factory.py
     conv_precision: str = "auto"
     no_pallas: bool = False  # accepted; no effect here (models/factory.py)
-    mesh_devices: int = 0
+    mesh_devices: int = 0  # data-parallel ranks: 0 = every local device
     seed: int = 0
-    debug_nans: bool = False
-    remat: bool = False
+    debug_nans: bool = False  # raise at the first non-finite loss or gradient
+    remat: bool = False  # recompute each GlobalGenerator resblock in backward
+    # none | block (keep each block's input) | conv_out (keep the two conv
+    # outputs: backward recomputes only the IN / ReLU / pad chains)
     remat_policy: str = "none"
 
     isTrain: bool = field(default=False, init=False)
 
     def parse(self, save=True):
-        """Create {checkpoints_dir}/{name}, dump opt.txt (+config.json)."""
+        """Create {checkpoints_dir}/{name}, dump opt.txt (+config.json);
+        under several ranks only rank 0 writes them."""
         # the reference's --data_type 16 asked for half precision
         if self.data_type == 16 and self.dtype == "float32":
             self.dtype = "bfloat16"
         expr_dir = os.path.join(self.checkpoints_dir, self.name)
         os.makedirs(expr_dir, exist_ok=True)
-        if save:
+        if save and os.environ.get("RANK", "0") == "0":
             args = dataclasses.asdict(self)
             with open(os.path.join(expr_dir, "opt.txt"), "w") as f:
                 f.write("------------ Options -------------\n")
@@ -153,22 +159,13 @@ class TrainOptions(BaseOptions):
         self.isTrain = True
 
 
-# training flags whose path is not ported yet: (flag, is it set?, where it
-# is queued in ROADMAP.md)
-_TRAIN_NOT_PORTED = (
-    ("--mesh_devices > 1", lambda o: o.mesh_devices > 1, "data parallel, ROADMAP.md §A.6"),
-    ("--remat / --remat_policy", lambda o: o.remat or o.remat_policy != "none",
-     "recomputation, ROADMAP.md §A.9 (tooling)"),
-    ("--debug_nans", lambda o: o.debug_nans, "tooling, ROADMAP.md §A.9"),
-)
-
-
 def check_train_options(opt) -> None:
-    """Refuse every training flag whose path is not ported yet, naming
-    where it waits, rather than ignoring it."""
-    for flag, is_set, where in _TRAIN_NOT_PORTED:
-        if is_set(opt):
-            raise NotImplementedError(f"{flag} is not ported yet: it waits for {where}")
+    """Refuse what the port does not train before any data loads: an
+    unknown ``--remat_policy``, and remat of a generator other than the
+    GlobalGenerator (``models/networks.remat_policy_of``)."""
+    from ..models.networks import remat_policy_of
+
+    remat_policy_of(opt)
 
 
 @dataclass
@@ -241,7 +238,7 @@ class MaskToImageTestOptions(TestOptions):
     contextMargin: float = 2.0
     min_box_size: int = 16
     max_box_size: int = 10_000
-    spatial_shards: int = 0  # W-sharded inference: not ported yet
+    spatial_shards: int = 0  # W-sharded generator inference over N ranks
 
 
 @dataclass

@@ -113,9 +113,9 @@ def CreateDataLoader(opt, records=None):
             )
     if getattr(opt, "data_backend", "threads") != "threads":
         raise NotImplementedError(
-            f"--data_backend {opt.data_backend} is not ported yet: the grain pipeline "
-            "waits for ROADMAP.md §A.7, and the card's machine has no grain package "
-            "(use threads)"
+            f"--data_backend {opt.data_backend} is not ported: the grain pipeline is "
+            "blocked (ROADMAP.md §A.2): there is no grain package on the build host or "
+            "the card's machine (use threads)"
         )
     kw = dict(batch_size=opt.batchSize, shuffle=not opt.serial_batches,
               seed=getattr(opt, "seed", 0))

@@ -10,18 +10,21 @@ import torch
 
 
 def resolve_device(opt) -> torch.device:
-    """``--gpu_ids -1`` is the CPU; otherwise the first listed card. With
-    a card requested and none present this raises: the port never
-    carries on on the CPU in its place."""
-    ids = [int(i) for i in str(opt.gpu_ids).split(",") if i.strip() != ""]
-    if not ids or ids[0] < 0:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+    """``--gpu_ids -1`` is the CPU; otherwise the first listed card, or
+    under several ranks this rank's (``parallel.distributed.rank_devices``:
+    the rank-th listed id, else ``cuda:rank``). With a card requested and
+    none present this raises: the port never carries on on the CPU in its
+    place."""
+    from ..parallel.distributed import local_rank, rank_devices
+
+    r = local_rank()
+    device = rank_devices(opt.gpu_ids, r + 1)[r]
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--gpu_ids {opt.gpu_ids} asks for a CUDA device but none is "
             "available; pass --gpu_ids -1 to run on the CPU"
         )
-    return torch.device("cuda", ids[0])
+    return device
 
 
 def resolve_precision(opt) -> str:

@@ -30,10 +30,17 @@ as a parameter (the checkpoint layout is unchanged) but does not apply it
 from __future__ import annotations
 
 import contextlib
+import operator
 from typing import Mapping, Optional, Union
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..kernels import instance_norm as kin
 from ..ops import nnops
@@ -169,30 +176,116 @@ def dropout(h: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
                                                                      device=h.device))
 
 
+REMAT_POLICIES = ("none", "block", "conv_out")
+
+
+def remat_policy(remat: bool, policy: str = "none") -> str:
+    """The resblock recomputation policy (JAX ``_resblock_cls``,
+    ``networks.py:281-298``): the policy is checked first (an unknown one
+    raises, also beside ``remat``), and ``remat`` alone means ``block``."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return "block" if policy == "none" and remat else policy
+
+
+def remat_policy_of(opt) -> str:
+    """``--remat`` / ``--remat_policy`` of ``opt``. Remat applies to the
+    GlobalGenerator's resblocks only, as in the JAX package; there the
+    LocalEnhancer and the two-stream generator ignore it without a word,
+    so the port refuses the combination (ROADMAP.md §C.11)."""
+    policy = remat_policy(getattr(opt, "remat", False), getattr(opt, "remat_policy", "none"))
+    if policy != "none" and getattr(opt, "netG", "global") != "global":
+        raise ValueError(
+            f"--remat / --remat_policy {policy} recomputes the GlobalGenerator's resblocks "
+            f"only; --netG {opt.netG} takes none (the JAX package ignores it there; "
+            "ROADMAP.md §C.11)")
+    return policy
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """``conv_out``'s selective-checkpoint rule (the JAX ``res_conv_out``
+    save set, ``networks.py:263,268``): keep every convolution's output,
+    recompute everything else."""
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _conv_out_contexts():
+    return create_selective_checkpoint_contexts(_save_conv_outputs)
+
+
 class ResnetBlock(nn.Module):
     """ReflectPad1 -> Conv3x3 -> norm -> ReLU -> [Dropout(0.5)] ->
     ReflectPad1 -> Conv3x3 -> norm, plus the block input. Under IN the add
     rides in the second IN's epilogue. Dropout (``--use_dropout``, JAX
     ``networks.py:245-266``) acts inside a ``dropout_masks`` scope only,
-    with the innermost scope's masks."""
+    with the innermost scope's masks.
 
-    def __init__(self, dim, norm="instance", use_dropout=False):
+    ``remat_policy`` (``--remat`` / ``--remat_policy``) trades compute for
+    memory in training: ``block`` keeps only the block's input and
+    recomputes the whole block in backward
+    (``torch.utils.checkpoint``, non-reentrant); ``conv_out`` keeps the
+    two convolutions' outputs as well, so backward recomputes the pad, IN
+    and ReLU chains and launches no convolution again. The keep mask is
+    drawn before the checkpointed region and handed to it: a recompute
+    reads the same mask, where a draw inside it would take the next one
+    from the step's generator (checkpoint restores the default generators
+    only)."""
+
+    def __init__(self, dim, norm="instance", use_dropout=False, remat_policy="none"):
         super().__init__()
         db = norm == "instance"
         self.use_dropout = use_dropout
+        self.remat_policy = remat_policy
         self.conv1 = Conv(dim, dim, 3, reflect=1, dead_bias=db)
         self.norm1 = NormAct(dim, norm, "relu")
         self.conv2 = Conv(dim, dim, 3, reflect=1, dead_bias=db)
         self.norm2 = NormAct(dim, norm, "none")
 
-    def forward(self, x):
+    def _keep_mask(self, x):
+        if not (self.use_dropout and _dropout_sources):
+            return None
+        src = _dropout_sources[-1]
+        # conv1 keeps the shape: the mask of h is the shape of x
+        return src[self] if isinstance(src, Mapping) else dropout_keep_mask(x.shape, x.device,
+                                                                            src)
+
+    def _body(self, x, keep):
         h = self.norm1(self.conv1(x))
-        if self.use_dropout and _dropout_sources:
-            src = _dropout_sources[-1]
-            keep = (src[self] if isinstance(src, Mapping)
-                    else dropout_keep_mask(h.shape, h.device, src))
+        if keep is not None:
             h = dropout(h, keep)
         return self.norm2(self.conv2(h), residual=x)
+
+    def forward(self, x):
+        keep = self._keep_mask(x)
+        if self.remat_policy == "none" or not torch.is_grad_enabled():
+            return self._body(x, keep)
+        # the weights as this forward sees them (the bf16 casts a
+        # functional_call substitutes) go in as inputs: the recompute runs
+        # in backward, outside that call, and must read the same tensors
+        names = [n for n, _ in self.named_parameters()]
+        weights = [operator.attrgetter(n)(self) for n in names]
+
+        def run(x, keep, *weights):
+            return functional_call(_Body(self), {f"block.{n}": w for n, w in zip(names, weights)},
+                                   (x, keep))
+
+        kw = {"context_fn": _conv_out_contexts} if self.remat_policy == "conv_out" else {}
+        # no default-generator draw inside: nothing to stash
+        return checkpoint(run, x, keep, *weights, use_reentrant=False, preserve_rng_state=False,
+                          **kw)
+
+
+class _Body(nn.Module):
+    """A resblock's body as a module of its own, for ``functional_call``."""
+
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x, keep):
+        return self.block._body(x, keep)
 
 
 class _GlobalBackbone(nn.Module):
@@ -203,7 +296,7 @@ class _GlobalBackbone(nn.Module):
     (B,H,W,ngf) after the last up's norm and ReLU."""
 
     def __init__(self, input_nc, ngf=64, n_downsampling=4, n_blocks=9, norm="instance",
-                 use_dropout=False):
+                 use_dropout=False, remat_policy="none"):
         super().__init__()
         self.norm, self.n_downsampling, self.n_blocks = norm, n_downsampling, n_blocks
         db = norm == "instance"
@@ -215,7 +308,7 @@ class _GlobalBackbone(nn.Module):
             self.add_module(f"norm_down{i}", NormAct(cout, norm, "relu"))
         dim = ngf * 2**n_downsampling
         for i in range(n_blocks):
-            self.add_module(f"res{i}", ResnetBlock(dim, norm, use_dropout))
+            self.add_module(f"res{i}", ResnetBlock(dim, norm, use_dropout, remat_policy))
         for i in range(n_downsampling):
             mult = 2 ** (n_downsampling - i)
             cout = ngf * mult // 2
@@ -243,8 +336,9 @@ class GlobalGenerator(_GlobalBackbone):
     (B,H,W,output_nc) in [-1, 1]."""
 
     def __init__(self, input_nc, output_nc=3, ngf=64, n_downsampling=4,
-                 n_blocks=9, norm="instance", use_dropout=False):
-        super().__init__(input_nc, ngf, n_downsampling, n_blocks, norm, use_dropout)
+                 n_blocks=9, norm="instance", use_dropout=False, remat_policy="none"):
+        super().__init__(input_nc, ngf, n_downsampling, n_blocks, norm, use_dropout,
+                         remat_policy)
         self.conv_out = Conv(ngf, output_nc, 7, reflect=3)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -596,6 +690,7 @@ def define_G(opt, input_nc: int, generator: torch.Generator) -> nn.Module:
     """``define_G`` for ``--netG global``, ``local`` and ``twostream``,
     initialized from ``generator``; ``input_nc`` is the generator input's
     channels (the structure generator's follow label_nc)."""
+    policy = remat_policy_of(opt)
     if opt.netG == "twostream":
         if getattr(opt, "use_dropout", False):
             raise ValueError("--use_dropout is not supported for netG=twostream")
@@ -613,7 +708,7 @@ def define_G(opt, input_nc: int, generator: torch.Generator) -> nn.Module:
         g = GlobalGenerator(
             input_nc, output_nc=opt.output_nc, ngf=opt.ngf,
             n_downsampling=opt.n_downsample_global, n_blocks=opt.n_blocks_global,
-            norm=opt.norm, use_dropout=getattr(opt, "use_dropout", False))
+            norm=opt.norm, use_dropout=getattr(opt, "use_dropout", False), remat_policy=policy)
     else:
         raise ValueError(f"unknown netG: {opt.netG}")
     g.reset_parameters(generator)

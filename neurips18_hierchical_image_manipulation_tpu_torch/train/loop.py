@@ -8,31 +8,44 @@ throughput (``img_per_s_per_chip``, ``:198-201``), the HTML visuals every
 
 Two paths run an epoch:
 
-  * the fused resident path (``:112-131``, ``:172-214``), whenever the
-    loader is device-resident (``--device_resident_data``) and no image
-    pool splits the step (``--fused_resident_step`` is accepted for the
-    JAX CLI's sake and changes nothing): each iteration samples its
-    batch on the device from ``state.step`` and trains on it
+  * the fused resident path (``:112-131``, ``:172-214``), when the loader
+    is device-resident (``--device_resident_data``), ``--fused_resident_step``
+    holds (the default) and no image pool splits the step: each iteration
+    samples its batch on the device from ``state.step`` and trains on it
     (``steps.make_resident_train_step``), with no host-to-device copy;
     display iterations take the batch back for the visuals. Sampling is a
     function of (seed, step), so a resumed run continues the same stream
     and the resume's skip only aligns the epoch's bookkeeping;
   * the streamed path (``:216-246``): the loader's batches, staged on the
     device ``--device_prefetch`` batches ahead (``prefetch.device_prefetch``;
-    0 stages each in line).
+    0 stages each in line). Under ``--no-fused_resident_step`` (or an image
+    pool) a resident loader's own batches take this path, as in the JAX
+    package: its host shuffle of each epoch, a gather on the card a batch.
+
+Under a data-parallel ``mesh`` (``parallel.make_data_mesh``; JAX ``:75-85``,
+``:102-106``, ``:133-150``) the step is ``steps.make_dp_train_step`` (each
+rank stages its rows of the global batch) or, fused,
+``steps.make_resident_dp_train_step``; rank 0's parameters and optimizer
+states are broadcast once after the restore, which every rank makes. Only
+rank 0 prints the loss line and writes ``loss_log.txt``, the HTML page,
+checkpoints, ``iter.txt`` and ``--profile_dir`` traces, and
+``img_per_s_per_chip`` divides by the world size. ``--pool_size > 0`` is
+refused with a mesh, as in the JAX package (the pool is one process's
+buffer).
 
 ``--pool_size > 0`` takes the split G/D steps with the host-side image
 pool between them (``:86-100``) for a model with a D-only objective
 (``d_losses``: mask2image); box2mask has none and trains the fused step,
-as in the JAX package. ``--load_pretrain DIR`` initializes the networks
-from another run's ``--which_epoch`` weights once the state is built and
-before a resume. ``--continue_train`` restores ``--which_epoch`` and
-resumes at ``iter.txt``'s epoch, skipping the batches of it already done.
-The streaming loader's shuffle order is not part of a checkpoint (as in
-the JAX package): a resumed streamed run repeats the straight run's
-batches exactly under ``--serial_batches``, except where box2mask's
-``--bg_box_prob`` places background boxes by the loader's own epoch count,
-which a new process starts at 0 (so does the JAX package's).
+as in the JAX package. ``--debug_nans`` makes every step check its losses,
+metrics and gradients (``steps.check_finite``). ``--load_pretrain DIR``
+initializes the networks from another run's ``--which_epoch`` weights once
+the state is built and before a resume. ``--continue_train`` restores
+``--which_epoch`` and resumes at ``iter.txt``'s epoch, skipping the batches
+of it already done. The streaming loader's shuffle order is not part of a
+checkpoint (as in the JAX package): a resumed streamed run repeats the
+straight run's batches exactly under ``--serial_batches``, except where
+box2mask's ``--bg_box_prob`` places background boxes by the loader's own
+epoch count, which a new process starts at 0 (so does the JAX package's).
 ``--profile_dir`` traces the 21st step of the run (``trace``, the step the
 JAX loop traces).
 """
@@ -51,7 +64,15 @@ from ..utils.visualizer import Visualizer
 from .prefetch import H2DStager, device_prefetch, ready, to_device
 from .profiler import ThroughputMeter, trace
 from .state import make_optimizers
-from .steps import make_pooled_train_steps, make_resident_train_step, make_train_step
+from .steps import (
+    make_dp_train_step,
+    make_pooled_train_steps,
+    make_resident_dp_train_step,
+    make_resident_train_step,
+    make_train_step,
+    replicate,
+    shard_batch,
+)
 
 PROFILE_STEP = 20   # --profile_dir traces the step after this many
 
@@ -65,13 +86,16 @@ def _pooled(opt, model) -> bool:
     return opt.pool_size > 0 and hasattr(model, "d_losses")
 
 
-def make_step_fn(opt, model):
+def make_step_fn(opt, model, mesh=None):
     """-> step(state, batch) -> (metrics, fake) for the options' path."""
     compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else None
+    debug_nans = getattr(opt, "debug_nans", False)
+    if mesh is not None:
+        return make_dp_train_step(model, mesh, compute_dtype, debug_nans=debug_nans)
     if not _pooled(opt, model):
-        return make_train_step(model, compute_dtype)
+        return make_train_step(model, compute_dtype, debug_nans)
     pool = ImagePool(opt.pool_size, seed=opt.seed)
-    g_step, d_step = make_pooled_train_steps(model, compute_dtype)
+    g_step, d_step = make_pooled_train_steps(model, compute_dtype, debug_nans)
 
     def step(state, batch):
         metrics, fake = g_step(state, batch)
@@ -81,9 +105,25 @@ def make_step_fn(opt, model):
     return step
 
 
-def train(opt, model, loader, make_visuals=None):
+class _Silent:
+    """The visualizer of a rank other than 0: prints and writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def train(opt, model, loader, make_visuals=None, mesh=None):
     """Run epochs up to ``niter + niter_decay``; returns the train state."""
-    visualizer = Visualizer(opt)
+    if mesh is not None and getattr(opt, "pool_size", 0) > 0:
+        # the JAX loop's refusal, word for word
+        raise ValueError(
+            "--pool_size > 0 is incompatible with multi-chip training "
+            "(mesh): the image-pool replay is a host-side buffer. Use "
+            "pool_size=0 on a mesh (the reference's pool is also "
+            "single-process-only)."
+        )
+    main = mesh is None or mesh.rank == 0
+    visualizer = Visualizer(opt) if main else _Silent()
     ckpt = CheckpointManager(opt)
     state = make_optimizers(opt, model, max(len(loader), 1))
     if getattr(opt, "load_pretrain", ""):
@@ -93,47 +133,59 @@ def train(opt, model, loader, make_visuals=None):
         if ckpt.exists(opt.which_epoch):
             ckpt.restore(opt.which_epoch, model, state)
             start_epoch, epoch_iter0 = ckpt.read_iter()
-            print(f"resumed from {opt.which_epoch} at epoch {start_epoch}")
-        else:
+            if main:
+                print(f"resumed from {opt.which_epoch} at epoch {start_epoch}")
+        elif main:
             print(
                 f"WARNING: --continue_train set but no '{opt.which_epoch}' "
                 "checkpoint found — training from scratch"
             )
+    if mesh is not None:
+        replicate(model, state)
     device = model.device
-    fused = hasattr(loader, "fused_sampler") and not _pooled(opt, model)
+    compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else None
+    debug_nans = getattr(opt, "debug_nans", False)
+    fused = (hasattr(loader, "fused_sampler") and getattr(opt, "fused_resident_step", True)
+             and not _pooled(opt, model))
     if fused:
         sample_fn, resident = loader.fused_sampler()
-        fused_step, fused_step_wb = make_resident_train_step(
-            model, sample_fn, loader.n_samples, opt.batchSize,
-            torch.bfloat16 if opt.dtype == "bfloat16" else None,
-            shuffle=not opt.serial_batches, seed=opt.seed)
+        kw = dict(shuffle=not opt.serial_batches, seed=opt.seed, debug_nans=debug_nans)
+        if mesh is None:
+            fused_step, fused_step_wb = make_resident_train_step(
+                model, sample_fn, loader.n_samples, opt.batchSize, compute_dtype, **kw)
+        else:
+            fused_step, fused_step_wb = make_resident_dp_train_step(
+                model, mesh, sample_fn, loader.n_samples, opt.batchSize, compute_dtype, **kw)
     else:
-        step_fn = make_step_fn(opt, model)
+        step_fn = make_step_fn(opt, model, mesh)
         depth = getattr(opt, "device_prefetch", 0)
-        stage = (H2DStager(device) if depth > 0 and device.type == "cuda"
-                 else lambda hb: to_device(hb, device))
-    meter = ThroughputMeter(opt.batchSize, window=opt.print_freq, device=device)
-    profile_dir = getattr(opt, "profile_dir", "")
+        to_dev = (H2DStager(device) if depth > 0 and device.type == "cuda"
+                  else lambda hb: to_device(hb, device))
+        stage = to_dev if mesh is None else (lambda hb: to_dev(shard_batch(hb, mesh)))
+    meter = ThroughputMeter(opt.batchSize, mesh.world_size if mesh is not None else 1,
+                            window=opt.print_freq, device=device)
+    profile_dir = getattr(opt, "profile_dir", "") if main else ""
 
     def after_step(epoch, i, metrics, fake, host_batch, iter_start):
         """The loss line, the visuals and the periodic ``latest``."""
         ips = meter.tick()
-        if state.step % opt.print_freq == 0:
+        if main and state.step % opt.print_freq == 0:
             errors = {k: float(v) for k, v in metrics.items()}
             if ips:
                 errors["img_per_s_per_chip"] = ips
             visualizer.print_current_errors(epoch, i + 1, errors, time.time() - iter_start)
             visualizer.plot_current_errors(errors, state.step)
-        if make_visuals is not None and state.step % opt.display_freq == 0:
+        if main and make_visuals is not None and state.step % opt.display_freq == 0:
             visualizer.display_current_results(
                 make_visuals(host_batch(), _host(fake)), epoch, state.step)
-        if state.step % opt.save_latest_freq == 0:
+        if main and state.step % opt.save_latest_freq == 0:
             ckpt.save("latest", model, state, epoch, i + 1)
 
     def fused_epoch(epoch, skip):
         for i in range(skip, max(loader.n_samples // opt.batchSize, 1)):
             iter_start = time.time()
-            want_batch = make_visuals is not None and (state.step + 1) % opt.display_freq == 0
+            want_batch = (main and make_visuals is not None
+                          and (state.step + 1) % opt.display_freq == 0)
             with trace(profile_dir if state.step == PROFILE_STEP else None):
                 if want_batch:
                     metrics, fake, batch = fused_step_wb(state, resident)
@@ -158,17 +210,19 @@ def train(opt, model, loader, make_visuals=None):
         epoch_start = time.time()
         skip = epoch_iter0 if epoch == start_epoch else 0
         (fused_epoch if fused else streamed_epoch)(epoch, skip)
-        if epoch % opt.save_epoch_freq == 0:
+        if main and epoch % opt.save_epoch_freq == 0:
             ckpt.save(epoch, model, state, epoch + 1, 0)
             ckpt.save("latest", model, state, epoch + 1, 0)
-        print(
-            f"End of epoch {epoch} / {n_epochs} \t"
-            f" Time Taken: {time.time() - epoch_start:.0f} sec",
-            flush=True,
-        )
+        if main:
+            print(
+                f"End of epoch {epoch} / {n_epochs} \t"
+                f" Time Taken: {time.time() - epoch_start:.0f} sec",
+                flush=True,
+            )
     # always leave a resumable `latest` at the end, whatever the periodic
     # freqs were
-    ckpt.save("latest", model, state, n_epochs + 1, 0)
+    if main:
+        ckpt.save("latest", model, state, n_epochs + 1, 0)
     return state
 
 

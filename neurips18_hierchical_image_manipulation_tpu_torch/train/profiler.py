@@ -41,12 +41,14 @@ def trace(logdir: Optional[str]):
 
 
 class ThroughputMeter:
-    """Images a second over a window of train steps on the one card:
-    ``tick()`` after each step returns the last full window's rate (0
-    before the first)."""
+    """Images a second a chip over a window of train steps (JAX
+    ``ThroughputMeter``, ``profiler.py:28-50``): ``tick()`` after each step
+    returns the last full window's rate of the global batch divided by
+    ``n_chips`` (0 before the first window ends)."""
 
-    def __init__(self, batch_size: int, window: int = 50, device=None):
+    def __init__(self, batch_size: int, n_chips: int = 1, window: int = 50, device=None):
         self.batch_size = batch_size
+        self.n_chips = max(n_chips, 1)
         self.window = max(window, 1)
         self.device = device
         self._t0 = None
@@ -62,7 +64,7 @@ class ThroughputMeter:
         if self._count >= self.window:
             _sync(self.device)
             now = time.perf_counter()
-            self.value = self.batch_size * self._count / (now - self._t0)
+            self.value = self.batch_size * self._count / (now - self._t0) / self.n_chips
             self._t0 = now
             self._count = 0
         return self.value

@@ -58,10 +58,10 @@ def jax_run(tmp_path_factory):
         save_params_npz(path, params)
         params.pop("VGG", None)
         loss_fn = jax_steps._make_loss_fn(jm, None, None)
-        # the draw: under PRNGKey(5) this step's objective sits on a kink
-        # (its one-sided slopes along the two gradients' difference are
-        # +14.8 and -20.6), where two exact backward passes may return
-        # different subgradients; PRNGKey(1), (2) and (3) give smooth points
+        # the draw: under PRNGKey(5) this step's objective sits on a kink,
+        # where two exact backward passes may return the gradients of
+        # different pieces (test_dropout_kink_at_prngkey5 shows it);
+        # PRNGKey(1), (2) and (3) give smooth points
         rng = jax.random.PRNGKey(1)
         (_, (metrics, _)), grads = jax.jit(jax.value_and_grad(
             lambda p: loss_fn(p, jb, rng), has_aux=True))(params)
@@ -173,3 +173,104 @@ def test_inference_of_a_training_model_has_no_dropout(jax_run):
     assert torch.equal(model.inference(batch), plain.inference(batch))
     with networks.dropout_masks(torch.Generator().manual_seed(0)):   # the scope is the switch
         assert not torch.equal(model.netG(model.encode_input(batch)), plain.inference(batch))
+
+
+# ROADMAP C.10: the draw of PRNGKey(5) puts the step on a kink of its
+# objective. Along d = g_port - g_jax the objective's one-sided derivatives
+# differ by about |d|^2 (a V), the port's backward returns the right-hand
+# piece's gradient and the JAX one the left-hand piece's; a step of
+# KINK_STEP * d off the kink, on either side, the two agree within
+# GRAD_TOL of each leaf's max. (Closer than about 1e-6 the two frameworks'
+# roundings place the kink a few ulps apart; further than about 1e-5 the
+# next kinks along d begin.)
+KINK_KEY = 5
+KINK_STEP = 3e-6
+SLOPE_TOL = 0.05   # of |d|^2, the jump of the one-sided derivatives
+
+
+def _key(kp):
+    return "/".join(str(getattr(k, "key", k)) for k in kp)
+
+
+@pytest.fixture(scope="module")
+def kink(tmp_path_factory):
+    """At PRNGKey(5): the JAX gradient, the masks its forward drew, the
+    weights; and the JAX gradients a step either side along d."""
+    tmp = str(tmp_path_factory.mktemp("jax_kink"))
+    with jnnops.precision_scope():
+        jm = jax_create_model(JaxTrainOptions(name="k", checkpoints_dir=tmp, **ARCH))
+        batch = synthetic_batch(np.random.RandomState(0), 2, hw=(32, 64), label_nc=8)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        params = jm.init_params(jax.random.PRNGKey(0), jb)
+        path = os.path.join(tmp, "p.npz")
+        save_params_npz(path, params)
+        params.pop("VGG", None)
+        loss_fn = jax_steps._make_loss_fn(jm, None, None)
+        rng = jax.random.PRNGKey(KINK_KEY)
+        grad_fn = jax.jit(jax.grad(lambda p: loss_fn(p, jb, rng)[0]))
+        g_inp, _, _ = jm.encode_input(jb, params=params)
+        _, inter = jm.netG.apply(params["G"], *g_inp, train=True, rngs={"dropout": rng},
+                                 capture_intermediates=True, mutable=["intermediates"])
+        masks = {n: np.asarray(s["Dropout_0"]["__call__"][0]) != 0
+                 for n, s in inter["intermediates"].items()
+                 if n.startswith("res") and "Dropout_0" in s}
+        with np.load(path) as f:
+            flat = {k: f[k] for k in f.files}
+        g_jax = {_key(kp): np.asarray(v)
+                 for kp, v in jax.tree_util.tree_flatten_with_path(grad_fn(params))[0]}
+        g_port = _port_grads(flat, masks, batch)
+        d = {k: g_port[k] - g_jax[k] for k in g_jax}
+        off = {}
+        for side in (1, -1):
+            shifted = jax.tree_util.tree_map_with_path(
+                lambda kp, v: v + side * KINK_STEP * jnp.asarray(d[_key(kp)]), params)
+            off[side] = {_key(kp): np.asarray(v) for kp, v in
+                         jax.tree_util.tree_flatten_with_path(grad_fn(shifted))[0]}
+    return dict(flat=flat, masks=masks, batch=batch, g_jax=g_jax, g_port=g_port, d=d,
+                jax_off=off)
+
+
+def _port_grads(flat, masks, batch, shift=None):
+    """The port's gradient of the step's objective under the JAX masks, at
+    the weights ``flat`` (+ ``shift``)."""
+    if shift is not None:
+        flat = {k: v + shift[k] if k in shift else v for k, v in flat.items()}
+    model = port_model(flat)
+    keep = {getattr(model.netG, n): torch.from_numpy(m) for n, m in masks.items()}
+    total, _, _ = model.losses({k: torch.from_numpy(v) for k, v in batch.items()}, rng=keep)
+    total.backward()
+    return state_dicts_to_jax({net: {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                                     for n, p in m.named_parameters()}
+                               for net, m in (("G", model.netG), ("D", model.netD))})
+
+
+def _dot(a, b):
+    return sum(float((a[k].astype(np.float64) * b[k]).sum()) for k in b)
+
+
+def _worst(got, want):
+    return max(np.abs(got[k] - w).max() / np.abs(w).max() for k, w in want.items()
+               if np.abs(w).max())
+
+
+def test_dropout_kink_at_prngkey5(kink, restore_torch_precision):
+    """Both gradients at PRNGKey(5) are valid one-sided derivatives of the
+    step's objective along their difference d: the port's is the right
+    derivative, JAX's the left one (each read from the gradients a small
+    step off the kink on its side), and off the kink the two agree."""
+    d, g_port, g_jax = kink["d"], kink["g_port"], kink["g_jax"]
+    assert _worst(g_port, g_jax) > GRAD_TOL   # at the kink itself they differ
+    jump = _dot(d, d)
+    slopes = {}
+    for side in (1, -1):
+        shift = {k: side * KINK_STEP * v for k, v in d.items()}
+        port_off = _port_grads(kink["flat"], kink["masks"], kink["batch"], shift)
+        jax_off = kink["jax_off"][side]
+        assert _worst(port_off, jax_off) <= GRAD_TOL, side   # off the kink: the same gradient
+        slopes[side] = _dot(port_off, d)
+        assert abs(_dot(jax_off, d) - slopes[side]) <= SLOPE_TOL * jump, side
+    # the one-sided derivatives along d jump by about |d|^2 across the kink
+    assert slopes[1] - slopes[-1] >= (1 - 2 * SLOPE_TOL) * jump
+    # the port's gradient gives the right derivative, JAX's the left one
+    assert abs(_dot(g_port, d) - slopes[1]) <= SLOPE_TOL * jump
+    assert abs(_dot(g_jax, d) - slopes[-1]) <= SLOPE_TOL * jump

@@ -28,7 +28,8 @@ print("BAD", ",".join(bad))
 
 
 def run_script(code, cwd):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # the tests directory too: the multi-process tests' rank module lives there
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
     return subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=cwd,
         env=env, timeout=120,
@@ -39,7 +40,7 @@ def test_port_imports_no_jax(tmp_path):
     proc = run_script(SCRIPT, str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     lines = dict(ln.split(" ", 1) for ln in proc.stdout.splitlines() if " " in ln)
-    assert int(lines["COUNT"]) >= 59
+    assert int(lines["COUNT"]) >= 63   # the parallel package's four modules among them
     assert lines["BAD"] == "", f"the port pulled in: {lines['BAD']}"
 
 
@@ -54,7 +55,9 @@ def test_port_imports_no_jax(tmp_path):
      f"{PORT}.eval.metrics", f"{PORT}.eval.features", f"{PORT}.tools.encode_features",
      f"{PORT}.tools.precompute_feature_maps", f"{PORT}.data.device_resident",
      f"{PORT}.data.native", f"{PORT}.train.prefetch", f"{PORT}.train.profiler",
-     f"{PORT}.train.steps", f"{PORT}.data.loader", f"{PORT}.tools.bench_loop"],
+     f"{PORT}.train.steps", f"{PORT}.data.loader", f"{PORT}.tools.bench_loop",
+     f"{PORT}.parallel", f"{PORT}.parallel.mesh", f"{PORT}.parallel.distributed",
+     f"{PORT}.parallel.spatial", "torch_parallel_ranks"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

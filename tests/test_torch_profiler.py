@@ -1,8 +1,9 @@
 """``train/profiler.py`` (``trace``, ``ThroughputMeter``, ``measure_steps``)
 and the train CLIs' newly ported flags on the CPU: ``--profile_dir`` writes
 a trace of the 21st step, ``--device_resident_data`` (with and without
-``--uint8_transfer``, fused or, under the image pool, through the
-streamed path) trains and resumes exactly, and the flags still refused name their ROADMAP section."""
+``--uint8_transfer``, fused or, under the image pool or
+``--no-fused_resident_step``, through the streamed path) trains and resumes
+exactly, and the combinations still refused name their ROADMAP section."""
 
 import glob
 import json
@@ -17,6 +18,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTrainOptions,
     check_train_options,
 )
+from neurips18_hierchical_image_manipulation_tpu_torch.data.loader import CreateDataLoader
 from neurips18_hierchical_image_manipulation_tpu_torch.train import loop
 from neurips18_hierchical_image_manipulation_tpu_torch.train.profiler import (
     ThroughputMeter,
@@ -91,8 +93,9 @@ def loss_terms(out):
                                    ["--no-fused_resident_step"]])
 def test_resident_train_cli(dataroot, tmp_path, capsys, extra, restore_torch_precision):  # noqa: F811
     """The resident mask2image CLI: the fused step (or, where the image pool
-    splits the step, the resident loader's batches through the streamed
-    path; ``--no-fused_resident_step`` changes nothing) for two epochs,
+    splits the step or ``--no-fused_resident_step`` asks, the resident
+    loader's batches through the streamed path, as in the JAX loop) for two
+    epochs,
     every loss finite, two runs the same weights bit for bit, the visuals
     showing the batch."""
     ckpt = str(tmp_path / "ck")
@@ -114,7 +117,8 @@ def test_resident_train_cli(dataroot, tmp_path, capsys, extra, restore_torch_pre
     assert [r.step for r in runs] == [8, 8] and len(terms) == 16
     assert all(float(v) == float(v) and abs(float(v)) < 1e6 for t in terms for v in t.values())
     assert terms[:8] == terms[8:]
-    assert len(fused) == (0 if "--pool_size" in extra else 2)
+    streamed = "--pool_size" in extra or "--no-fused_resident_step" in extra
+    assert len(fused) == (0 if streamed else 2)
     a, b = (torch.load(os.path.join(ckpt, n, "ckpt", "latest", "state.pt"), weights_only=False)
             for n in ("a", "b"))
     for net in ("G", "D"):
@@ -166,19 +170,30 @@ def test_resident_mid_epoch_resume_is_exact(dataroot, tmp_path, capsys,  # noqa:
 
 @pytest.mark.parametrize("flag", [["--device_resident_data"], ["--device_prefetch", "2"],
                                   ["--use_dropout"], ["--profile_dir", "p"],
-                                  ["--device_resident_data", "--no-fused_resident_step"]])
+                                  ["--device_resident_data", "--no-fused_resident_step"],
+                                  ["--mesh_devices", "4"], ["--remat"],
+                                  ["--remat_policy", "conv_out"], ["--debug_nans"]])
 def test_lifted_flags_accepted(flag, tmp_path):
     opt = loop_opt(tmp_path, flag)
     check_train_options(opt)
 
 
-@pytest.mark.parametrize("flag,section", [(["--mesh_devices", "4"], "§A.6"),
-                                          (["--remat"], "§A.9"),
-                                          (["--remat_policy", "block"], "§A.9"),
-                                          (["--debug_nans"], "§A.9")])
+@pytest.mark.parametrize("flag,section", [(["--netG", "local", "--remat"], "§C.11"),
+                                          (["--netG", "local", "--remat_policy", "block"],
+                                           "§C.11"),
+                                          (["--netG", "local", "--remat_policy", "conv_out"],
+                                           "§C.11"),
+                                          (["--data_backend", "grain"], "§A.2")])
 def test_refused_flags_name_their_section(flag, section, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"not ported yet.*{section}"):
-        check_train_options(loop_opt(tmp_path, flag))
+    """What stays refused: remat of the LocalEnhancer (the JAX package
+    ignores it there) and the grain backend (no package on either machine)."""
+    opt = loop_opt(tmp_path, flag)
+    if "--data_backend" in flag:
+        with pytest.raises(NotImplementedError, match=f"not ported.*{section}"):
+            CreateDataLoader(opt)
+    else:
+        with pytest.raises(ValueError, match=section):
+            check_train_options(opt)
 
 
 def loop_opt(tmp_path, flag):

@@ -117,6 +117,12 @@ def test_unported_train_flags_raise():
     # ported: the device-resident data path, prefetch, dropout, the profiler
     check_train_options(MaskToImageTrainOptions(device_resident_data=True, device_prefetch=2,
                                                 use_dropout=True, profile_dir="p"))
-    for kw in (dict(mesh_devices=4), dict(remat=True), dict(debug_nans=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            check_train_options(MaskToImageTrainOptions(**kw))
+    # ported: data parallel, resblock remat, --debug_nans
+    for kw in (dict(mesh_devices=4), dict(remat=True), dict(remat_policy="conv_out"),
+               dict(debug_nans=True)):
+        check_train_options(MaskToImageTrainOptions(**kw))
+    # refused: remat where the JAX package ignores it, and an unknown policy
+    with pytest.raises(ValueError, match="§C.11"):
+        check_train_options(MaskToImageTrainOptions(netG="local", remat=True))
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        check_train_options(MaskToImageTrainOptions(remat_policy="blocks"))
