@@ -1,13 +1,14 @@
 """Drive the PyTorch port's mask2image and box2mask serving and training
 paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
 generator, the instance features, the device-resident data path, data
-parallelism, resblock recomputation and W-sharded inference on one CUDA
-card.
+parallelism, resblock recomputation, W-sharded inference and the user-facing
+tools (checkpoint conversion, the parity runbook, inference export, the
+procedural-world training runs) on one CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
-22, 24-27, 31-33, 28, 7, 8, 12, 15, 21, 23, 29, 30 (any failure raises and
+22, 24-27, 31-36, 28, 7, 8, 12, 15, 21, 23, 29, 30 (any failure raises and
 the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
@@ -233,6 +234,28 @@ the script exits non-zero):
  33. spatial CLI  the serving CLI with --spatial_shards 2 over two gloo
               ranks on the card against phase 5's unsharded gallery (each
               synthesized PNG within one level)
+ 34. tools_convert  full-width pix2pixHD stand-ins (tools/parity_report
+              --make_standins: label_nc 35, ngf 64, 4 downs, 9 resblocks,
+              input_nc 36, VGG19), converted and rendered over phase 5's
+              scenes by the parity runbook (4 windows, FID over the converted
+              VGG19 finite; the render held to the serving counts); the
+              converted G on the card against pix2pixHD's module run by
+              cuDNN at 512x256 fp32 (MODEL_ATOL); preprocess_city_bboxes
+              against extract_bbox_records; the converted VGG19 through
+              evaluate.load_vgg bit for bit
+ 35. tools_export  both stages exported by tools/export_inference
+              (mask2image at fineSize 512, box2mask at crop 128, bs 1):
+              the himan:: ops in the graph; the .pt2 saved, reloaded and
+              rerun under cudnn_deterministic(): rows 3 and 4 launched as
+              one eager forward launches them, the output against eager's
+              (bits, else max |diff|), ms at bs 1, bytes
+ 36. tools_dynamics  the procedural-world chain at full width, short:
+              train_dynamics (bs 16, 16 steps), train_dynamics_b2m (40
+              steps), two_step_gallery (40 m2i steps), two_step_metrics (8
+              scenes), train_dynamics_1024p (4 + 4 steps over 16 scenes):
+              every train CLI run held per step to its architecture's
+              launches, every loss finite, the four passthroughs exactly 0
+              in every scene, every summary written
 With --profile: torch.profiler tables of one serving forward, of train
 steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
 1 and of a two-step add at bs 1.
@@ -276,7 +299,10 @@ from neurips18_hierchical_image_manipulation_tpu_torch.configs.options import (
     MaskToImageTrainOptions,
     parse_cli,
 )
-from neurips18_hierchical_image_manipulation_tpu_torch.data.bbox import bboxes_from_instance_map
+from neurips18_hierchical_image_manipulation_tpu_torch.data.bbox import (
+    bboxes_from_instance_map,
+    extract_bbox_records,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.data.cityscapes import AlignedDataset
 from neurips18_hierchical_image_manipulation_tpu_torch.data.loader import CreateDataLoader
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
@@ -289,10 +315,14 @@ from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import ops as kops
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
 from neurips18_hierchical_image_manipulation_tpu_torch.models import networks
 from neurips18_hierchical_image_manipulation_tpu_torch.models.box2mask import BoxToMaskModel
-from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
+from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import (
+    create_model,
+    precision_scope,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.models.pix2pixhd import Pix2PixHDModel
 from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
 from neurips18_hierchical_image_manipulation_tpu_torch.ops.boxcomposite import (
@@ -302,9 +332,20 @@ from neurips18_hierchical_image_manipulation_tpu_torch.ops.boxcomposite import (
     paste_resize,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.tools import (
+    convert_torch_checkpoint,
     encode_features,
+    export_inference,
+    load_vgg_weights,
+    parity_report,
+    pix2pixhd_format,
     precompute_feature_maps,
+    preprocess_city_bboxes,
     roofline_resblock,
+    train_dynamics,
+    train_dynamics_1024p,
+    train_dynamics_b2m,
+    two_step_gallery,
+    two_step_metrics,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.train import loop as train_loop
 from neurips18_hierchical_image_manipulation_tpu_torch.train import steps as train_steps
@@ -2225,6 +2266,22 @@ def host_ms(fn, iters):
     return (time.perf_counter() - t) / iters * 1e3
 
 
+def interleaved_ms(fns, iters, rounds):
+    """Each of fns (name -> fn) timed by CUDA events (``cuda_ms``) over
+    ``rounds`` rounds of ``iters`` calls, the fns taking turns each round:
+    name -> {"rounds": ms a call in each round, "median", "spread": (max -
+    min) / median}."""
+    got = {who: [] for who in fns}
+    for _ in range(rounds):
+        for who, fn in fns.items():
+            got[who].append(cuda_ms(fn, iters, warmup=1))
+    out = {}
+    for who, ms in got.items():
+        med = float(np.median(ms))
+        out[who] = dict(rounds=ms, median=med, spread=(max(ms) - min(ms)) / med)
+    return out
+
+
 def edit_fills(pipe):
     """Context manager: the fill probabilities (merged, or the context
     stream's under the null class) and box masks of every structure-
@@ -2911,13 +2968,15 @@ def same_params(a, b, what):
 
 def run_cli_checked(argv, cli, what, done=0, ref=None):
     """One train CLI run, counters zeroed before and read after, held per
-    step to the architecture's launches, per variant to the plans and, with
+    step to the architecture's launches (a loss line every --print_freq
+    steps), per variant to the plans and, with
     ``ref`` = (variants, steps) of a streamed run of the same windows, to
     its launches per variant a step -> a dict of the run."""
     with recording() as calls:
         state, model, errors, wall, launches, per_step = drive_train_cli(argv, cli)
     steps = state.step - done
-    if steps < 1 or len(errors) != steps:
+    every = int(argv[argv.index("--print_freq") + 1]) if "--print_freq" in argv else 1
+    if steps < 1 or len(errors) != state.step // every - done // every:
         raise AssertionError(f"{what}: {steps} steps, {len(errors)} loss lines")
     for k, n in per_step.items():
         expect_launches(launches[k], n * steps, f"{what} {k}")
@@ -4151,6 +4210,290 @@ def phase_parallel_clis(tmp, results):
                                     spatial_cli_wall_s=swall)
 
 
+# ---------------------------------------------------------------- the tools (phases 34-36)
+
+TOOLS_HOW_MANY = 4           # windows the parity render and FID take
+PARITY_ARGV = []             # parity_report flags (empty: its full-width defaults)
+CONVERT_HW = (256, 512)      # the converted G against the reference-format module
+CONVERT_ATOL = MODEL_ATOL
+# the exported stages: (stage, test-option overrides, fineSize); box2mask at
+# full width (its test options keep the base depth 4 / 9)
+EXPORT_CASES = (("mask2image", {}, 512),
+                ("box2mask", {"ngf": 64, "n_downsample_global": 3, "n_blocks_global": 4}, 128))
+# the eager and reloaded programs timed by CUDA events in EXPORT_ROUNDS
+# interleaved rounds of this many calls each; a stage's ms count as resolved
+# when each program's rounds lie within EXPORT_SPREAD of their median
+EXPORT_ITERS = {"mask2image": 10, "box2mask": 50}
+EXPORT_ROUNDS = 5
+EXPORT_SPREAD = 0.03
+# the procedural-world chain, short (phase 36); the 1024p world cut from 64
+# scenes to 16
+DYN_ARGV = ["--steps", "16", "--bs", "16", "--n_images", "64"]
+DYN_B2M_ARGV = ["--steps", "40"]
+DYN_GALLERY_ARGV = ["--m2i_steps", "40"]
+DYN_METRIC_SCENES = 8
+DYN_1024P_ARGV = ["--global_steps", "4", "--local_steps", "4", "--n_images", "16"]
+PASSTHROUGH = ("remove_label_passthrough", "remove_image_passthrough",
+               "add_label_passthrough", "add_image_passthrough")
+
+
+def phase_seconds(n, name, t0, results):
+    s = time.time() - t0
+    results.setdefault("tool_phase_s", {})[name] = s
+    log(f"[phase {n} {name}] {s:.1f} s")
+
+
+def phase_tools_convert(tmp, dev, results):
+    """Phase 34: full-width pix2pixHD stand-ins (label_nc 35, ngf 64, 4
+    downs, 9 resblocks, input_nc 36, VGG19) written by the parity runbook,
+    which converts them and renders phase 5's scenes with the converted G
+    (4 windows) for FID: counters zeroed before and read after, the render
+    held to the serving counts (27 IN forwards and one no-image encode a
+    window); FID finite over the converted VGG19. The converted G on the
+    card against the reference-format module run by plain PyTorch / cuDNN
+    (fp32, TF32 off) at 512x256; the bbox records of preprocess_city_bboxes
+    against data/bbox.extract_bbox_records; the converted VGG19 through
+    cli/evaluate.load_vgg."""
+    t0 = time.time()
+    root, weights = os.path.join(tmp, "city"), os.path.join(tmp, "parity_weights")
+    models, orig_create = [], parity_report.create_model
+
+    def create_and_keep(opt):
+        models.append(orig_create(opt))
+        return models[-1]
+
+    zero_launches()
+    with recording() as calls, mock.patch.object(parity_report, "create_model", create_and_keep):
+        report = parity_report.main([
+            "--weights_dir", weights, "--dataroot", root,
+            "--out", os.path.join(tmp, "parity_report.json"), "--gpu_ids", GPU_IDS,
+            "--how_many", str(TOOLS_HOW_MANY), "--make_standins", *PARITY_ARGV])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    variants = expect_variants(calls, "parity render")
+    (model,) = models
+    fid, n = report["stages"]["fid"], TOOLS_HOW_MANY
+    if (fid["samples"] != n or not np.isfinite(fid["value"])
+            or fid["features"] != "vgg19-pretrained"):
+        raise AssertionError(f"parity report: {report['stages']}")
+    s = model.opt.fineSize
+    if calls["instance_norm"] != stage_sites(model) * n or \
+            calls["encode"] != [((1, s, s), 3, "cond")] * n:
+        raise AssertionError(f"parity render: calls off the serving path "
+                             f"({len(calls['instance_norm'])} IN, {calls['encode']})")
+    expect_launches(launches, dict({k: 0 for k in launches}, encode_cond=n,
+                                   instance_norm=len(stage_sites(model)) * n), "parity render")
+    log(f"[parity report] {json.dumps(report['stages'])}; launches {launches}")
+
+    # the converted G against pix2pixHD's module, both on the card
+    sd = torch.load(os.path.join(weights, "latest_net_G.pth"), map_location="cpu",
+                    weights_only=True)
+    g = model.netG
+    ref = pix2pixhd_format.GlobalGeneratorT(g.conv_in.weight.shape[1], 3,
+                                            g.conv_in.weight.shape[0], g.n_downsampling,
+                                            g.n_blocks).to(dev).eval()
+    ref.load_state_dict(sd)
+    convert_torch_checkpoint.load_pix2pixhd_into(model, sd, "G")
+    x = torch.randn(1, g.conv_in.weight.shape[1], *CONVERT_HW,
+                    generator=torch.Generator().manual_seed(34)).to(dev)
+    with precision_scope(model), torch.no_grad():   # fp32: TF32 off for both
+        want = ref(x).permute(0, 2, 3, 1)
+        got = model.netG(x.permute(0, 2, 3, 1).contiguous())
+    torch.cuda.synchronize()
+    g_err = (got - want).abs().max().item()
+    log(f"[convert] the converted G against pix2pixHD's module at "
+        f"{CONVERT_HW[1]}x{CONVERT_HW[0]} fp32: max|diff| {g_err:.3g} (atol {CONVERT_ATOL})")
+    if not g_err <= CONVERT_ATOL:
+        raise AssertionError(f"converted G off the reference by {g_err}")
+    del g, model, models, ref, sd, got, want
+    torch.cuda.empty_cache()
+
+    # bbox preprocessing against the dataset's own extraction
+    records = preprocess_city_bboxes.main(["--dataroot", root, "--phase", "test"])
+    os.remove(os.path.join(root, "test_bboxes.json"))   # later readers keep scanning
+    want_records = extract_bbox_records(AlignedDataset(MaskToImageTestOptions(
+        dataroot=root, resize_or_crop="none", gpu_ids=GPU_IDS)))
+    if records != want_records or not records:
+        raise AssertionError(f"preprocess_city_bboxes: {len(records)} records against "
+                             f"{len(want_records)}")
+
+    # the converted VGG19 read by the evaluators
+    vgg_npz = os.path.join(tmp, "vgg_converted.npz")
+    load_vgg_weights.main(["--pth", os.path.join(weights, "vgg19.pth"), "--out", vgg_npz])
+    vsd = torch.load(os.path.join(weights, "vgg19.pth"), weights_only=True)
+    vgg = networks.Vgg19Features()
+    evaluate.load_vgg(vgg_npz, vgg)
+    for (b, c), i in load_vgg_weights.TORCHVISION_CONV_INDICES.items():
+        conv = getattr(vgg, f"conv{b}_{c}")
+        if not (torch.equal(conv.weight, vsd[f"features.{i}.weight"])
+                and torch.equal(conv.bias, vsd[f"features.{i}.bias"])):
+            raise AssertionError(f"VGG19 conv{b}_{c} changed through the npz")
+    log(f"[convert] {len(records)} bbox records equal extract_bbox_records; VGG19 through "
+        "load_vgg_weights and evaluate.load_vgg bit for bit")
+    results["tools_convert"] = dict(report=report["stages"], launches=launches,
+                                    variants=variants, g_max_abs_diff=g_err,
+                                    bbox_records=len(records))
+    phase_seconds(34, "tools_convert", t0, results)
+    return {"parity_report": {"launches": launches, "variants": variants}}
+
+
+def phase_tools_export(tmp, results):
+    """Phase 35: both stages exported on the card by tools/export_inference
+    (mask2image: the flagship at fineSize 512; box2mask: full width at crop
+    128; bs 1), saved, reloaded and rerun under cudnn_deterministic(): the
+    graph's himan:: ops, the reloaded program's output against the eager
+    forward's (bits, else the max |diff|), rows 3 and 4 launched as one
+    eager forward launches them (held to the architecture), ms at bs 1 of
+    each, the .pt2 bytes."""
+    t0 = time.time()
+    paths = {}
+    rows = {}
+    for stage, arch, fine in EXPORT_CASES:
+        model, batch = export_inference.build(stage, 35, fine, 1, GPU_IDS, **arch)
+        t = time.time()
+        ep = export_inference.export(stage, model, batch)
+        path = os.path.join(tmp, f"{stage}.pt2")
+        nbytes = export_inference.save(ep, path)
+        prog = export_inference.load(path).module()
+        export_s = time.time() - t
+        ops = kops.exported_ops(ep.graph_module)
+        del ep
+        encodes = [((1, fine, fine), 3)] if stage == "mask2image" else []
+        with cudnn_deterministic(), torch.no_grad():
+            runs = {}
+            for who, fn in (("eager", lambda: model.inference(batch)), ("reloaded",
+                                                                       lambda: prog(batch))):
+                fn()
+                zero_launches()
+                with recording() as calls:
+                    out = fn()
+                torch.cuda.synchronize()
+                variants = expect_path_launches(calls, read_launches(), stage_sites(model),
+                                                encodes, f"export {stage} {who}")
+                runs[who] = dict(fn=fn, out=out if isinstance(out, tuple) else (out,),
+                                 launches=read_launches(), variants=variants)
+            timing = interleaved_ms({who: r["fn"] for who, r in runs.items()},
+                                    EXPORT_ITERS[stage], EXPORT_ROUNDS)
+        expect_launches(runs["reloaded"]["launches"], runs["eager"]["launches"],
+                        f"export {stage}: the reloaded program against eager")
+        diffs = [(a.float() - b.float()).abs().max().item()
+                 for a, b in zip(runs["eager"]["out"], runs["reloaded"]["out"])]
+        bits = all(same_bits(a, b) for a, b in zip(runs["eager"]["out"], runs["reloaded"]["out"]))
+        if not bits and not max(diffs) <= MODEL_ATOL:
+            raise AssertionError(f"export {stage}: reloaded output off eager by {diffs}")
+        resolved = all(t["spread"] <= EXPORT_SPREAD for t in timing.values())
+        rows[stage] = dict(bytes=nbytes, ops=ops, export_save_load_s=export_s, same_bits=bits,
+                           max_abs_diff=max(diffs), ms=timing, ms_resolved=resolved,
+                           launches=runs["reloaded"]["launches"])
+        ms = ", ".join(f"{who} {t['median']:.3f} ms (rounds {min(t['rounds']):.3f}-"
+                       f"{max(t['rounds']):.3f})" for who, t in timing.items())
+        ratio = (f"reloaded / eager {timing['reloaded']['median'] / timing['eager']['median']:.3f}"
+                 if resolved else f"unresolved (a spread over {EXPORT_SPREAD:.0%}): no ratio")
+        log(f"[export {stage}] {nbytes} bytes, ops {ops}, export + save + load {export_s:.1f} s; "
+            f"reloaded output {'bit for bit eager' if bits else f'max|diff| {max(diffs):.3g}'}; "
+            f"bs 1, CUDA events, {EXPORT_ROUNDS} x {EXPORT_ITERS[stage]} calls: {ms}; {ratio}; "
+            f"launches {runs['reloaded']['launches']}")
+        paths[f"export_{stage}"] = {k: runs["reloaded"][k] for k in ("launches", "variants")}
+        del model, batch, prog, runs
+        os.remove(path)
+        torch.cuda.empty_cache()
+    results["tools_export"] = rows
+    phase_seconds(35, "tools_export", t0, results)
+    return paths
+
+
+@contextlib.contextmanager
+def tool_paths(what, paths):
+    """Inside: every run of a train CLI held per step to its architecture
+    (run_cli_checked), every evaluate and two-step demo run counted; each
+    with the counters zeroed before and read after, summed into
+    paths[f"{what}_{cli}"]."""
+    origs = {m: m.main for m in (mask2image_train, box2mask_train, evaluate, two_step_demo)}
+
+    def wrap(mod):
+        def main(argv):
+            name = f"{what}_{mod.__name__.rsplit('.', 1)[1]}"
+            with mock.patch.object(mod, "main", origs[mod]):
+                if mod in (mask2image_train, box2mask_train):
+                    out = run_cli_checked(argv, mod, name)
+                    launches, variants = out["launches"], out["variants"]
+                else:
+                    zero_launches()
+                    out = origs[mod](argv)
+                    torch.cuda.synchronize()
+                    launches, variants = read_launches(), read_variants()
+            add_paths(paths.setdefault(name, {"launches": {}, "variants": {}}), launches,
+                      variants)
+            return out
+        return main
+
+    with contextlib.ExitStack() as stack:
+        for mod in origs:
+            stack.enter_context(mock.patch.object(mod, "main", wrap(mod)))
+        yield paths
+
+
+def phase_tools_dynamics(tmp, results):
+    """Phase 36: the procedural-world chain at full width, short:
+    train_dynamics (the flagship, bf16, bs 16, fused resident step),
+    train_dynamics_b2m, two_step_gallery, two_step_metrics over 8 paired
+    scenes and train_dynamics_1024p (global stage, --load_pretrain,
+    --niter_fix_global). Every train CLI run held per step to its
+    architecture's launches (the loss groups 2 + 2) and per variant to the
+    plans; every loss finite; the four *_passthrough metrics exactly 0 in
+    every scene; each summary JSON written."""
+    t0 = time.time()
+    d = os.path.join(tmp, "dyn")
+    paths, out = {}, {}
+    gpu = ["--gpu_ids", GPU_IDS]
+    b2m_world, b2m_ckpt = os.path.join(d, "world_b2m"), os.path.join(d, "ckpt_b2m")
+    with tool_paths("dynamics", paths):
+        out["dynamics"] = train_dynamics.main(DYN_ARGV + gpu + [
+            "--dataroot", os.path.join(d, "world"), "--ckpt", os.path.join(d, "ckpt"),
+            "--out", os.path.join(d, "dynamics")])
+        out["dynamics_b2m"] = train_dynamics_b2m.main(DYN_B2M_ARGV + gpu + [
+            "--dataroot", b2m_world, "--ckpt", b2m_ckpt,
+            "--out", os.path.join(d, "dynamics_b2m")])
+        out["two_step_gallery"] = two_step_gallery.main(DYN_GALLERY_ARGV + gpu + [
+            "--world", b2m_world, "--ckpt", b2m_ckpt, "--out", os.path.join(d, "two_step")])
+    zero_launches()
+    metrics = two_step_metrics.main(gpu + ["--ckpt", b2m_ckpt, "--n_scenes",
+                                           str(DYN_METRIC_SCENES),
+                                           "--out", os.path.join(d, "two_step")])
+    torch.cuda.synchronize()
+    paths["dynamics_two_step_metrics"] = {"launches": read_launches(),
+                                          "variants": read_variants()}
+    with tool_paths("dynamics_1024p", paths):
+        out["dynamics_1024p"] = train_dynamics_1024p.main(DYN_1024P_ARGV + gpu + [
+            "--dataroot", os.path.join(d, "world_1024p"), "--ckpt", os.path.join(d, "ckpt_1024p"),
+            "--out", os.path.join(d, "dynamics_1024p")])
+
+    leaks = {k: [r[k] for r in metrics["rows"]] for k in PASSTHROUGH}
+    if len(metrics["rows"]) != DYN_METRIC_SCENES or any(v != 0.0 for vs in leaks.values()
+                                                        for v in vs):
+        raise AssertionError(f"two_step_metrics: passthroughs {leaks}")
+    finite = [out["dynamics"]["finite"], out["dynamics_b2m"]["finite"],
+              *(s["finite"] for s in out["dynamics_1024p"]["stages"].values())]
+    if not all(finite) or not all(np.isfinite([out["dynamics_b2m"]["miou_trained"],
+                                               out["dynamics_b2m"]["miou_random_init"]])):
+        raise AssertionError(f"dynamics: non-finite losses or metrics {finite}")
+    images = {e: v["images"] for e, v in out["two_step_gallery"]["edits"].items()}
+    if images != {e: 16 for e in two_step_gallery.EDITS}:
+        raise AssertionError(f"two_step_gallery: {images}")
+    for sub, name in (("dynamics", "summary.json"), ("dynamics_b2m", "summary_b2m.json"),
+                      ("two_step", "summary.json"), ("dynamics_1024p", "summary.json")):
+        if not os.path.exists(os.path.join(d, sub, name)):
+            raise AssertionError(f"{sub}/{name} not written")
+    log(f"[dynamics] metrics {json.dumps(metrics['metrics'])}; b2m mIoU random "
+        f"{out['dynamics_b2m']['miou_random_init']:.4f} -> trained "
+        f"{out['dynamics_b2m']['miou_trained']:.4f}; CLI paths {sorted(paths)}")
+    results["tools_dynamics"] = dict(
+        summaries=out, edit_metrics=metrics["metrics"],
+        paths={k: v["launches"] for k, v in paths.items()})
+    phase_seconds(36, "tools_dynamics", t0, results)
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every result to this JSON file")
@@ -4190,6 +4533,8 @@ def main(argv=None):
         phase_data_measure(tmp, dev, results)
         par_launches, par_variants = phase_parallel(tmp, dev, results)
         phase_parallel_clis(tmp, results)
+        tools_run = {**phase_tools_convert(tmp, dev, results), **phase_tools_export(tmp, results),
+                       **phase_tools_dynamics(tmp, results)}
     phase_resident_scale(dev, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)
@@ -4211,14 +4556,16 @@ def main(argv=None):
                      "two_step": two_step_variants, "evaluate": eval_variants,
                      "train_1024p": local_variants, "serving_1024p": local_serve_variants,
                      **feat_variants, **{p: r["variants"] for p, r in data_paths.items()},
-                     **par_variants, **remat_variants}
+                     **par_variants, **remat_variants,
+                     **{p: r["variants"] for p, r in tools_run.items()}}
     path_launches = {"serving": results["launches"], "train": cli_launches,
                      "train_bf16_pool": bf16_launches, "roofline": roofline_launches,
                      "box2mask_train": b2m_launches, "box2mask_serving": b2m_serve_launches,
                      "two_step": two_step_launches, "evaluate": eval_launches,
                      "train_1024p": local_launches, "serving_1024p": local_serve_launches,
                      **feat_launches, **{p: r["launches"] for p, r in data_paths.items()},
-                     **par_launches, **remat_launches}
+                     **par_launches, **remat_launches,
+                     **{p: r["launches"] for p, r in tools_run.items()}}
     kernels.append(encode_pad0_row(local_table, local_variants, local_serve_variants))
     kernels.append(conv_in_main_path_row(dev, results))
     kernels.append(conv_in_fp32_row(results, path_variants))

@@ -84,7 +84,13 @@ def encode(label, inst: Optional[torch.Tensor], image: Optional[torch.Tensor],
            boxes: Optional[torch.Tensor], nc: int, pad: int = 0, dtype=None):
     """(B,H,W) int32 label [+ inst], [(B,H,W,3) image + (B,4) fp32 boxes]
     -> (B, H+2pad, W+2pad, nc [+1] [+3]) NHWC in the image's dtype (or
-    ``dtype`` when there is no image)."""
+    ``dtype`` when there is no image). While ``torch.export`` traces, the
+    call is the ``himan::encode`` op (``kernels/ops.py``), whose
+    implementation is this function."""
+    if torch.compiler.is_exporting():
+        from . import ops
+
+        return ops.encode(label, inst, image, boxes, nc, pad, dtype)
     _check(label, inst, image, boxes, pad)
     if label.device.type == "cpu":
         return encode_plain(label, inst, image, boxes, nc, pad, dtype)

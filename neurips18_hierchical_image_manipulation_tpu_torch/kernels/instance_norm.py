@@ -127,7 +127,13 @@ def _check(x, act, residual):
 
 def instance_norm(x, act: str = "none", residual: Optional[torch.Tensor] = None,
                   eps: float = EPS):
-    """NHWC -> (y, mean, rstd): y = act(IN(x) + residual) in x's dtype."""
+    """NHWC -> (y, mean, rstd): y = act(IN(x) + residual) in x's dtype.
+    While ``torch.export`` traces, the call is the ``himan::instance_norm``
+    op (``kernels/ops.py``), whose implementation is this function."""
+    if torch.compiler.is_exporting():
+        from . import ops
+
+        return ops.instance_norm(x, act, residual, eps)
     _check(x, act, residual)
     if x.device.type == "cpu":
         return instance_norm_plain(x, act, residual, eps)
@@ -272,7 +278,10 @@ class _InstanceNormAct(torch.autograd.Function):
 
 def instance_norm_act(x, act: str = "none", residual: Optional[torch.Tensor] = None):
     """Differentiable ``act(IN(x) + residual)`` through the kernels (the
-    plain versions for CPU tensors)."""
+    plain versions for CPU tensors). An exported program is inference
+    only: it holds the forward op."""
+    if torch.compiler.is_exporting():
+        return instance_norm(x, act, residual)[0]
     return _InstanceNormAct.apply(x, residual, act)
 
 

@@ -929,3 +929,65 @@ def test_prefetch_path_bit_equal_to_synchronous(cuda_device, restore_torch_preci
         results[depth] = {k: v.detach().clone() for k, v in model.netG.state_dict().items()}
     for k, v in results[0].items():
         assert bits_equal(v, results[2][k]), k
+
+
+@pytest.mark.parametrize("image,pad", [(True, 3), (True, 0), (False, 0)])
+def test_encode_op_opcheck_and_kernel(cuda_device, image, pad):
+    """himan::encode on the card: schema, fake tensors and dispatch
+    (torch.library.opcheck); its implementation launches the kernel, bit
+    for bit the plain version."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.kernels import ops as kops
+
+    i = encode_inputs(cuda_device)
+    args = (i["label"], i["inst"], i["image"] if image else None,
+            i["boxes"] if image else None, 35, pad, None if image else torch.bfloat16)
+    torch.library.opcheck(kops.encode, args)
+    counter = kenc.encode if image else kenc.encode_cond
+    before = counter.launches
+    got = torch.ops.himan.encode(*args)
+    assert counter.launches == before + 1
+    assert bits_equal(got, kenc.encode_plain(*[a.cpu() if torch.is_tensor(a) else a
+                                               for a in args]).to(cuda_device))
+
+
+@pytest.mark.parametrize("act,residual", [("none", False), ("relu", True), ("lrelu", False)])
+def test_instance_norm_op_opcheck_and_kernel(cuda_device, act, residual):
+    """himan::instance_norm on the card: opcheck; its implementation
+    launches the forward kernel, within the kernel's tolerance of the plain
+    version."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.kernels import ops as kops
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(2, 16, 24, 64, device=cuda_device, generator=g)
+    res = torch.randn(2, 16, 24, 64, device=cuda_device, generator=g) if residual else None
+    torch.library.opcheck(kops.instance_norm, (x, act, res, kin.EPS))
+    before = kin.instance_norm.launches
+    y, mean, rstd = torch.ops.himan.instance_norm(x, act, res, kin.EPS)
+    assert kin.instance_norm.launches == before + 1
+    py, pmean, prstd = kin.instance_norm_plain(x, act, res)
+    torch.testing.assert_close(y, py, atol=1e-4, rtol=0)
+    torch.testing.assert_close(mean, pmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, prstd, atol=1e-5, rtol=1e-5)
+
+
+def test_exported_box2mask_launches_kernels(cuda_device, restore_torch_precision, tmp_path):
+    """A tiny box2mask exported on the card holds himan::instance_norm; the
+    reloaded program launches the IN kernel as often as the eager forward,
+    and gives its bits."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.tools import export_inference
+
+    model, batch = export_inference.build("box2mask", 8, 32, 1, "0", ngf=8,
+                                          n_downsample_global=2, n_blocks_global=1)
+    ep = export_inference.export("box2mask", model, batch)
+    export_inference.save(ep, str(tmp_path / "b2m.pt2"))
+    prog = export_inference.load(str(tmp_path / "b2m.pt2")).module()
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        n0 = kin.instance_norm.launches
+        eager = model.inference(batch)
+        n1 = kin.instance_norm.launches
+        got = prog(batch)
+        n2 = kin.instance_norm.launches
+    assert n1 - n0 == n2 - n1 == 2 + 3 * 2 + 2 * 1
+    for a, b in zip(eager, got):
+        assert bits_equal(a, b)
