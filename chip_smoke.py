@@ -3,12 +3,12 @@ paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
 generator, the instance features, the device-resident data path, data
 parallelism, resblock recomputation, W-sharded inference and the user-facing
 tools (checkpoint conversion, the parity runbook, inference export, the
-procedural-world training runs) on one CUDA card.
+procedural-world training runs) and the measurement tools on one CUDA card.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
-22, 24-27, 31-36, 28, 7, 8, 12, 15, 21, 23, 29, 30 (any failure raises and
+22, 24-27, 31-37, 28, 7, 8, 12, 15, 21, 23, 29, 30 (any failure raises and
 the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
@@ -256,6 +256,18 @@ the script exits non-zero):
               every train CLI run held per step to its architecture's
               launches, every loss finite, the four passthroughs exactly 0
               in every scene, every summary written
+ 37. tools_measure  the measurement tools at cut sizes: bench_all (bs 2,
+              the three inference configs and --with_1024p), bench_ablate
+              (the six variants at the test widths, bs 2), bench_convt (the
+              four up shapes, bs 2), roofline_step --collect --bench,
+              trace_attrib and byte_ledger --saved --trace (the test
+              widths, bs 2), profile_decode on trace_attrib's trace, and
+              bench_torch_oracle at full width (bs 1): each run's launches
+              against the calls it recorded and per variant against the
+              plans; the tools whose port-kernel calls all come from train
+              steps (roofline_step, trace_attrib, bench_ablate's full and
+              no_vgg) against steps x the architecture's launches a step;
+              the oracle and bench_convt launch none; every report written
 With --profile: torch.profiler tables of one serving forward, of train
 steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
 1 and of a two-step add at bs 1.
@@ -311,6 +323,17 @@ from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.eval.two_step import TwoStepPipeline
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import _build
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import calls as kcalls
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels.bounds import (
+    bound,
+    cond_bytes,
+    conv_in_bound,
+    encode_bytes,
+    in_bwd_bytes,
+    in_bytes,
+    loss_bytes,
+    pad_bwd_bytes,
+)
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
@@ -332,6 +355,11 @@ from neurips18_hierchical_image_manipulation_tpu_torch.ops.boxcomposite import (
     paste_resize,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.tools import (
+    bench_ablate,
+    bench_all,
+    bench_convt,
+    bench_torch_oracle,
+    byte_ledger,
     convert_torch_checkpoint,
     encode_features,
     export_inference,
@@ -340,12 +368,24 @@ from neurips18_hierchical_image_manipulation_tpu_torch.tools import (
     pix2pixhd_format,
     precompute_feature_maps,
     preprocess_city_bboxes,
+    profile_decode,
     roofline_resblock,
+    roofline_step,
+    trace_attrib,
     train_dynamics,
     train_dynamics_1024p,
     train_dynamics_b2m,
     two_step_gallery,
     two_step_metrics,
+)
+from neurips18_hierchical_image_manipulation_tpu_torch.tools.profile_decode import (  # noqa: F401
+    KERNEL_CLASSES as KERNEL_KINDS,
+    kernel_kind,
+    profile_by_kind,
+)
+from neurips18_hierchical_image_manipulation_tpu_torch.tools.roofline_resblock import (
+    cuda_ms,
+    graph_ms,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.train import loop as train_loop
 from neurips18_hierchical_image_manipulation_tpu_torch.train import steps as train_steps
@@ -363,9 +403,6 @@ from neurips18_hierchical_image_manipulation_tpu_torch.utils.visualizer import V
 
 PKG = "neurips18_hierchical_image_manipulation_tpu_torch"
 JAX_PKG = "neurips18_hierchical_image_manipulation_tpu"
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
-FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # kernel vs plain version on the card
 IN_FP32_ATOL = 1e-4         # Welford/Chan vs two-pass fp32 statistics
 IN_BF16_RTOL = 2.0**-7      # one bf16 rounding of the same fp32 value may
@@ -463,118 +500,13 @@ def card_line():
     return out[0]
 
 
-def cuda_ms(fn, iters, warmup=2):
-    """Mean device time of fn() over iters launches, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def graph_ms(fn, iters=20):
-    """Device time of fn() without host gaps: fn is captured once into a
-    CUDA graph (on the side stream of its warm-up) and the replay is timed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=side):
-        fn()
-    return cuda_ms(g.replay, iters)
-
-
 def same_bits(a, b):
     v = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(v), b.view(v))
 
 
-# ---------------------------------------------------------------- bounds
-
-def encode_bytes(b, h, w, nc, pad, itemsize):
-    c = nc + 1 + 3
-    read = b * h * w * (4 + 4 + 3 * itemsize) + b * 16
-    write = b * (h + 2 * pad) * (w + 2 * pad) * c * itemsize
-    return read + write, b * (h + 2 * pad) * (w + 2 * pad) * c
-
-
-def in_bytes(n, hw, c, itemsize, residual):
-    elems = n * hw * c
-    return elems * itemsize * (2 + int(residual)) + 2 * n * c * 4, 8 * elems
-
-
-def bound(bytes_, ops, ops_per_s=FP32_OPS_PER_S):
-    tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def in_bwd_bytes(shape, itemsize, act, want_dres):
-    """x, g (and y for a masked act) read once, dx (and dres) written once,
-    the fp32 mean/rstd read; ~12 operations an element."""
-    n, h, w, c = shape
-    elems = n * h * w * c
-    return elems * itemsize * (3 + int(act != "none") + int(want_dres)) + 2 * n * c * 4, 12 * elems
-
-
-def pad_bwd_bytes(dy_shape, pad, itemsize):
-    n, hp, wp, c = dy_shape
-    dy = n * hp * wp * c
-    dx = n * (hp - 2 * pad) * (wp - 2 * pad) * c
-    return (dy + dx) * itemsize, dy
-
-
-def loss_bytes(numel, itemsize, two_operands):
-    return numel * itemsize * (1 + int(two_operands)), 3 * numel
-
-
-def cond_bytes(b, h, w, width, itemsize):
-    """label and inst (int32) read, the width-channel conditioning written."""
-    return b * h * w * (8 + width * itemsize), b * h * w * width
-
-
-def conv_in_bound(shape, dtype, residual):
-    """x, w, b (fp32), the residual read once and y written once; the
-    conv's multiply-adds at the dtype's peak (bf16 tensor cores, fp32
-    outside them)."""
-    n, h, w, cin, cout = shape
-    item = 2 if dtype == torch.bfloat16 else 4
-    nbytes = item * (n * h * w * (cin + cout * (1 + int(residual))) + 9 * cin * cout) + 4 * cout
-    ops = 2 * n * h * w * 9 * cin * cout
-    return bound(nbytes, ops, BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S)
-
-
-def counters():
-    """Every kernel wrapper's launch counter, by kernel name."""
-    return {
-        "encode": kenc.encode, "encode_cond": kenc.encode_cond,
-        "instance_norm": kin.instance_norm, "instance_norm_bwd": kin.instance_norm_bwd,
-        "mse_to_scalar": klosses.mse_to_scalar, "l1_to_scalar": klosses.l1_to_scalar,
-        "reflect_pad_bwd": krp.reflect_pad_bwd, "conv3x3_in_act": kconv.conv3x3_in_act,
-    }
-
-
-def read_launches():
-    return {k: f.launches for k, f in counters().items()}
-
-
-def read_variants():
-    """Launches per variant of the kernels that have several."""
-    return {k: dict(f.variants) for k, f in counters().items() if hasattr(f, "variants")}
-
-
-def zero_launches():
-    for f in counters().values():
-        f.launches = 0
-        for v in getattr(f, "variants", {}):
-            f.variants[v] = 0
+counters, read_launches = kcalls.counters, kcalls.read_launches
+read_variants, zero_launches = kcalls.read_variants, kcalls.zero_launches
 
 
 def plan_variant(kind, call):
@@ -644,64 +576,40 @@ def expect_launches(got, want, what):
 def recording():
     """Record the arguments' shapes of every call of a training kernel's
     wrapper, of the IN forward's and of encode's (a call on a CPU tensor
-    too), by kernel name."""
+    too), by kernel name (``kernels/calls.intercept``)."""
     calls = {k: [] for k in ("instance_norm", "loss_group", "encode") + TRAIN_KERNELS}
 
-    class Recorder:
-        """Stands in for a wrapper; a wrapper finds its own launch counter
-        through its module's global name, so ``launches`` is forwarded."""
-
-        def __init__(self, name, orig, describe):
-            self.name, self.orig, self.describe = name, orig, describe
-
-        def __call__(self, *a, **k):
-            calls[self.name].append(self.describe(*a, **k))
-            return self.orig(*a, **k)
-
-        @property
-        def launches(self):
-            return self.orig.launches
-
-        @launches.setter
-        def launches(self, n):
-            self.orig.launches = n
-
-        @property
-        def variants(self):
-            return self.orig.variants
-
-    def rec(mod, name, describe):
-        return mock.patch.object(mod, name, Recorder(name, getattr(mod, name), describe))
-
-    reduce_group = klosses.reduce_group
-
-    def rec_group(terms):
+    def group(terms):
         """One loss launch: its terms (mode, shape, dtype, scalar target or
         None), and each term as a call of mse_to_scalar / l1_to_scalar."""
         table = [(m, tuple(a.shape), a.dtype, None if torch.is_tensor(t) else float(t))
                  for m, a, t in terms]
-        calls["loss_group"].append(table)
         for m, shape, dt, t in table:
             if m == "mse":
                 calls["mse_to_scalar"].append((shape, dt, t))
             else:
                 calls["l1_to_scalar"].append((shape, dt))
-        return reduce_group(terms)
+        return "loss_group", table
 
-    with rec(kin, "instance_norm",
-             lambda x, act="none", residual=None, eps=kin.EPS:
-             (tuple(x.shape), x.dtype, act, residual is not None)), \
-            rec(kin, "instance_norm_bwd",
-             lambda x, y, g, mean, rstd, act="none", want_dres=False:
-             (tuple(x.shape), x.dtype, act, bool(want_dres))), \
-            rec(krp, "reflect_pad_bwd", lambda dy, pad: (tuple(dy.shape), dy.dtype, pad)), \
-            mock.patch.object(klosses, "reduce_group", rec_group), \
-            rec(kenc, "encode_cond",
-                lambda label, inst, nc, dtype=torch.float32:
-                (tuple(label.shape), inst is not None, nc, dtype)), \
-            rec(kenc, "encode",
-                lambda label, inst, image, boxes, nc, pad=0, dtype=None:
-                (tuple(label.shape), pad) + (() if image is not None else ("cond",))):
+    describe = {
+        "instance_norm": lambda x, act="none", residual=None, eps=kin.EPS:
+            ("instance_norm", (tuple(x.shape), x.dtype, act, residual is not None)),
+        "instance_norm_bwd": lambda x, y, g, mean, rstd, act="none", want_dres=False:
+            ("instance_norm_bwd", (tuple(x.shape), x.dtype, act, bool(want_dres))),
+        "reflect_pad_bwd": lambda dy, pad: ("reflect_pad_bwd", (tuple(dy.shape), dy.dtype, pad)),
+        "reduce_group": group,
+        "encode_cond": lambda label, inst, nc, dtype=torch.float32:
+            ("encode_cond", (tuple(label.shape), inst is not None, nc, dtype)),
+        "encode": lambda label, inst, image, boxes, nc, pad=0, dtype=None:
+            ("encode", (tuple(label.shape), pad) + (() if image is not None else ("cond",))),
+    }
+
+    def on_call(name, orig, *a, **k):
+        kind, call = describe[name](*a, **k)
+        calls[kind].append(call)
+        return orig(*a, **k)
+
+    with kcalls.intercept(on_call):
         yield calls
 
 
@@ -1238,7 +1146,8 @@ def train_per_step(g_sites, opt, pads=None):
         "encode": int(masked), "encode_cond": (2 if pooled else 1) + int(not masked),
         "instance_norm": in_sites + (d_sites if pooled and not opt.no_ganFeat_loss else 0),
         "instance_norm_bwd": in_sites, "mse_to_scalar": 3 * opt.num_D,
-        "l1_to_scalar": (opt.n_layers_D + 1) * opt.num_D + (0 if opt.no_vgg_loss else 5),
+        "l1_to_scalar": ((0 if opt.no_ganFeat_loss else (opt.n_layers_D + 1) * opt.num_D)
+                         + (0 if opt.no_vgg_loss else 5)),
         "reflect_pad_bwd": 2 * opt.n_blocks_global + 1 if pads is None else pads,
         "conv3x3_in_act": 0,
     }
@@ -3329,60 +3238,6 @@ def phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants, st
     return rows
 
 
-# device-kernel names by kind, first match wins (the profile breakdown)
-KERNEL_KINDS = (
-    ("port kernels", ("in_fwd_", "in_bwd_", "reflect_pad_bwd_", "loss_group_kernel",
-                      "encode_kernel")),
-    ("conv weight gradient", ("wgrad",)),
-    ("conv data gradient", ("dgrad",)),
-    ("conv forward / other conv algorithms", ("fprop", "fft", "winograd", "sgemm",
-                                              "gemv", "gemm", "conv")),
-    ("layout conversion (cuDNN)", ("nhwcToNchw", "nchwToNhwc")),
-    ("Adam (multi-tensor)", ("multi_tensor",)),
-    ("aten reflection pad", ("reflection_pad",)),
-    ("pools", ("pool",)),
-    ("elementwise and copies", ("elementwise", "copy", "vectorized", "unrolled")),
-    ("reductions", ("reduce",)),
-)
-
-
-def kernel_kind(name):
-    for kind, keys in KERNEL_KINDS:
-        if any(k in name for k in keys):
-            return kind
-    return "other"
-
-
-def profile_by_kind(fn, n, tag, host_ms_each, results):
-    """Device time by kernel over n calls of fn (warmed up by the caller),
-    grouped by kind, against the unprofiled host-clock ms of one call; the
-    idle share is 1 - device / host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
-    log(table)
-    kinds = {}
-    for e in avgs:
-        if e.device_type == DeviceType.CUDA:  # kernel rows only: no double count
-            us = getattr(e, "self_device_time_total", 0) / n
-            kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) + us / 1e3
-    dev_ms = sum(kinds.values())
-    kinds = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
-    idle = max(0.0, 1 - dev_ms / host_ms_each)
-    log(f"[{tag}] device ms per call by kind: "
-        f"{ {k: round(v, 4) for k, v in kinds.items()} }")
-    log(f"[{tag}] device busy {dev_ms:.3f} ms per call; unprofiled {host_ms_each:.3f} ms; "
-        f"idle share {idle:.3f}")
-    results[tag.replace(" ", "_")] = dict(table=table, device_ms=dev_ms, by_kind=kinds,
-                                          unprofiled_ms=host_ms_each, idle_share=idle)
-
-
 def phase_profile_train(dev, results, bf16=False, b2m=False, local=False):
     """Device time by kernel over train steps at STEP_HW bs 1 (fp32, or the
     bf16 tier), box2mask's fp32 step at bs 1 or the 1024p LocalEnhancer's
@@ -4233,6 +4088,15 @@ DYN_B2M_ARGV = ["--steps", "40"]
 DYN_GALLERY_ARGV = ["--m2i_steps", "40"]
 DYN_METRIC_SCENES = 8
 DYN_1024P_ARGV = ["--global_steps", "4", "--local_steps", "4", "--n_images", "16"]
+# phase 37: the measurement tools at cut sizes (their full-size runs are
+# separate calls, reports/torch_r13/); the port-step tools at the CPU tests'
+# widths, the oracle at full width
+MEASURE_ALL_ARGV = ["--bs", "2", "--iters", "2", "--with_1024p"]
+MEASURE_STEP_ARGV = ["--smoke", "--bs", "2"]
+MEASURE_ABLATE_ENV = {"HIMAN_BENCH_BS": "2", "HIMAN_BENCH_ITERS": "1"}
+MEASURE_CONVT_ARGV = ["--bs", "2", "--iters", "2"]
+MEASURE_ORACLE_ARGV = ["--batches", "1", "--iters", "2"]
+FLAGSHIP_BS = 32             # the full-size reports' batch, its kernel calls checked
 PASSTHROUGH = ("remove_label_passthrough", "remove_image_passthrough",
                "add_label_passthrough", "add_image_passthrough")
 
@@ -4494,6 +4358,132 @@ def phase_tools_dynamics(tmp, results):
     return paths
 
 
+@contextlib.contextmanager
+def counted_steps():
+    """Inside: every step ``tools/roofline_step.make_step`` hands out counts
+    its calls -> [[model, steps], ...]."""
+    runs, orig = [], roofline_step.make_step
+
+    def make_step(opt, model, compute_dtype):
+        step, state = orig(opt, model, compute_dtype)
+        run = [model, 0]
+        runs.append(run)
+
+        def counted(state, batch):
+            run[1] += 1
+            return step(state, batch)
+        return counted, state
+
+    with mock.patch.object(roofline_step, "make_step", make_step):
+        yield runs
+
+
+def expect_recorded_launches(calls, launches, what):
+    """Each recorded call of a wrapper launched its kernel once (the loss
+    kernel: each term counted), and conv3x3_in_act none."""
+    want = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar", "l1_to_scalar")}
+    want["encode"] = len(image_encodes(calls))
+    # a no-image encode (encode_cond's, or G's input without RGB) is recorded
+    # as an encode call and launches on encode_cond's counter
+    want["encode_cond"] = len(calls["encode"]) - want["encode"]
+    want["conv3x3_in_act"] = 0
+    expect_launches({k: launches[k] for k in want}, want, f"{what}, against its calls")
+
+
+def flagship_bs32_calls(dev):
+    """The calls one step of the full-size flagship (512x256, bs 32, the
+    bf16 tier, masked RGB, VGG + FM: the tools' default config) makes of
+    each kernel, held to the architecture's count."""
+    args = argparse.Namespace(smoke=False, bs=FLAGSHIP_BS, dtype="bfloat16", gpu_ids=GPU_IDS)
+    opt, model, batch, cdt = roofline_step.flagship(args)
+    calls = step_calls_of(model, batch, cdt)
+    expect_recorded(calls, per_step_of(model), opt, f"flagship step bs {FLAGSHIP_BS} bf16")
+    del model, batch
+    torch.cuda.empty_cache()
+    return calls
+
+
+def phase_tools_measure(tmp, dev, results):
+    """Phase 37: the measurement tools at cut sizes (MEASURE_*), each with
+    the counters zeroed before and read after; every report written. Each
+    tool's distinct kernel calls, and those of one full-size bs-32 bf16
+    flagship step (the size of the committed reports), against their plain
+    versions on the variant the plan picks (check_recorded)."""
+    t0 = time.time()
+    d = os.path.join(tmp, "measure")
+    specs, trace = os.path.join(d, "specs.json"), os.path.join(d, "trace")
+    paths, out, errs = {}, {}, {}
+
+    def worst(tag, recorded, seed):
+        e, counts = check_recorded(recorded, dev, seed, tag)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        log(f"[{tag}] distinct calls checked {counts}; max|kernel - plain| {e}")
+
+    def run(name, fn, argv, env=None, per_step=False, gpu=True):
+        zero_launches()
+        report = os.path.join(d, f"{name}.json")
+        with recording() as calls, counted_steps() as steps, \
+                mock.patch.dict(os.environ, env or {}):
+            out[name] = fn(argv + (["--gpu_ids", GPU_IDS] if gpu else []) + ["--out", report])
+        torch.cuda.synchronize()
+        launches, variants = read_launches(), read_variants()
+        expect_recorded_launches(calls, launches, f"tool {name}")
+        expect_variants(calls, f"tool {name}")
+        n = sum(k for _, k in steps)
+        if per_step:
+            want = {k: 0 for k in launches}
+            for model, k in steps:
+                for kind, v in per_step_of(model).items():
+                    want[kind] += k * v
+            expect_launches(launches, want, f"tool {name}, {n} train steps")
+        if not os.path.exists(report):
+            raise AssertionError(f"tool {name}: {report} not written")
+        add_paths(paths.setdefault(f"tool_{name.split('#')[0]}", {"launches": {}, "variants": {}}),
+                  launches, variants)
+        log(f"[tool {name}] {n} flagship steps; launches {launches}")
+        worst(f"tool {name}", {name: calls}, 200 + len(out))
+        return launches
+
+    run("bench_all", bench_all.main, MEASURE_ALL_ARGV)
+    run("bench_ablate", bench_ablate.main, ["--smoke"],
+        dict(MEASURE_ABLATE_ENV, HIMAN_ABLATE_ONLY="full,no_vgg"), per_step=True)
+    run("bench_ablate#rest", bench_ablate.main, ["--smoke"],
+        dict(MEASURE_ABLATE_ENV, HIMAN_ABLATE_ONLY="g_only,no_fm,g_vgg,d_only"))
+    none = run("bench_convt", bench_convt.main, MEASURE_CONVT_ARGV)
+    run("roofline_step", roofline_step.main, ["--collect", "--bench", "--iters", "2",
+                                              "--specs", specs, "--trace_dir", trace,
+                                              *MEASURE_STEP_ARGV], per_step=True)
+    run("trace_attrib", trace_attrib.main, [trace, "10", "--steps", "1", *MEASURE_STEP_ARGV],
+        per_step=True)
+    run("byte_ledger", byte_ledger.main, ["--saved", "--trace", trace, "--steps", "1",
+                                          "--specs", specs, *MEASURE_STEP_ARGV])
+    run("profile_decode", profile_decode.main, [trace], gpu=False)
+    oracle = run("bench_torch_oracle", bench_torch_oracle.main, MEASURE_ORACLE_ARGV)
+    for name, launches in (("bench_convt", none), ("bench_torch_oracle", oracle)):
+        expect_launches(launches, {k: 0 for k in launches}, f"tool {name} (no port kernel)")
+    worst(f"flagship bs {FLAGSHIP_BS} bf16", {"step": flagship_bs32_calls(dev)}, 230)
+    rates = out["bench_torch_oracle"]["h100_img_per_s"]
+    rl = out["roofline_step"]
+    if not all(np.isfinite([rl["measured_step_ms"], rl["attainable_step_ms"],
+                            *(v for t in rates.values() for v in t.values())])):
+        raise AssertionError(f"tools_measure: non-finite {rl['measured_step_ms']} {rates}")
+    results["tools_measure"] = dict(
+        bench_all=out["bench_all"]["configs"],
+        bench_ablate=out["bench_ablate"]["variants"] + out["bench_ablate#rest"]["variants"],
+        bench_convt=out["bench_convt"]["rows"],
+        roofline_step={k: rl[k] for k in ("measured_step_ms", "attainable_step_ms",
+                                          "headroom_pct", "conv_standalone_ms",
+                                          "nonconv_bound_ms", "unclassified_pct")},
+        trace_attrib={k: out["trace_attrib"][k] for k in ("device_ms_per_step",
+                                                          "unclassified_pct",
+                                                          "unclassified_kernels")},
+        oracle=rates, paths={k: v["launches"] for k, v in paths.items()}, max_err=errs)
+    log(f"[tools_measure] roofline {results['tools_measure']['roofline_step']}; oracle {rates}")
+    phase_seconds(37, "tools_measure", t0, results)
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every result to this JSON file")
@@ -4534,7 +4524,8 @@ def main(argv=None):
         par_launches, par_variants = phase_parallel(tmp, dev, results)
         phase_parallel_clis(tmp, results)
         tools_run = {**phase_tools_convert(tmp, dev, results), **phase_tools_export(tmp, results),
-                       **phase_tools_dynamics(tmp, results)}
+                     **phase_tools_dynamics(tmp, results),
+                     **phase_tools_measure(tmp, dev, results)}
     phase_resident_scale(dev, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)

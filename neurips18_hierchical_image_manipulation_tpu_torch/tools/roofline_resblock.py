@@ -49,7 +49,7 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters, warmup):
+def cuda_ms(fn, iters, warmup=2):
     """Mean device time of fn() over iters calls, after warm-up and a sync."""
     for _ in range(warmup):
         fn()
@@ -61,6 +61,22 @@ def cuda_ms(fn, iters, warmup):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device time of fn() without host gaps: fn is captured once into a
+    CUDA graph (on the side stream of its warm-up) and the replay is timed
+    by ``cuda_ms``: for work whose launch is shorter than its overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        fn()
+    return cuda_ms(g.replay, iters)
 
 
 def conv_in_relu(x, w, b):

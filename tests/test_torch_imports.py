@@ -63,7 +63,10 @@ def test_port_imports_no_jax(tmp_path):
      f"{PORT}.tools.parity_report", f"{PORT}.tools.export_inference",
      f"{PORT}.tools.train_dynamics", f"{PORT}.tools.train_dynamics_b2m",
      f"{PORT}.tools.two_step_gallery", f"{PORT}.tools.two_step_metrics",
-     f"{PORT}.tools.train_dynamics_1024p"],
+     f"{PORT}.tools.train_dynamics_1024p", f"{PORT}.tools.roofline_step",
+     f"{PORT}.tools.trace_attrib", f"{PORT}.tools.profile_decode", f"{PORT}.tools.byte_ledger",
+     f"{PORT}.tools.bench_all", f"{PORT}.tools.bench_ablate", f"{PORT}.tools.bench_convt",
+     f"{PORT}.tools.bench_torch_oracle", f"{PORT}.kernels.bounds", f"{PORT}.kernels.calls"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (

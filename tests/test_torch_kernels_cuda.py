@@ -991,3 +991,28 @@ def test_exported_box2mask_launches_kernels(cuda_device, restore_torch_precision
     assert n1 - n0 == n2 - n1 == 2 + 3 * 2 + 2 * 1
     for a, b in zip(eager, got):
         assert bits_equal(a, b)
+
+
+@pytest.mark.xfail(strict=True, reason="ROADMAP C.12: on the card, AvgPool2d's input gradient "
+                   "on the channels_last view of an NHWC tensor leaves fp64; the repair "
+                   "makes this pass")
+def test_avg_pool_3x3s2_input_gradient_against_fp64(cuda_device):
+    """nnops.avg_pool_3x3s2 (the multiscale D's inter-scale pool) at the D's
+    input shape (bs 4, 512x256, 36 channels): its input gradient on the
+    card in fp32 against fp64 on the CPU, within 1e-5 of max |reference|
+    (fp32 sums of at most 9 terms). reports/torch_r13/c12_oracle/pool_grad.py
+    measured it 0.86-1.06 off."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 256, 512, 36, generator=g, dtype=torch.float64)
+    gy = torch.randn(4, 128, 256, 36, generator=g, dtype=torch.float64)
+
+    def input_grad(dev, dt):
+        xd = x.to(dev, dt, copy=True).requires_grad_(True)
+        nnops.avg_pool_3x3s2(xd).backward(gy.to(dev, dt))
+        return xd.grad.double().cpu()
+
+    ref = input_grad("cpu", torch.float64)
+    got = input_grad(cuda_device, torch.float32)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
