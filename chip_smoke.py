@@ -3,13 +3,14 @@ paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
 generator, the instance features, the device-resident data path, data
 parallelism, resblock recomputation, W-sharded inference and the user-facing
 tools (checkpoint conversion, the parity runbook, inference export, the
-procedural-world training runs) and the measurement tools on one CUDA card.
+procedural-world training runs) and the measurement tools on one CUDA card,
+and hold each train path's gradients to the same step on the CPU.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
-22, 24-27, 31-37, 28, 7, 8, 12, 15, 21, 23, 29, 30 (any failure raises and
-the script exits non-zero):
+22, 24-27, 31-37, 28, 7, 8, 12, 15, 21, 23, 29, 30, 38 (any failure raises
+and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source) and csrc/dataio.cpp (the host data tier) with g++, all
@@ -268,6 +269,20 @@ the script exits non-zero):
               steps (roofline_step, trace_attrib, bench_ablate's full and
               no_vgg) against steps x the architecture's launches a step;
               the oracle and bench_convt launch none; every report written
+ 38. grads vs CPU  each train path's make_train_step step on the card (fp32,
+              TF32 off, the kernels) against the same step on the CPU (the
+              plain versions) from the same parameters and batch: the
+              flagship, the 1024p LocalEnhancer (num_D 3), --instance_feat
+              and box2mask; every G, D and E gradient per tensor (max
+              |diff| / max |g|, flipped signs) within 2x the card's own
+              spread (a repeat and a 1-ulp nudge) and under a cap, its
+              ||diff|| / ||g|| under a fixed bar, the losses too; the bf16
+              tier against the same CPU step by cosine, flipped signs and
+              norm (the Encoder's tensors at 512x256 as the known miss of
+              ROADMAP C.14, which must show); the serving forwards' outputs; on the flagship and
+              1024p the pool as it was before the C.12 repair as a control
+              that must miss (the DP, resident and remat steps are
+              bit-equal to the single step, phases 29, 31)
 With --profile: torch.profiler tables of one serving forward, of train
 steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
 1 and of a two-step add at bs 1.
@@ -354,6 +369,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.ops.boxcomposite import (
     expand_to_context_window,
     paste_resize,
 )
+from neurips18_hierchical_image_manipulation_tpu_torch.tools import grad_audit
 from neurips18_hierchical_image_manipulation_tpu_torch.tools import (
     bench_ablate,
     bench_all,
@@ -1432,15 +1448,9 @@ def conv_in_fp32_row(results, path_variants):
     return out
 
 
-def trained(model):
-    """The networks a train step updates: G, D and, under instance
-    features, E (never the frozen VGG)."""
-    return {net: m for net, m in model.nets().items() if net != "VGG"}
-
-
 def grads_of(model):
     return [(f"{net}.{n}", p.grad.clone() if p.grad is not None else None)
-            for net, m in trained(model).items() for n, p in m.named_parameters()]
+            for net, m in grad_audit.trained(model).items() for n, p in m.named_parameters()]
 
 
 def _leaf_diffs(a, b):
@@ -1488,7 +1498,7 @@ def compare_step(model, batch, nudge="image", kernels=TRAIN_KERNELS):
     held, in every comparison but the repeat, to STEP_SENS_FACTOR times its
     own 1-ulp sensitivity; G and D as above. ``kernels``: the training
     kernels the step must launch."""
-    nets = trained(model)
+    nets = grad_audit.trained(model)
     params = [p for m in nets.values() for p in m.parameters()]
 
     def run(ctx, b=batch):
@@ -3639,7 +3649,7 @@ def grads_after(model, batch, dtype=None, nudge=False):
         else:
             img = torch.nextafter(img, torch.full_like(img, 2.0))
         batch = dict(batch, image=img)
-    for m in trained(model).values():
+    for m in grad_audit.trained(model).values():
         m.zero_grad(set_to_none=True)
     with cudnn_deterministic():
         params, b = _loss_inputs(model, batch, dtype)
@@ -3692,7 +3702,7 @@ def phase_remat(dev, results):
                                           **ARCH)
             model = create_model(opt)
             zero_launches()
-            for m in trained(model).values():
+            for m in grad_audit.trained(model).values():
                 m.zero_grad(set_to_none=True)
             with cudnn_deterministic():
                 params, b = _loss_inputs(model, batch, compute)
@@ -4484,6 +4494,179 @@ def phase_tools_measure(tmp, dev, results):
     return paths
 
 
+# phase 38: each train path's step on the card against the same step on the
+# CPU, at full width; the 1024p step cut to one LocalEnhancer at 512x256
+GRAD_STEP_HW = STEP_HW       # the flagship and --instance_feat steps (512x256)
+GRAD_LOCAL_HW = STEP_HW      # the 1024p step's LocalEnhancer (its trunk at 256x128)
+GRAD_B2M_BS = 2              # a box2mask batch with a null-class (background) box
+GRAD_SEED = 380
+# ROADMAP C.14, open: the bf16 tier's Encoder gradient. Each instance's
+# feature gradient is the sum of G's input gradient over its pixels, which
+# cancels to 0.03-3 % of the sum of its magnitudes; the bf16 step's
+# per-pixel gradient is several % off the fp32 one, so E's bf16 gradient
+# misses the bf16 bars (E.conv_out.weight at cosine 0.57 at 512x256). Path
+# c's bf16 misses must be E's, and some must show, or the entry is stale.
+BF16_KNOWN_MISSES = {"c instance_feat": "E."}
+
+
+def _grad_paths():
+    """(name, options of a gpu_ids and option overrides, batch on a device,
+    the card's nudge) of phase 38's train paths."""
+    def m2i(**arch):
+        return lambda g, **kw: MaskToImageTrainOptions(gpu_ids=g, **arch, **kw)
+    return (
+        ("a flagship", m2i(**ARCH),
+         lambda d: encode_inputs(1, *GRAD_STEP_HW, d, seed=GRAD_SEED), "image"),
+        ("b 1024p LocalEnhancer", m2i(**LOCAL_G, **LOCAL_D),
+         lambda d: encode_inputs(1, *GRAD_LOCAL_HW, d, seed=GRAD_SEED + 1), "image"),
+        ("c instance_feat", m2i(**FEAT, **ARCH),
+         lambda d: encode_inputs(1, *GRAD_STEP_HW, d, seed=GRAD_SEED + 2), "image"),
+        ("d box2mask",
+         lambda g, **kw: BoxToMaskTrainOptions(gpu_ids=g, lambda_ctx_neg=5.0, **B2M_ARCH, **kw),
+         lambda d: b2m_batch(GRAD_B2M_BS, d, seed=GRAD_SEED + 3), "params"),
+    )
+
+
+def channels_last_view_pool(x):
+    """``nnops.avg_pool_3x3s2`` before the C.12 repair: AvgPool2d on the
+    channels_last view of the NHWC tensor, whose input gradient is wrong on
+    the card (reports/torch_r13/c12_oracle/pool_grad.py)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1,
+                        count_include_pad=False).permute(0, 2, 3, 1).contiguous()
+
+
+def _pre_repair_control(name, card, model16, batch, nudge, ref):
+    """Path ``name``'s check with the pool as it was before the C.12 repair
+    on the card, fp32 (``check_step`` builds its bar from the card's spread
+    under that pool) and bf16, against the same CPU step ``ref``: both must
+    miss (G's tensors among them), or the bars could not see C.12."""
+    with mock.patch.object(nnops, "avg_pool_3x3s2", channels_last_view_pool):
+        rep, ref_grads = grad_audit.check_step(card, None, batch, None, nudge, ref=ref)
+        bf = grad_audit.check_bf16(model16, batch, ref_grads)
+    out = {"fp32_over_bar": rep["misses"], "bf16_over_bar": bf["misses"],
+           "fp32_bar": rep["bar"], "fp32_worst_max_rel": rep["worst_max_rel"],
+           "fp32_worst_flips": rep["worst_flips"], "fp32_worst_rel_l2": rep["worst_rel_l2"],
+           "bf16_lowest_cos": bf["worst_cos"], "bf16_worst_flips": bf["worst_flips"],
+           "bf16_worst_norm": bf["worst_norm"]}
+    log(f"[grads vs cpu] control, {name} with the pre-repair pool: fp32 "
+        f"{len(rep['misses'])} of {rep['tensors']} tensors over its bar {rep['bar']} (largest "
+        f"max|diff|/max|g| {rep['worst_max_rel']}, flipped {rep['worst_flips']}, "
+        f"||diff||/||g|| {rep['worst_rel_l2']}); bf16 {len(bf['misses'])} (lowest cosine "
+        f"{bf['worst_cos']}, flipped {bf['worst_flips']}, | ||g16|| / ||g|| - 1 | "
+        f"{bf['worst_norm']})")
+    if not all(any(k.startswith("G.") for k in out[f"{t}_over_bar"]) for t in ("fp32", "bf16")):
+        raise AssertionError(f"phase 38: the bars do not see the pre-repair pool on {name}: "
+                             f"{out}")
+    return out
+
+
+def _on_cpu(batch):
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in batch.items()}
+
+
+def phase_grads_vs_cpu(dev, results):
+    """Phase 38, gradients against the CPU: each train path's one
+    make_train_step step on the card (fp32, TF32 off, the hand-written
+    kernels) against the same step on the CPU (fp32, the plain versions,
+    another summation order in every op) from the same parameters (copied)
+    and batch, no dropout (tools/grad_audit.check_step): the losses and
+    every G, D and E parameter's gradient, per tensor max |diff| / max |g|
+    and the flipped-sign share within the path's bar (grad_audit.bar_of:
+    SPREAD_FACTOR x the card's own largest spread over two more card runs,
+    the same step again and one with its image, or box2mask's parameters,
+    nudged one ulp, within the floors and caps), and ||diff|| / ||g||
+    within REL_L2_BAR; then the bf16 tier's gradients on the card against
+    the same CPU step, per tensor within BF16_COS, BF16_FLIPS and BF16_NORM
+    (check_bf16), but for the known misses of BF16_KNOWN_MISSES, which must
+    show. Paths: a, the flagship (num_D 2, VGG19, LSGAN + FM +
+    VGG); b, the 1024p LocalEnhancer (one enhancer, num_D 3, the trunk at
+    ngf 64); c, --instance_feat (the Encoder through segment_mean_2d); d,
+    box2mask (the two-stream G, the layout D); e, the serving forwards
+    (GlobalGenerator and box2mask inference at bs 1, outputs only). The
+    DP, resident and remat steps are held bit-equal on the card to the
+    single step (phases 29 and 31) and need no step of their own here. Any
+    miss fails the phase. A control: paths a and b again on the card with
+    the pool as it was before the C.12 repair must miss both the fp32 bar
+    (built anew from the card's spread under that pool) and the bf16
+    bars."""
+    t0 = time.time()
+    out, misses = {}, {}
+    for name, opt_of, batch_of, nudge in _grad_paths():
+        t = time.time()
+        card, cpu = create_model(opt_of(GPU_IDS)), create_model(opt_of("-1"))
+        model16 = create_model(opt_of(GPU_IDS, dtype="bfloat16"))
+        grad_audit.copy_params(card, cpu)
+        grad_audit.copy_params(card, model16)
+        batch = batch_of(dev)
+        t_build = time.time() - t
+        rep, ref = grad_audit.check_step(card, cpu, batch, _on_cpu(batch), nudge)
+        t_check = time.time() - t - t_build
+        bf = grad_audit.check_bf16(model16, batch, ref)
+        w, f, l2, bar = rep["worst_max_rel"], rep["worst_flips"], rep["worst_rel_l2"], rep["bar"]
+        log(f"[grads vs cpu] {name}: {rep['tensors']} tensors; largest max|diff|/max|g| "
+            f"{w[0]:.3g} ({w[1]}) against the bar {bar['max_rel']:.3g}; largest "
+            f"flipped-sign share {f[0]:.3g} ({f[1]}) against the bar {bar['flips']:.3g}; largest "
+            f"||diff||/||g|| {l2[0]:.3g} ({l2[1]}) against {bar['rel_l2']}; the card's own "
+            f"spread {rep['spread']}; losses max rel {max(rep['loss_rel'].values()):.3g}; bf16: "
+            f"lowest cosine {bf['worst_cos'][0]:.4f} ({bf['worst_cos'][1]}) against "
+            f"{bf['bar_cos']}, largest flipped-sign share {bf['worst_flips'][0]:.3g} "
+            f"({bf['worst_flips'][1]}) against {bf['bar_flips']}, largest | ||g16|| / ||g|| - 1 | "
+            f"{bf['worst_norm'][0]:.3g} ({bf['worst_norm'][1]}) against {bf['bar_norm']}"
+            f"; misses {rep['misses']} / bf16 {bf['misses']}; models {t_build:.1f} s, "
+            f"card x3 + cpu {t_check:.1f} s (the cpu step {rep['ref_step_s']:.1f} s)")
+        out[name] = {"fp32": {k: v for k, v in rep.items() if k != "per_tensor"},
+                     "bf16": {k: v for k, v in bf.items() if k != "per_tensor"},
+                     "per_tensor": {k: {**v, **{f"bf16_{m}": bf["per_tensor"][k][m]
+                                               for m in ("cos", "flips", "norm_ratio")}}
+                                    for k, v in rep["per_tensor"].items()},
+                     "models_s": t_build, "card_and_cpu_s": t_check}
+        prefix = BF16_KNOWN_MISSES.get(name)
+        known = [k for k in bf["misses"] if prefix and k.startswith(prefix)]
+        bf16_misses = [k for k in bf["misses"] if k not in known]
+        if prefix and not known:
+            bf16_misses.append(f"the known misses {BF16_KNOWN_MISSES[name]}* do not show "
+                               "(ROADMAP C.14 repaired?)")
+        out[name]["bf16_known_misses"] = known
+        if rep["misses"] or bf16_misses:
+            misses[name] = {"fp32": rep["misses"], "bf16": bf16_misses}
+        if name[0] in "ab":
+            out[f"control {name[0]}: the pre-repair pool"] = _pre_repair_control(
+                name, card, model16, batch, nudge, (rep["ref_losses"], ref))
+        del card, cpu, model16, ref
+        torch.cuda.empty_cache()
+    serving = (
+        ("e serving GlobalGenerator", lambda g: MaskToImageTestOptions(gpu_ids=g, **ARCH),
+         lambda d: encode_inputs(1, *GRAD_STEP_HW, d, seed=GRAD_SEED + 4), MODEL_ATOL),
+        ("e serving box2mask",
+         lambda g: BoxToMaskTestOptions(gpu_ids=g, **{**B2M_DEPTH, **B2M_ARCH}),
+         lambda d: b2m_batch(1, d, seed=GRAD_SEED + 5), B2M_PROBS_ATOL),
+    )
+    for name, opt_of, batch_of, atol in serving:
+        card, cpu = create_model(opt_of(GPU_IDS)), create_model(opt_of("-1"))
+        grad_audit.copy_params(card, cpu)
+        batch = batch_of(dev)
+        with precision_scope(card):
+            got = card.inference(batch)
+        with precision_scope(cpu):
+            want = cpu.inference(_on_cpu(batch))
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        diff = max(float((a.float().cpu() - b.float()).abs().max()) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        log(f"[grads vs cpu] {name}: outputs max|card - cpu| {diff:.3g} (bar {atol}), "
+            f"finite {finite}")
+        out[name] = {"max_abs_diff": diff, "bar": atol}
+        if not finite or diff > atol:
+            misses[name] = diff
+        del card, cpu
+        torch.cuda.empty_cache()
+    results["grads_vs_cpu"] = dict(paths=out, floors=grad_audit.FLOORS, caps=grad_audit.CAPS,
+                                   rel_l2_bar=grad_audit.REL_L2_BAR,
+                                   spread_factor=grad_audit.SPREAD_FACTOR)
+    phase_seconds(38, "grads_vs_cpu", t0, results)
+    if misses:
+        raise AssertionError(f"phase 38, gradients against the CPU: misses {misses}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every result to this JSON file")
@@ -4581,6 +4764,7 @@ def main(argv=None):
         if name in ("mse_to_scalar", "l1_to_scalar"):
             row["terms_by_path"] = row["launches_by_path"]
             row["launches_by_path"] = {p: v[name]["group"] for p, v in path_variants.items()}
+    phase_grads_vs_cpu(dev, results)
     if args.profile:
         phase_profile(dev, results)
         phase_profile_train(dev, results)

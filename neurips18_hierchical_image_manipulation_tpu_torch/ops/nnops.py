@@ -65,8 +65,12 @@ def reflect_pad(x, pad: int):
 
 def avg_pool_3x3s2(x):
     """torch.nn.AvgPool2d(3, 2, 1, count_include_pad=False) on NHWC — the
-    multiscale discriminator's inter-scale downsampler."""
-    return _nhwc(F.avg_pool2d(_nchw(x), 3, 2, 1, count_include_pad=False))
+    multiscale discriminator's inter-scale downsampler and the
+    LocalEnhancer's input pyramid. It pools a contiguous NCHW copy: on a
+    CUDA card, AvgPool2d's input gradient on the channels_last view of an
+    NHWC tensor is wrong (torch 2.11.0+cu128; its forward is right), while
+    on a contiguous NCHW tensor both are (``reports/torch_r13/c12_oracle/pool_grad.py``)."""
+    return _nhwc(F.avg_pool2d(_nchw(x).contiguous(), 3, 2, 1, count_include_pad=False))
 
 
 def max_pool_2x2(x):
@@ -146,11 +150,14 @@ def segment_mean_2d(feat, seg_ids, num_segments: int):
     its image. Sums and counts accumulate in fp32 whatever feat's dtype (a
     bf16 running sum stalls at 256), one rounding to feat's dtype at the
     end. Differentiable. The sums are ``index_put(accumulate=True)`` and the
-    gather back is indexing of the rounded means, whose backward is the same
-    accumulation in feat's dtype (the JAX function's gradient sums in it
-    too, so a bf16 gradient carries its running-sum rounding): on a CUDA tensor
-    both take PyTorch's sort-based accumulation, a fixed order (no atomics),
-    so the result and its gradient are the same bits run to run."""
+    gather back is indexing of the fp32 means, rounded after the gather (the
+    same bits as the JAX function's gather of rounded means), so its
+    backward, the same accumulation, sums each segment's gradient in fp32
+    too and rounds it once (the JAX function's sums in feat's dtype: a bf16
+    gradient 0.02-0.03 of its max off fp64 at an Encoder's 256x512,
+    ROADMAP §C.13): on a CUDA tensor both take PyTorch's sort-based
+    accumulation, a fixed order (no atomics), so the result and its
+    gradient are the same bits run to run."""
     n, h, w, c = feat.shape
     ids = seg_ids.reshape(n, h * w).to(torch.int64)
     ids = (ids + num_segments * torch.arange(n, device=ids.device)[:, None]).reshape(-1)
@@ -158,8 +165,8 @@ def segment_mean_2d(feat, seg_ids, num_segments: int):
     sums = f32.new_zeros((n * num_segments, c)).index_put((ids,), f32, accumulate=True)
     counts = f32.new_zeros((n * num_segments,)).index_put(
         (ids,), f32.new_ones((n * h * w,)), accumulate=True)
-    means = (sums / torch.clamp_min(counts, 1.0)[:, None]).to(feat.dtype)
-    return means[ids].reshape(n, h, w, c)
+    means = sums / torch.clamp_min(counts, 1.0)[:, None]
+    return means[ids].to(feat.dtype).reshape(n, h, w, c)
 
 
 class PaddedStemInput:

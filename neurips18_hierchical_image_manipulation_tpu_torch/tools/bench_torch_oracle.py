@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from ..data.synthetic import synthetic_batch
 from ..kernels.calls import read_launches
 from ..train.profiler import measure_steps
+from . import grad_audit as ga
 from . import pix2pixhd_format as p2p
 from . import roofline_step as rs
 
@@ -209,6 +210,88 @@ def oracle_inputs(batch, label_nc, masked_image=True):
     return torch.cat([cond, real * (1.0 - m)], 1), cond, real
 
 
+CHECK_BS = 4          # the batch of --check_init
+
+
+def port_init_grads(model, batch):
+    """The gradients of one objective of the port (``model.losses``'s
+    total: G's and D's at the same parameters), by pix2pixHD key
+    (``pix2pixhd_format``'s maps applied to the gradients), the oracle's
+    G as ``G.*`` and its scales as ``Ds.{i}.*``, finest first."""
+    for m in model.nets().values():
+        m.zero_grad(set_to_none=True)
+    model.losses(batch)[0].backward()
+    sds = {net: {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in m.named_parameters()}
+           for net, m in model.nets().items() if net in ("G", "D")}
+    for m in model.nets().values():
+        m.zero_grad(set_to_none=True)
+    g, opt = model.netG, model.opt
+    out = {f"G.{k}": v.detach().clone() for k, v in p2p.global_generator_state_dict(
+        sds["G"], g.n_downsampling, g.n_blocks, inner="block").items()}
+    d = p2p.multiscale_discriminator_state_dict(sds["D"], opt.num_D, opt.n_layers_D,
+                                                spelling="scale{i}_layer{n}")
+    for i in range(opt.num_D):
+        j = opt.num_D - 1 - i   # pix2pixHD's scale 0 is the coarsest
+        out.update({f"Ds.{i}.stages.{n}.0.{leaf}": d[f"scale{j}_layer{n}.0.{leaf}"].clone()
+                    for n in range(opt.n_layers_D + 2) for leaf in ("weight", "bias")})
+    return out
+
+
+def oracle_init_grads(oracle, x, cond, real):
+    """The oracle's gradients in pix2pixHD's order: G's of loss_G, D's of
+    loss_D alone (its gradient from G's loss is dropped before D's step)."""
+    oracle.opt_g.zero_grad(set_to_none=True)
+    oracle.opt_d.zero_grad(set_to_none=True)
+    loss_g, loss_d, _ = oracle.losses(x, cond, real)
+    loss_g.backward()
+    grads = {f"G.{k}": p.grad.detach().clone() for k, p in oracle.G.named_parameters()}
+    oracle.opt_d.zero_grad(set_to_none=True)
+    loss_d.backward()
+    grads.update({f"Ds.{k}": p.grad.detach().clone() for k, p in oracle.Ds.named_parameters()})
+    oracle.opt_g.zero_grad(set_to_none=True)
+    oracle.opt_d.zero_grad(set_to_none=True)
+    return grads
+
+
+def check_gradients_at_init(model, batch):
+    """The port's gradients at its init against the oracle's, from the same
+    parameters (``load_port_init``) and batch, tensor by tensor
+    (``grad_audit.tensor_diffs``): the port's twice (its own run-to-run
+    difference), once on the image nudged one ulp up (the size of the
+    rounding differences another summation order makes; a uint8 image is
+    not nudged), the oracle's once. ``ok``: every tensor of the oracle's
+    within ``grad_audit.bar_of`` the port's run-to-run difference;
+    ``ok_nudge``, a reading beside it: within the bar of that and the
+    nudge's -> the report, with the largest value of each metric over G's
+    tensors and over all."""
+    opt = model.opt
+    nc = opt.label_nc
+    xcr = oracle_inputs(batch, nc, opt.use_masked_image)
+    oracle = Oracle(xcr[0].shape[1], nc + 1, opt.ngf, opt.n_downsample_global,
+                    opt.n_blocks_global, opt.ndf, opt.n_layers_D, opt.num_D,
+                    lambda_feat=opt.lambda_feat, device=model.device)
+    load_port_init(oracle, model)
+    a = port_init_grads(model, batch)
+    spreads = [ga.tensor_diffs(port_init_grads(model, batch), a)]
+    image = batch["image"]
+    if image.is_floating_point():
+        spreads.append(ga.tensor_diffs(port_init_grads(model, dict(batch, image=torch.nextafter(
+            image, torch.full_like(image, 2.0)))), a))
+    vs = ga.tensor_diffs(oracle_init_grads(oracle, *xcr), a)
+    bar, bar_nudge = ga.bar_of(spreads[0]), ga.bar_of(*spreads)
+
+    def largest(diffs):
+        return {part: {m: ga.worst({k: d for k, d in diffs.items() if k.startswith(prefix)}, m)
+                       for m in bar}
+                for part, prefix in (("G", "G."), ("all", ""))}
+    report = {"port_vs_port": largest(spreads[0]), "port_nudged_vs_port": largest(spreads[-1]),
+              "oracle_vs_port": largest(vs), "bar": bar, "bar_nudge": bar_nudge,
+              "over_bar": ga.over_bars(vs, bar), "over_bar_nudge": ga.over_bars(vs, bar_nudge)}
+    report["ok"], report["ok_nudge"] = not report["over_bar"], not report["over_bar_nudge"]
+    return report
+
+
 def conv_flops(h, w, cin, cout, k, stride=1):
     return (h // stride) * (w // stride) * cout * cin * k * k * 2
 
@@ -285,12 +368,17 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--batches", default="1,4")
     p.add_argument("--smoke", action="store_true", help="tiny widths and 64x128")
+    p.add_argument("--check_init", action="store_true",
+                   help="instead of timing: the port's gradients at its fp32 init (TF32 off) "
+                   "against the oracle's (check_gradients_at_init), at bs CHECK_BS")
     p.add_argument("--gpu_ids", default="0", help="-1 for the CPU")
     p.add_argument("--out", default=os.path.join(rs.REPORTS, "bench_torch_oracle.json"))
     args = p.parse_args(argv)
     device = rs.device_of(args.gpu_ids)
     arch, hw = (rs.SMOKE, rs.SMOKE_HW) if args.smoke else (rs.FLAGSHIP, rs.HW)
     name = rs.device_line(device)
+    if args.check_init:
+        return check_init_main(args, name)
     key = "h100_img_per_s" if "H100" in name else f"{device.type}_img_per_s"
     tflop_img, parts = model_flops_per_image(*hw, arch["label_nc"], arch["ngf"],
                                              arch["n_downsample_global"], arch["n_blocks_global"],
@@ -333,6 +421,23 @@ def main(argv=None):
     }
     rs.write_json(args.out, report)
     print(json.dumps({k: v for k, v in report.items() if k != "rows"}), flush=True)
+    return report
+
+
+def check_init_main(args, name):
+    """``--check_init``: the flagship (or ``--smoke``) model in the fp32
+    tier from seed 0, a synthetic batch of CHECK_BS, the check at the init;
+    JSON to ``--out``."""
+    args.bs, args.dtype = CHECK_BS, "float32"
+    opt, model, batch, _ = rs.flagship(args)
+    t0 = time.perf_counter()
+    report = {"device": name, "bs": args.bs, "shape": list(batch["image"].shape[1:3]),
+              "tier": "fp32, cudnn.allow_tf32 %s" % torch.backends.cudnn.allow_tf32,
+              "check_gradients_at_init": check_gradients_at_init(model, batch),
+              "wall_s": None}
+    report["wall_s"] = time.perf_counter() - t0
+    rs.write_json(args.out, report)
+    print(json.dumps(report), flush=True)
     return report
 
 

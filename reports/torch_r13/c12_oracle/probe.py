@@ -24,16 +24,18 @@ network module.
     ``make_train_step`` from the same init over the same batches: every
     loss of step 1 (one set of parameters: the same forward function)
     within CHECK_RTOL, or the probe stops. Beside it, recorded against
-    their bars: every G and D gradient at the init (max |diff| / max |g| of
-    each leaf) and every loss of steps 2 .. ``--check_steps``, each bar the
-    larger of CHECK_RTOL and CHECK_SPREAD times the port's own difference
+    their bars: every G and D gradient at the init
+    (``tools/bench_torch_oracle.check_gradients_at_init``) and every loss
+    of steps 2 .. ``--check_steps``, each bar the larger of CHECK_RTOL and
+    CHECK_SPREAD times the port's own difference
     between two runs of the same steps (cuDNN's fp32 algorithms are not
     deterministic, and Adam's first update, sign(g) * lr, flips wherever a
-    gradient sits at rounding level). On the card the port's gradients are
-    over their bar: its multiscale D's input gradient is wrong there (the
-    CUDA AvgPool2d backward of a channels_last view, ``pool_grad.py`` beside
-    this script; ROADMAP §C.12), while the oracle's matches an fp64
-    reference, so the oracle is the reference step and the long run goes on.
+    gradient sits at rounding level). Before the C.12 repair the port's
+    gradients were over their bar on the card: its multiscale D's input
+    gradient was wrong there (the CUDA AvgPool2d backward of a channels_last
+    view, ``pool_grad.py`` beside this script; ROADMAP §C.12), while the
+    oracle's matches an fp64 reference, so the oracle is the reference step
+    and the long run goes on.
 
 Writes ``DIR/loss_log.json`` (each epoch's last step, as the train CLI's
 loss line) and ``DIR/summary.json``: G_GAN_Feat first, min (epoch) and
@@ -177,59 +179,10 @@ def main(argv=None):
     if not same_input:
         raise AssertionError("the oracle's input is not the port's encode at step 1")
 
-    # the gradients at the init: the port's twice, the oracle's, by
-    # pix2pixHD key (pix2pixhd_format's maps applied to the gradients)
-    def port_grads():
-        restore_init()
-        for m in model.nets().values():
-            m.zero_grad(set_to_none=True)
-        model.losses(b0)[0].backward()
-        return oracle_keys({net: {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                                  for k, p in m.named_parameters()}
-                            for net, m in model.nets().items() if net in ("G", "D")})
-
-    def oracle_keys(sds):
-        g = model.netG
-        out = {f"G.{k}": v for k, v in bo.p2p.global_generator_state_dict(
-            sds["G"], g.n_downsampling, g.n_blocks, inner="block").items()}
-        d = bo.p2p.multiscale_discriminator_state_dict(sds["D"], opt.num_D, opt.n_layers_D,
-                                                       spelling="scale{i}_layer{n}")
-        for i in range(opt.num_D):
-            j = opt.num_D - 1 - i
-            out.update({f"Ds.{i}.stages.{n}.0.{leaf}": d[f"scale{j}_layer{n}.0.{leaf}"]
-                        for n in range(opt.n_layers_D + 2) for leaf in ("weight", "bias")})
-        return out
-
-    def grad_diff(a, b):
-        """max over leaves of max |a - b| / max |b|, and the share of the
-        elements of nonzero b whose sign a does not share (Adam's first
-        update is sign(g) * lr)."""
-        worst, flips, n = 0.0, 0, 0
-        for k, gb in b.items():
-            ga, scale = a[k], float(gb.abs().max())
-            if scale == 0.0:
-                continue   # a dead bias (IN removes it): no gradient in the port
-            worst = max(worst, float((ga - gb).abs().max()) / scale)
-            nz = gb != 0
-            flips += int((torch.sign(ga[nz]) != torch.sign(gb[nz])).sum())
-            n += int(nz.sum())
-        return {"max_rel": worst, "sign_flip_share": flips / max(n, 1)}
-
-    grads_a, grads_b = port_grads(), port_grads()
-    oracle = make_oracle()
-    loss_g, loss_d, _ = oracle.losses(*inputs(0))
-    (loss_g + loss_d).backward()
-    grads_o = {f"G.{k}": p.grad for k, p in oracle.G.named_parameters()}
-    grads_o.update({f"Ds.{k}": p.grad for k, p in oracle.Ds.named_parameters()})
-    # D's gradient from G's loss is dropped before D's step in pix2pixHD's
-    # order: D's own gradient is that of loss_D alone
-    oracle.opt_d.zero_grad(set_to_none=True)
-    oracle.losses(*inputs(0))[1].backward()
-    grads_o.update({f"Ds.{k}": p.grad for k, p in oracle.Ds.named_parameters()})
-    grads = {"port_vs_port": grad_diff(grads_b, grads_a),
-             "oracle_vs_port": grad_diff(grads_o, grads_a)}
+    # the gradients at the init: the port's twice, the oracle's
+    # (tools/bench_torch_oracle.check_gradients_at_init)
+    grads = bo.check_gradients_at_init(model, b0)
     print(f"[check gradients at the init] {json.dumps(grads)}", flush=True)
-    del grads_a, grads_b, grads_o
 
     # the first steps: the port's fp32 make_train_step twice (its cuDNN
     # algorithms are not deterministic in fp32: the second run is the spread
@@ -258,9 +211,8 @@ def main(argv=None):
         print(f"[check step {k + 1}] " + json.dumps(row), flush=True)
     if check[0]["oracle_vs_port"] > CHECK_RTOL:
         raise AssertionError(f"step 1's losses, oracle against the port: {check[0]}")
-    grads["bar"] = max(CHECK_RTOL, CHECK_SPREAD * grads["port_vs_port"]["max_rel"])
     over = ([f"step {r['step']}" for r in check if r["oracle_vs_port"] > r["bar"]]
-            + (["gradients"] if grads["oracle_vs_port"]["max_rel"] > grads["bar"] else []))
+            + ([] if grads["ok"] else ["gradients"]))
     if over:
         print(f"[check] over their bars, oracle against the port: {over}", flush=True)
     worst = max(r["oracle_vs_port"] for r in check)

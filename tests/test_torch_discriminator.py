@@ -157,6 +157,34 @@ def test_avg_pool_3x3s2_matches_jax(shape):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
 
 
+# bf16: the JAX function sums its nine terms in bf16 (each add rounds), the
+# port in fp32 with one rounding, so they are a few bf16 ulps apart at most
+POOL_BF16_REL = 2.0**-6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 32, 64, 5), (1, 17, 33, 3), (2, 64, 128, 36),
+                                   (1, 33, 65, 36)])   # even, odd, the D's 36-channel input cut
+def test_avg_pool_3x3s2_forward_and_vjp_match_jax(shape, dtype):
+    """The repaired pool (a contiguous NCHW copy pooled) against the JAX
+    nnops.avg_pool_3x3s2 and its jax.vjp input gradient: 1e-6 in fp32,
+    POOL_BF16_REL of max |JAX| in bf16."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(*shape).astype(np.float32)
+    gy = rng.randn(shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2, shape[3]).astype(np.float32)
+    y, vjp = jax.vjp(jnnops.avg_pool_3x3s2, jnp.asarray(x).astype(dtype))
+    (gx,) = vjp(jnp.asarray(gy).astype(dtype))
+    want, want_g = (np.asarray(t.astype(jnp.float32)) for t in (y, gx))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+    got = pnnops.avg_pool_3x3s2(xt)
+    assert got.dtype == xt.dtype and got.is_contiguous()
+    got.backward(torch.from_numpy(gy).to(xt.dtype))
+    got, got_g = got.detach().float().numpy(), xt.grad.float().numpy()
+    for a, b in ((got, want), (got_g, want_g)):
+        atol = 1e-6 if dtype == "float32" else POOL_BF16_REL * float(np.abs(b).max())
+        np.testing.assert_allclose(a, b, atol=atol, rtol=0)
+
+
 def test_max_pool_2x2_matches_jax_with_ties():
     """Forward and backward; the relu'd input has many tied zeros, whose
     gradient goes to the first maximum of the window on both sides."""

@@ -137,12 +137,18 @@ def test_segment_mean_2d_matches_jax(dtype):
     w = rng.randn(2, 16, 24, 5).astype(np.float32)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
 
+    # the port sums each segment's gradient in fp32 and rounds it once (the
+    # JAX function sums it in feat's dtype, ROADMAP C.13): its gradient is
+    # the JAX function's in fp32 at the same rounded input and cotangent
+    # (the output's cast back rounds w to dtype), rounded to dtype
+    wq = jnp.asarray(w).astype(jdt).astype(jnp.float32)
+
     def jfn(f):
-        return jnp.sum(jnnops.segment_mean_2d(f, jnp.asarray(seg), 9).astype(jnp.float32) * w)
+        return jnp.sum(jnnops.segment_mean_2d(f, jnp.asarray(seg), 9) * wq)
 
     jf = jnp.asarray(feat).astype(jdt)
     want = np.asarray(jnnops.segment_mean_2d(jf, jnp.asarray(seg), 9).astype(jnp.float32))
-    want_g = np.asarray(jax.grad(jfn)(jf).astype(jnp.float32))
+    want_g = np.asarray(jax.grad(jfn)(jf.astype(jnp.float32)).astype(jdt).astype(jnp.float32))
     tf = torch.from_numpy(feat).to(tdt).requires_grad_(True)
     out = nnops.segment_mean_2d(tf, torch.from_numpy(seg), 9)
     assert out.dtype == tdt
@@ -151,7 +157,7 @@ def test_segment_mean_2d_matches_jax(dtype):
     if dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
         np.testing.assert_allclose(got_g, want_g, rtol=0, atol=1e-6)
-    else:   # the same fp32 mean, one bf16 rounding: one ulp apart at most
+    else:   # the same fp32 mean and gradient, one bf16 rounding: one ulp apart at most
         np.testing.assert_allclose(got, want, rtol=2.0**-7, atol=0)
         np.testing.assert_allclose(got_g, want_g, rtol=2.0**-7, atol=1e-6)
     # every pixel of a segment holds one value

@@ -993,15 +993,13 @@ def test_exported_box2mask_launches_kernels(cuda_device, restore_torch_precision
         assert bits_equal(a, b)
 
 
-@pytest.mark.xfail(strict=True, reason="ROADMAP C.12: on the card, AvgPool2d's input gradient "
-                   "on the channels_last view of an NHWC tensor leaves fp64; the repair "
-                   "makes this pass")
 def test_avg_pool_3x3s2_input_gradient_against_fp64(cuda_device):
     """nnops.avg_pool_3x3s2 (the multiscale D's inter-scale pool) at the D's
     input shape (bs 4, 512x256, 36 channels): its input gradient on the
     card in fp32 against fp64 on the CPU, within 1e-5 of max |reference|
-    (fp32 sums of at most 9 terms). reports/torch_r13/c12_oracle/pool_grad.py
-    measured it 0.86-1.06 off."""
+    (fp32 sums of at most 9 terms). Before the C.12 repair (the pool on
+    the channels_last view of the NHWC tensor)
+    reports/torch_r13/c12_oracle/pool_grad.py measured it 0.86-1.06 off."""
     from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
 
     g = torch.Generator().manual_seed(0)
@@ -1016,3 +1014,233 @@ def test_avg_pool_3x3s2_input_gradient_against_fp64(cuda_device):
     ref = input_grad("cpu", torch.float64)
     got = input_grad(cuda_device, torch.float32)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# The port's PyTorch ops on the card against float64 on the CPU. The card
+# tier above holds each kernel to its plain version, and both share every
+# PyTorch op; this audit holds those ops to an independent reference. Bars,
+# relative to max |reference|: AUDIT_BAR per dtype for short sums (pools,
+# pads, gathers, interpolation: at most a few dozen terms), AUDIT_SUM_BAR
+# for long ones (the convolutions' K and their weight gradients' N*H*W,
+# segment sums of up to 131k pixels); max_pool_2x2 exactly. The inputs are
+# rounded to the dtype first, so the reference sees the same values and the
+# bar measures the op's own arithmetic: fp32 with TF32 off, bf16 with fp32
+# accumulation and one rounding (2^-9 relative) of each output.
+AUDIT_BAR = {"float32": 1e-5, "bfloat16": 1e-2}
+AUDIT_SUM_BAR = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _fp64_check(op, ref_op, inputs, dt, dev, grad_of=(), bar=AUDIT_BAR, gen=None):
+    """op(*inputs) on the card in ``dt`` and ref_op(*inputs) on the CPU in
+    float64 (float inputs rounded to ``dt`` first, integer ones as they
+    are), and, for one random output gradient, the gradients of both with
+    respect to the inputs ``grad_of`` (indices) -> {what: max |diff| / max
+    |ref|}, each asserted within bar[dt]."""
+    tdt = getattr(torch, dt)
+
+    def prep(t, dev, ft):
+        return t.to(tdt).to(dev, ft).requires_grad_(True) if t.is_floating_point() else t.to(dev)
+
+    got_in = [prep(t, dev, tdt) for t in inputs]
+    ref_in = [prep(t, "cpu", torch.float64) for t in inputs]
+    got, ref = op(*got_in), ref_op(*ref_in)
+    pairs = {"forward": (got, ref)}
+    if grad_of:
+        gy = torch.randn(ref.shape, generator=gen, dtype=torch.float64).to(tdt)
+        gg = torch.autograd.grad(got, [got_in[i] for i in grad_of], gy.to(dev))
+        rg = torch.autograd.grad(ref, [ref_in[i] for i in grad_of], gy.double())
+        pairs.update({f"grad of input {i}": p for i, p in zip(grad_of, zip(gg, rg))})
+    out = {}
+    for k, (a, b) in pairs.items():
+        a, b = a.detach().double().cpu(), b.detach()
+        out[k] = float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+    bad = {k: v for k, v in out.items() if not v <= bar[dt]}
+    assert not bad, f"over {bar[dt]} of max |reference|: {bad} (all {out})"
+    return out
+
+
+def _nchw_ref(fn):
+    """An fp64 reference on NHWC tensors through the NCHW PyTorch op."""
+    return lambda x, *a: fn(x.permute(0, 3, 1, 2).contiguous(), *a).permute(0, 2, 3, 1)
+
+
+def _audit_avg_pool(shape):
+    def case(dt, dev, gen):
+        from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+        x = torch.randn(shape, generator=gen, dtype=torch.float64)
+        ref = _nchw_ref(lambda t: torch.nn.functional.avg_pool2d(
+            t, 3, 2, 1, count_include_pad=False))
+        return _fp64_check(nnops.avg_pool_3x3s2, ref, [x], dt, dev, grad_of=(0,), gen=gen)
+    return case
+
+
+def _audit_max_pool(dt, dev, gen):
+    """A ReLU'd VGG relu1_1 tap (1, 256, 512, 64), a third of it tied zeros
+    and whole windows of them: forward and input gradient exactly, the
+    gradient's nonzero positions too (a tied window routes to its first
+    maximum in scan order, as the JAX package's max pool does)."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+    x = torch.relu(torch.randn(1, 256, 512, 64, generator=gen) + 0.5)
+    x[:, :64, :128] = 0.0
+    x = x.to(getattr(torch, dt))
+    xg = x.to(dev).requires_grad_(True)
+    xr = x.double().requires_grad_(True)
+    y = nnops.max_pool_2x2(xg)
+    yr = _nchw_ref(lambda t: torch.nn.functional.max_pool2d(t, 2, 2))(xr)
+    gy = (torch.randn(yr.shape, generator=gen) + 2.0).to(x.dtype)   # nonzero everywhere
+    (gx,) = torch.autograd.grad(y, xg, gy.to(dev))
+    (gr,) = torch.autograd.grad(yr, xr, gy.double())
+    assert torch.equal(y.detach().double().cpu(), yr.detach())
+    assert torch.equal(gx.cpu() != 0, gr != 0), "the gradient is routed elsewhere"
+    assert torch.equal(gx.double().cpu(), gr)
+    return {"forward": 0.0, "grad of input 0": 0.0}
+
+
+def _audit_conv(x_shape, cout, k, stride, padding):
+    def case(dt, dev, gen):
+        from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+        cin = x_shape[-1]
+        x = torch.randn(x_shape, generator=gen, dtype=torch.float64)
+        w = torch.randn(cout, cin, k, k, generator=gen, dtype=torch.float64) / (cin * k * k) ** .5
+        b = torch.randn(cout, generator=gen, dtype=torch.float64)
+
+        def op(x, w, b):
+            return nnops.conv2d(x, w, b, stride=stride, padding=padding)
+
+        def ref(x, w, b):
+            return _nchw_ref(lambda t: torch.nn.functional.conv2d(
+                t, w, b, stride=stride, padding=padding))(x)
+        return _fp64_check(op, ref, [x, w, b], dt, dev, grad_of=(0, 1, 2), bar=AUDIT_SUM_BAR,
+                           gen=gen)
+    return case
+
+
+def _audit_conv_t(x_shape, cout):
+    def case(dt, dev, gen):
+        from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+        cin = x_shape[-1]
+        x = torch.randn(x_shape, generator=gen, dtype=torch.float64)
+        w = torch.randn(cin, cout, 3, 3, generator=gen, dtype=torch.float64) / (cin * 9) ** .5
+        b = torch.randn(cout, generator=gen, dtype=torch.float64)
+
+        def ref(x, w, b):
+            return _nchw_ref(lambda t: torch.nn.functional.conv_transpose2d(
+                t, w, b, stride=2, padding=1, output_padding=1))(x)
+        return _fp64_check(nnops.conv_transpose2d, ref, [x, w, b], dt, dev, grad_of=(0, 1, 2),
+                           bar=AUDIT_SUM_BAR, gen=gen)
+    return case
+
+
+def _audit_reflect_pad(shape, pad):
+    """The reflect pad's forward (a copy: exact) and its backward (the
+    reflect-pad kernel) against F.pad's in fp64."""
+    def case(dt, dev, gen):
+        from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+        x = torch.randn(shape, generator=gen, dtype=torch.float64)
+        ref = _nchw_ref(lambda t: torch.nn.functional.pad(t, (pad,) * 4, mode="reflect"))
+        out = _fp64_check(lambda t: nnops.reflect_pad(t, pad), ref, [x], dt, dev,
+                          grad_of=(0,), gen=gen)
+        assert out["forward"] == 0.0
+        return out
+    return case
+
+
+def _audit_segment_mean(c):
+    """segment_mean_2d at an Encoder site (1, 256, 512, c) with the
+    Encoder's segment space (35 classes x 64 slots) and 70 instances, the
+    largest segment the background (about half the image)."""
+    def case(dt, dev, gen):
+        from neurips18_hierchical_image_manipulation_tpu_torch.ops import nnops
+        n_seg = 35 * 64
+        seg = torch.zeros(1, 256, 512, dtype=torch.int64)
+        for k in range(70):
+            y0, x0 = (int(v) for v in torch.randint(0, 200, (2,), generator=gen))
+            hh, ww = (int(v) for v in torch.randint(8, 56, (2,), generator=gen))
+            seg[:, y0:y0 + hh, x0 * 2:x0 * 2 + ww] = 1 + k * 31
+        feat = torch.randn(1, 256, 512, c, generator=gen, dtype=torch.float64) + 0.5
+
+        def ref(f, s):
+            flat = f.reshape(-1, c)
+            sums = torch.zeros(n_seg, c, dtype=f.dtype).index_add(0, s.reshape(-1), flat)
+            cnt = torch.zeros(n_seg, dtype=f.dtype).index_add(
+                0, s.reshape(-1), torch.ones_like(flat[:, 0]))
+            return (sums / cnt.clamp_min(1.0)[:, None])[s.reshape(-1)].reshape(f.shape)
+        return _fp64_check(lambda f, s: nnops.segment_mean_2d(f, s, n_seg), ref, [feat, seg],
+                           dt, dev, grad_of=(0,), bar=AUDIT_SUM_BAR, gen=gen)
+    return case
+
+
+def _audit_box(kind, method):
+    """crop_resize / paste_resize at the two-step pipeline's sizes (a
+    1024x512 scene, a 512 window, a 128 crop) and the resident loader's
+    PIL-bicubic windows: forward only (no train path takes their
+    gradient); the sample coordinates are fp32 on both sides, the
+    interpolation of an fp64 image on the CPU."""
+    def case(dt, dev, gen):
+        from neurips18_hierchical_image_manipulation_tpu_torch.ops import boxcomposite as bc
+        scene = torch.rand(2, 512, 1024, 3, generator=gen, dtype=torch.float64) * 2 - 1
+        boxes = torch.tensor([[100.0, 300.0, 256.0, 300.0], [0.0, 512.0, 512.0, 512.0]])
+        if kind == "crop":
+            def op(img):
+                return bc.crop_resize(img, boxes.to(img.device), (512, 512), method=method)
+            return _fp64_check(op, op, [scene], dt, dev, gen=gen)
+        patch = torch.rand(2, 128, 128, 3, generator=gen, dtype=torch.float64)
+
+        def op(canvas, p):
+            return bc.paste_resize(canvas, p, boxes.to(canvas.device), method=method)
+        return _fp64_check(op, op, [scene, patch], dt, dev, gen=gen)
+    return case
+
+
+def _audit_encode_input_rgb(dt, dev, gen):
+    """The no-kernel G input (one-hot, instance edges, RGB) at 512x256,
+    bs 2: exact."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.ops import onehot_edges
+    b = synthetic_batch(np.random.RandomState(3), 2, hw=(256, 512), label_nc=35)
+    label, inst = torch.from_numpy(b["label"]), torch.from_numpy(b["inst"])
+    rgb = torch.from_numpy(b["image"]).double()
+
+    def op(lb, it, im):
+        return onehot_edges.encode_input_rgb(lb, it, im, 35, dtype=im.dtype)
+    out = _fp64_check(op, op, [label, inst, rgb], dt, dev, gen=gen)
+    assert out["forward"] == 0.0
+    return out
+
+
+AUDIT_CASES = {
+    "avg_pool_3x3s2-D-36ch": _audit_avg_pool((4, 256, 512, 36)),
+    "avg_pool_3x3s2-D-3ch": _audit_avg_pool((4, 256, 512, 3)),
+    "avg_pool_3x3s2-odd": _audit_avg_pool((2, 129, 257, 36)),
+    "max_pool_2x2-vgg-relu1_1": _audit_max_pool,
+    "conv2d-stem-7x7": _audit_conv((1, 262, 518, 39), 64, 7, 1, 0),
+    "conv2d-head-7x7": _audit_conv((1, 262, 518, 64), 3, 7, 1, 0),
+    "conv2d-resblock-3x3-1024": _audit_conv((1, 18, 34, 1024), 1024, 3, 1, 0),
+    "conv2d-D-4x4-s2": _audit_conv((2, 129, 257, 64), 128, 4, 2, 2),
+    **{f"conv_transpose2d-up{i}": _audit_conv_t((1, 16 * 2**i, 32 * 2**i, 1024 >> i),
+                                                 512 >> i) for i in range(4)},
+    "reflect_pad-1-resblock": _audit_reflect_pad((1, 16, 32, 1024), 1),
+    "reflect_pad-3-stem": _audit_reflect_pad((1, 256, 512, 39), 3),
+    "reflect_pad-3-head": _audit_reflect_pad((1, 256, 512, 64), 3),
+    **{f"segment_mean_2d-{c}ch": _audit_segment_mean(c) for c in (16, 64, 256)},
+    "crop_resize-bilinear": _audit_box("crop", "bilinear"),
+    "crop_resize-pil_bicubic": _audit_box("crop", "pil_bicubic"),
+    "paste_resize-bilinear": _audit_box("paste", "bilinear"),
+    "encode_input_rgb": _audit_encode_input_rgb,
+}
+
+
+AUDIT_PARAMS = [pytest.param(op, dt) for op in AUDIT_CASES for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("op,dt", AUDIT_PARAMS)
+def test_nnops_on_card_against_fp64(cuda_device, restore_torch_precision, op, dt):
+    """Each PyTorch op of the port's main paths on the card (fp32 with TF32
+    off, and bf16) against the same op in float64 on the CPU, at the shapes
+    the main paths run: the output and the input (and weight) gradients
+    within the stated bars (AUDIT_BAR, AUDIT_SUM_BAR), max_pool_2x2
+    exactly."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(sorted(AUDIT_CASES).index(op))
+    errs = AUDIT_CASES[op](dt, cuda_device, gen)
+    print(f"{op} {dt}: {errs}")
