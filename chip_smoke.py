@@ -1,16 +1,17 @@
 """Drive the PyTorch port's mask2image and box2mask serving and training
 paths, the two-step edit pipeline, the evaluators, the 1024p coarse-to-fine
-generator, the instance features, the device-resident data path, data
-parallelism, resblock recomputation, W-sharded inference and the user-facing
-tools (checkpoint conversion, the parity runbook, inference export, the
-procedural-world training runs) and the measurement tools on one CUDA card,
-and hold each train path's gradients to the same step on the CPU.
+generator, the instance features, the device-resident data path, the grain
+host pipeline, data parallelism, resblock recomputation, W-sharded
+inference and the user-facing tools (checkpoint conversion, the parity
+runbook, inference export, the procedural-world training runs) and the
+measurement tools on one CUDA card, and hold each train path's gradients
+to the same step on the CPU.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, run in the order 1-4, 9, 13, 19, 5, 6, 10, 11, 14, 16, 17, 18, 20,
-22, 24-27, 31-37, 28, 7, 8, 12, 15, 21, 23, 29, 30, 38 (any failure raises
-and the script exits non-zero):
+22, 24-27, 31-37, 39, 28, 7, 8, 12, 15, 21, 23, 29, 30, 38 (any failure
+raises and the script exits non-zero):
   1. device   needs a CUDA card; prints its name and power limit
   2. build    compiles every csrc/*.cu with nvcc for sm_90a (one nvcc per
               source) and csrc/dataio.cpp (the host data tier) with g++, all
@@ -283,6 +284,20 @@ and the script exits non-zero):
               1024p the pool as it was before the C.12 repair as a control
               that must miss (the DP, resident and remat steps are
               bit-equal to the single step, phases 29, 31)
+ 39. grain    (main paths 14 and 15) the grain pipeline (--data_backend
+              grain, data/grain_pipeline.py): in serial mode its batches at
+              --grain_workers 0 and 2 bit for bit the thread loader's over
+              phase 6's scenes; the flagship train CLI at full width with
+              --grain_workers 2 for one epoch (bs 1, shuffled), its
+              mid-epoch latest resumed with --continue_train (losses and
+              parameters bit for bit the straight run's), both held per
+              step and per variant to the thread path's launches, the
+              latest served; the box2mask train CLI with --grain_workers 2
+              and --bg_box_prob 0.25 for one epoch; tools/bench_loop at
+              phase 27's size, bf16 bs 4: threads, grain at 0, 2 and 4
+              workers, prefetched, fused; every decode worker started
+              without a CUDA context (a probe at worker_init_fn), and none
+              in the parent's process
 With --profile: torch.profiler tables of one serving forward, of train
 steps at 512x256 bs 1, of a box2mask step at bs 1, of the 1024p step at bs
 1 and of a two-step add at bs 1.
@@ -330,6 +345,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.data.bbox import (
     bboxes_from_instance_map,
     extract_bbox_records,
 )
+from neurips18_hierchical_image_manipulation_tpu_torch.data import grain_pipeline
 from neurips18_hierchical_image_manipulation_tpu_torch.data.cityscapes import AlignedDataset
 from neurips18_hierchical_image_manipulation_tpu_torch.data.loader import CreateDataLoader
 from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
@@ -4078,6 +4094,153 @@ def phase_parallel_clis(tmp, results):
 # ---------------------------------------------------------------- the tools (phases 34-36)
 
 TOOLS_HOW_MANY = 4           # windows the parity render and FID take
+GRAIN_WORKERS = 2            # the train CLIs' decode processes in phase 39
+GRAIN_BENCH_WORKERS = (0, 2, 4)
+GRAIN_BENCH_BS = 4
+
+
+@contextlib.contextmanager
+def worker_probe(path):
+    """Each grain decode worker appends (its pid, torch.cuda.is_initialized())
+    to ``path`` as it starts (``grain_pipeline.worker_init``)."""
+    orig = grain_pipeline.worker_init
+
+    def probe(worker_id):
+        with open(path, "a") as f:
+            f.write(f"{os.getpid()} {worker_id} {torch.cuda.is_initialized()}\n")
+        orig(worker_id)
+
+    with mock.patch.object(grain_pipeline, "worker_init", probe):
+        yield
+
+
+def grain_serial_batches(root):
+    """Serial-mode batches of phase 6's scenes (two epochs) from the thread
+    loader and from grain at 0 and GRAIN_WORKERS workers, bit for bit."""
+    runs = {}
+    for name, extra in (("threads", []), ("grain0", ["--data_backend", "grain"]),
+                        (f"grain{GRAIN_WORKERS}", ["--data_backend", "grain", "--grain_workers",
+                                                   str(GRAIN_WORKERS)])):
+        loader = CreateDataLoader(parse_cli(MaskToImageTrainOptions, [
+            "--dataroot", root, "--gpu_ids", GPU_IDS, "--serial_batches", *ARCH_ARGV, *extra]))
+        runs[name] = list(loader) + list(loader)
+    ref = runs["threads"]
+    for name, got in runs.items():
+        if len(got) != len(ref) or not ref:
+            raise AssertionError(f"grain serial batches: {name} {len(got)} vs {len(ref)}")
+        for i, (a, b) in enumerate(zip(ref, got)):
+            if sorted(a) != sorted(b):
+                raise AssertionError(f"grain serial batch {i}: keys {sorted(b)}")
+            for k in a:
+                same = (a[k] == b[k] if isinstance(a[k], list)
+                        else a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]))
+                if not same:
+                    raise AssertionError(f"grain serial batch {i} ({name}): {k} differs")
+    return len(ref)
+
+
+def phase_grain(tmp, dev, results, m2i_ref, b2m_ref):
+    """Phase 39, main paths 14 and 15: the grain pipeline on the train CLIs
+    at full width and beside the other host paths in bench_loop."""
+    t0 = time.time()
+    root = os.path.join(tmp, "city_train")
+    probe = os.path.join(tmp, "grain_workers.txt")
+    with worker_probe(probe):
+        n_serial = grain_serial_batches(root)
+        log(f"[grain] serial mode: {n_serial} batches (two epochs) at --grain_workers 0 and "
+            f"{GRAIN_WORKERS} bit for bit the thread loader's")
+        ckpt = os.path.join(tmp, "ckpt_grain")
+        mid_root = os.path.join(tmp, "ckpt_grain_mid")
+        argv = ["--name", "grain", "--dataroot", root, "--checkpoints_dir", ckpt,
+                "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+                "--save_epoch_freq", "100", "--data_backend", "grain", "--grain_workers",
+                str(GRAIN_WORKERS), *ARCH_ARGV]
+        with cudnn_deterministic():
+            at = drive_steps_of(argv, mask2image_train) // 2
+            with snapshot_latest(at, mid_root):
+                straight = run_cli_checked(argv + ["--save_latest_freq", str(at)],
+                                           mask2image_train, "grain train CLI", ref=m2i_ref)
+            resumed = run_cli_checked(
+                [a if a != ckpt else mid_root for a in argv] + ["--continue_train"],
+                mask2image_train, f"grain train CLI resumed at step {at}", done=at,
+                ref=m2i_ref)
+        if resumed["losses"] != straight["losses"][at:]:
+            raise AssertionError(f"grain resume: losses {resumed['losses'][:2]} vs "
+                                 f"{straight['losses'][at:at + 2]}")
+        same_params(saved_params(ckpt, "grain"), saved_params(mid_root, "grain"),
+                    "grain train CLI resumed")
+        log(f"[grain train CLI] resumed from the step-{at} latest: {resumed['steps']} losses "
+            "and every parameter bit for bit the straight run's")
+        opt = MaskToImageTestOptions(gpu_ids=GPU_IDS, name="grain", checkpoints_dir=ckpt,
+                                     **ARCH)
+        serve = create_model(opt)
+        if not restore_params(opt, serve):
+            raise AssertionError("grain run: latest_params.npz not found")
+        trained_g = saved_params(ckpt, "grain")["G"]
+        for k, t in serve.netG.state_dict().items():
+            if not same_bits(t.cpu(), trained_g[k]):
+                raise AssertionError(f"served G differs from the grain run's at {k}")
+        out = serve.inference(encode_inputs(1, 512, 512, serve.device, seed=9))
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError("grain run's weights serve a non-finite output")
+        log(f"[grain train CLI] latest served: output {tuple(out.shape)} finite")
+        del serve
+        shutil.rmtree(ckpt)
+        shutil.rmtree(mid_root)
+        torch.cuda.empty_cache()
+        b2m_ckpt = os.path.join(tmp, "ckpt_grain_b2m")
+        b2m = run_cli_checked(
+            ["--name", "grain_b2m", "--dataroot", root, "--checkpoints_dir", b2m_ckpt,
+             "--gpu_ids", GPU_IDS, "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+             "--save_epoch_freq", "100", "--lambda_ctx_neg", "5.0", "--bg_box_prob", "0.25",
+             "--data_backend", "grain", "--grain_workers", str(GRAIN_WORKERS),
+             *flags(B2M_ARCH)], box2mask_train, "grain box2mask train CLI", ref=b2m_ref)
+        shutil.rmtree(b2m_ckpt)
+        rows = grain_bench(tmp, dev)
+    with open(probe) as f:
+        workers = [ln.split() for ln in f.read().splitlines()]
+    if not workers or any(w[2] != "False" or int(w[0]) == os.getpid() for w in workers):
+        raise AssertionError(f"grain workers: {workers}")
+    log(f"[grain] {len(workers)} decode workers started, none with a CUDA context")
+    results["grain"] = dict(serial_batches=n_serial, train=straight, resumed=resumed,
+                            resumed_at=at, box2mask=b2m, bench=rows,
+                            workers_started=len(workers), grain_workers=GRAIN_WORKERS)
+    phase_seconds(39, "grain", t0, results)
+    return {"train_grain": straight, "train_grain_resume": resumed, "box2mask_grain": b2m}
+
+
+def grain_bench(tmp, dev):
+    """tools/bench_loop at phase 27's size, bf16 at GRAIN_BENCH_BS: threads,
+    grain at GRAIN_BENCH_WORKERS, prefetched, fused."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.tools import bench_loop
+
+    root, ckpt = os.path.join(tmp, "city_measure"), os.path.join(tmp, "measure_grain")
+    if not os.path.isdir(root):
+        bench_loop.write_dataroot(root, MEASURE_SCENES, seed=0)
+    resident = bench_loop.resident_sampler(bench_loop.train_argv(root, ckpt, 1, "float32",
+                                                                 GPU_IDS, ARCH_ARGV))
+    row = bench_loop.measure(
+        bench_loop.train_argv(root, ckpt, GRAIN_BENCH_BS, "bfloat16", GPU_IDS, ARCH_ARGV),
+        resident, dev, tmp, MEASURE_WARMUP, MEASURE_STEPS, 1,
+        grain_workers=GRAIN_BENCH_WORKERS)
+    missing = [f"grain{w}" for w in GRAIN_BENCH_WORKERS
+               if w <= bench_loop.cores() and f"grain{w}" not in row]
+    if missing:
+        raise AssertionError(f"bench_loop measured no {missing}")
+    row["cores"] = bench_loop.cores()
+    for path in ("streamed", *(f"grain{w}" for w in GRAIN_BENCH_WORKERS), "prefetched",
+                 "fused"):
+        for r in row.get(path, []):
+            log(f"[grain bench] bf16 bs {GRAIN_BENCH_BS} {path}: {r['ms_per_step']:.3f} ms a "
+                f"step, wait {r.get('wait_ms_mean', 0.0):.3f} ms, in-line copy "
+                f"{r.get('copy_ms_mean', 0.0):.3f} ms, idle share {r['idle_share']:.4f} "
+                f"({row['cores']} cores)")
+    del resident
+    torch.cuda.empty_cache()
+    return row
+
+
 PARITY_ARGV = []             # parity_report flags (empty: its full-width defaults)
 CONVERT_HW = (256, 512)      # the converted G against the reference-format module
 CONVERT_ATOL = MODEL_ATOL
@@ -4709,6 +4872,7 @@ def main(argv=None):
         tools_run = {**phase_tools_convert(tmp, dev, results), **phase_tools_export(tmp, results),
                      **phase_tools_dynamics(tmp, results),
                      **phase_tools_measure(tmp, dev, results)}
+        data_paths.update(phase_grain(tmp, dev, results, m2i_ref, b2m_ref))
     phase_resident_scale(dev, results)
     kernels = phase_main_path_kernels(dev, sites, out_shape, results)
     phase_forward_sites(dev, results)

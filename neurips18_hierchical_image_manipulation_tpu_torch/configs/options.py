@@ -8,8 +8,9 @@ writes ``opt.txt`` and ``config.json`` like ``BaseOptions.parse``.
 Device: ``--gpu_ids -1`` runs on the CPU; any other value asks for that
 CUDA device and fails without one (models/factory.resolve_device); under
 several ranks rank r takes the r-th listed id (``parallel/distributed.py``).
-``--data_backend grain`` is accepted and refused where the loader would
-start (no machine here has the package).
+``--data_backend grain`` iterates the data through ``data/grain_pipeline``
+(its own copy of the grain pipeline's order; no grain package), with
+``--grain_workers`` decode processes.
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ class BaseOptions:
     no_flip: bool = False
     nThreads: int = 2
     max_dataset_size: int = 2**31 - 1
-    data_backend: str = "threads"  # only "threads" is ported (no grain)
-    grain_workers: int = 0
+    data_backend: str = "threads"  # or "grain" (data/grain_pipeline.py)
+    grain_workers: int = 0  # grain's decode processes (0: in the loop's process)
     decode_cache: bool = False  # decode-once .npy sidecars (data/cityscapes.py)
     ram_cache_mb: int = 0  # in-RAM decoded-array cache budget (MB)
     uint8_transfer: bool = False  # ship uint8 images, normalize on device

@@ -92,11 +92,15 @@ def CreateDataLoader(opt, records=None):
     """opt.model / --use_bbox_dataset select the dataset family (aligned
     scenes vs bbox-crop windows). ``--device_resident_data`` uploads the
     dataset to the device once and samples batches there
-    (``data/device_resident.py``); ``--load_features`` reads precomputed
-    feature maps into the aligned scenes' samples."""
+    (``data/device_resident.py``); else ``--data_backend grain`` iterates it
+    through ``data/grain_pipeline.GrainLoader`` (``--grain_workers`` decode
+    processes) and ``threads`` through the thread-pool ``DataLoader``.
+    ``--load_features`` reads precomputed feature maps into the aligned
+    scenes' samples."""
     bbox = getattr(opt, "model", "pix2pixHD") == "box2mask" or getattr(
         opt, "use_bbox_dataset", False)
     resident = getattr(opt, "device_resident_data", False)
+    backend = getattr(opt, "data_backend", "threads")
     if getattr(opt, "load_features", False):
         if resident:
             # the JAX package's refusal (its resident stores hold no maps)
@@ -111,11 +115,14 @@ def CreateDataLoader(opt, records=None):
                 "--load_features reads {phase}_feat maps into aligned scenes; pass "
                 "--no-use_bbox_dataset (the bbox-window dataset carries no feature maps)"
             )
-    if getattr(opt, "data_backend", "threads") != "threads":
-        raise NotImplementedError(
-            f"--data_backend {opt.data_backend} is not ported: the grain pipeline is "
-            "blocked (ROADMAP.md §A.2): there is no grain package on the build host or "
-            "the card's machine (use threads)"
+    if backend not in ("threads", "grain"):
+        raise ValueError(f"--data_backend {backend!r}: the backends are threads and grain")
+    if resident and backend == "grain":
+        # the JAX package returns its resident loader before it reads
+        # --data_backend and drops the grain backend without a word (ROADMAP §C.15)
+        raise ValueError(
+            "--data_backend grain does not combine with --device_resident_data (the "
+            "resident loader samples on the device; ROADMAP §C.15): drop one of the two"
         )
     kw = dict(batch_size=opt.batchSize, shuffle=not opt.serial_batches,
               seed=getattr(opt, "seed", 0))
@@ -133,4 +140,8 @@ def CreateDataLoader(opt, records=None):
 
         cls = DeviceResidentBboxLoader if bbox else DeviceResidentLoader
         return cls(ds, device=resolve_device(opt), **kw)
+    if backend == "grain":
+        from .grain_pipeline import GrainLoader
+
+        return GrainLoader(ds, num_workers=getattr(opt, "grain_workers", 0), **kw)
     return DataLoader(ds, num_threads=opt.nThreads, **kw)

@@ -2,37 +2,60 @@
 
     python -m neurips18_hierchical_image_manipulation_tpu_torch.tools.bench_loop \\
         [--scenes 400] [--steps 250] [--warmup 8] [--reps 2] [--dtype float32 bfloat16] \\
-        [--bs 1 4] [--seed 0] [--gpu_ids 0] [--out FILE] [train flags ...]
+        [--bs 1 4] [--grain_workers 0 2 4 8] [--controls] [--seed 0] [--gpu_ids 0] \\
+        [--out FILE] [train flags ...]
 
 Counterpart of ``tools/bench_loop.py`` in the JAX package: the loop with
 its real input pipeline. A Cityscapes-format dataroot of ``--scenes``
 1024x512 scenes is made from ``--seed`` (label ids, instance ids of three
 objects a scene, random RGB; PNG), and the flagship mask2image train
 config at full width (bbox windows at fineSize 512; any other flag goes to
-the train options) trains on it three ways:
+the train options) trains on it these ways:
 
   * streamed: the threaded loader (``nThreads 2``: PIL decode, windows
     and transforms on the host) and a copy a step from pageable memory,
     which waits for the card's queue to drain (``--device_prefetch 0``);
+  * grain{W}: streamed likewise, the batches from the grain pipeline
+    (``--data_backend grain --grain_workers W``, ``data/grain_pipeline.py``)
+    for each W of ``--grain_workers`` up to the process's cores
+    (``os.sched_getaffinity``): W decode processes, each batch back in
+    shared memory (W = 0: decoded in the loop's own process);
   * prefetched: the same loader, each batch staged 2 batches ahead from
     pinned memory on a side stream (``--device_prefetch 2``);
   * fused resident: the dataset uploaded once, each batch sampled on the
     card inside the step (``train/steps.make_resident_train_step``).
 
+``--controls`` adds paths that take one cost away at a time:
+
+  * cached: streamed, over the first 8 batches of an epoch of the threaded
+    loader decoded once and handed out in a cycle (no decode beside the
+    loop, the same buffers every 8 steps);
+  * grain{W}_nodecode, for each W > 0: grain's W workers stack 8 batches'
+    samples decoded once in the parent into a new shared-memory batch each
+    step, as grain{W} does (grain's handoff with no decode);
+  * grain{W}_prefetched, for each W > 0: grain{W}'s batches staged as the
+    prefetched path stages the threaded loader's.
+
 For each ``--dtype`` and ``--bs``, each path is measured ``--reps`` times
-in the order streamed, prefetched, fused, fused, prefetched, streamed, and
-each measurement is the
-ms a step over ``--steps`` steps after ``--warmup`` steps, by
+in the order streamed, cached, then each grain{W} with its controls,
+prefetched, fused, then the mirror of it, and each measurement is the ms
+a step over ``--steps`` steps after ``--warmup`` steps, by
 ``train/profiler.measure_steps`` (the card synchronized before each clock
 reading), so all paths are timed the same way. A loader measurement
 starts a new epoch: its first batch, whose decode nothing hides, is
 reported apart, and so is the loop's wait in ``next()`` over the timed
 steps (for the loader's batch, or for the staged one; not the in-line
-copy). Beside them: the resident sampler's ms a batch (the same clock), the
-bytes one step of each path copies host to device (``torch.profiler``'s
-Memcpy HtoD events) and its kernels' device ms, hence each measurement's
-idle share, 1 - device ms / ms a step. The report prints as JSON (and goes
-to ``--out`` when given) with the card's name and power limit.
+copy), and the in-line copy's ms a step (host clock, the card
+synchronized first: a copy from pageable memory waits for the queue to
+drain all the same, so the step is unchanged and the copy is timed alone
+on the launching thread, with the card idle). Beside them: the resident
+sampler's ms a batch (the same clock), the bytes one step of each path
+copies host to device (``torch.profiler``'s Memcpy HtoD events) and its
+kernels' device ms, hence each measurement's idle share, 1 - device ms /
+ms a step (every loader path's device ms is the streamed path's: the same
+step on batches of the same shapes). The report prints as JSON (and goes
+to ``--out`` when given) with the card's name and power limit and the
+process's core count.
 ``--gpu_ids -1`` runs it on the CPU (no copies, no device time: a test).
 """
 
@@ -41,6 +64,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import os
 import sys
@@ -52,6 +76,7 @@ import numpy as np
 import torch
 
 from ..configs.options import MaskToImageTrainOptions, parse_cli
+from ..data.grain_pipeline import GrainLoader
 from ..data.loader import CreateDataLoader
 from ..models.factory import create_model
 from ..train import loop as train_loop
@@ -141,10 +166,11 @@ def resident_sampler(argv):
 def loader_ms(loader, step, state, dev, warmup, steps, depth):
     """One measurement of the loader's batches over a new epoch, staged
     ``depth`` batches ahead (0: copied in line) -> (ms a step, the first
-    batch's wait, the waits over the timed steps, the last host batch).
-    The wait is the loop's in ``next()``: for the loader, or for the
-    staged batch; an in-line copy is not part of it."""
-    src, waits, last = iter(loader), [], {}
+    batch's wait, the waits over the timed steps, the in-line copies' ms
+    over the timed steps, the last host batch). The wait is the loop's in
+    ``next()``: for the loader, or for the staged batch; an in-line copy is
+    not part of it."""
+    src, waits, copies, last = iter(loader), [], [], {}
     it = None
     if depth > 0:
         stage = H2DStager(dev) if dev.type == "cuda" else (lambda hb: to_device(hb, dev))
@@ -154,27 +180,86 @@ def loader_ms(loader, step, state, dev, warmup, steps, depth):
         t = time.perf_counter()
         staged, last["hb"] = next(it) if it is not None else (None, next(src))
         waits.append((time.perf_counter() - t) * 1e3)
-        return step(st, ready(staged) if it is not None else to_device(last["hb"], dev))
+        if it is not None:
+            return step(st, ready(staged))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        batch = to_device(last["hb"], dev)
+        copies.append((time.perf_counter() - t) * 1e3)
+        return step(st, batch)
 
     try:
         for _ in range(warmup):
             one(state, None)
         first = waits[0]
-        del waits[:]
+        del waits[:], copies[:]
         ms = measure_steps(one, state, None, iters=steps, device=dev) * 1e3
     finally:
         (it if it is not None else src).close()
-    return ms, first, waits[1:], last["hb"]
+    return ms, first, waits[1:], copies[1:], last["hb"]
 
 
-def measure(argv, resident, dev, tmp, warmup, steps, reps):
-    """Both paths of the config ``argv`` (its --batchSize and --dtype) ->
-    a report row. ``resident``: ``resident_sampler``'s triple."""
+CONTROL_BATCHES = 8   # the batches a control decodes once
+
+
+class CachedBatches:
+    """A loader stand-in: the first ``n`` batches of one epoch of ``loader``,
+    decoded once, handed out in a cycle."""
+
+    def __init__(self, loader, n=CONTROL_BATCHES):
+        src = iter(loader)
+        self.batches = list(itertools.islice(src, n))
+        src.close()
+
+    def __iter__(self):
+        return (b for b in itertools.cycle(self.batches))
+
+
+class Predecoded:
+    """A dataset stand-in of ``dataset``'s length whose item i is its sample
+    i % n, the first n decoded once here (forked workers inherit them)."""
+
+    def __init__(self, dataset, n):
+        self.size = len(dataset)
+        self.samples = [dataset[i] for i in range(min(n, len(dataset)))]
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, i):
+        return self.samples[i % len(self.samples)]
+
+
+def cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def measure(argv, resident, dev, tmp, warmup, steps, reps, grain_workers=(),
+            controls=False):
+    """The paths of the config ``argv`` (its --batchSize and --dtype) ->
+    a report row. ``resident``: ``resident_sampler``'s triple;
+    ``grain_workers``: the grain paths' worker counts (those above the
+    cores are left out); ``controls``: add the control paths."""
     opt = parse_cli(MaskToImageTrainOptions, argv)
     loader = CreateDataLoader(opt)
     if len(loader) < warmup + steps + 1:
         raise SystemExit(f"bench_loop: an epoch holds {len(loader)} batches of {opt.batchSize}; "
                          f"--warmup {warmup} + --steps {steps} need more --scenes")
+    # path -> (loader, staging depth)
+    paths = {"streamed": (loader, 0)}
+    if controls:
+        paths["cached"] = (CachedBatches(CreateDataLoader(opt)), 0)
+    for w in [w for w in grain_workers if w <= cores()]:
+        ld = CreateDataLoader(parse_cli(MaskToImageTrainOptions, argv + [
+            "--data_backend", "grain", "--grain_workers", str(w)]))
+        paths[f"grain{w}"] = (ld, 0)
+        if controls and w > 0:
+            ds = Predecoded(ld.dataset, CONTROL_BATCHES * opt.batchSize)
+            paths[f"grain{w}_nodecode"] = (GrainLoader(ds, opt.batchSize, shuffle=False,
+                                                       num_workers=w), 0)
+            paths[f"grain{w}_prefetched"] = (ld, 2)
+    paths["prefetched"] = (loader, 2)
     model = create_model(opt)
     step = train_loop.make_step_fn(opt, model)
     state = make_optimizers(opt, model, len(loader))
@@ -188,16 +273,17 @@ def measure(argv, resident, dev, tmp, warmup, steps, reps):
             fused(state, data)
         return measure_steps(fused, state, data, iters=steps, device=dev) * 1e3
 
-    runs = {"streamed": [], "prefetched": [], "fused": []}
+    runs = {p: [] for p in [*paths, "fused"]}
     hb = None
     order = list(runs) + ([] if reps == 1 else list(runs)[::-1])
     for path in order * max(reps // 2, 1):
         if path != "fused":
-            ms, first, waits, hb = loader_ms(loader, step, state, dev, warmup, steps,
-                                             2 if path == "prefetched" else 0)
+            ld, depth = paths[path]
+            ms, first, waits, copies, hb = loader_ms(ld, step, state, dev, warmup, steps, depth)
             runs[path].append(dict(ms_per_step=ms, first_batch_wait_ms=first,
                                    wait_ms_mean=float(np.mean(waits)),
-                                   wait_ms_max=float(np.max(waits))))
+                                   wait_ms_max=float(np.max(waits)),
+                                   **({} if depth else {"copy_ms_mean": float(np.mean(copies))})))
         else:
             runs[path].append(dict(ms_per_step=fused_ms()))
     g = torch.Generator(dev).manual_seed(opt.seed)
@@ -207,9 +293,10 @@ def measure(argv, resident, dev, tmp, warmup, steps, reps):
                               device=dev) * 1e3
     s_bytes, s_copies, s_dev = h2d_profile(lambda: step(state, to_device(hb, dev)), tmp, dev)
     f_bytes, f_copies, f_dev = h2d_profile(lambda: fused(state, data), tmp, dev)
-    for path, dev_ms in (("streamed", s_dev), ("prefetched", s_dev), ("fused", f_dev)):
+    for path in runs:
         for r in runs[path]:
-            r["idle_share"] = max(0.0, 1.0 - dev_ms / r["ms_per_step"])
+            r["idle_share"] = max(0.0, 1.0 - (f_dev if path == "fused" else s_dev)
+                                  / r["ms_per_step"])
     row = dict(dtype=opt.dtype, bs=opt.batchSize, window=[opt.fineSize, opt.fineSize],
                batches_an_epoch=len(loader), warmup=warmup, steps=steps, **runs,
                resident_sample_ms_per_batch=sample_ms,
@@ -218,7 +305,7 @@ def measure(argv, resident, dev, tmp, warmup, steps, reps):
                streamed_h2d_bytes_per_step=s_bytes, streamed_h2d_copies=s_copies,
                fused_h2d_bytes_per_step=f_bytes, fused_h2d_copies=f_copies,
                streamed_device_ms=s_dev, fused_device_ms=f_dev)
-    del model, state, step, fused, loader
+    del model, state, step, fused, loader, paths
     torch.cuda.empty_cache()
     return row
 
@@ -231,6 +318,10 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=2, help="1, or an even number")
     ap.add_argument("--dtype", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--bs", nargs="+", type=int, default=[1, 4])
+    ap.add_argument("--grain_workers", nargs="*", type=int, default=[0, 2, 4, 8],
+                    help="the grain paths' decode processes (none: no grain path)")
+    ap.add_argument("--controls", action="store_true",
+                    help="add the cached, grain{W}_nodecode and grain{W}_prefetched paths")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gpu_ids", default="0", help="0: the card; -1: the CPU")
     ap.add_argument("--out", default="", help="also write the report to this JSON file")
@@ -243,8 +334,8 @@ def main(argv=None):
         if not torch.cuda.is_available():
             sys.exit("bench_loop: no CUDA device (torch.cuda.is_available() is False)")
         dev, card, kind = torch.device("cuda", 0), card_line(), torch.cuda.get_device_name(0)
-    report = dict(card=card, device=kind, scenes=args.scenes, scene_hw=list(SCENE_HW),
-                  seed=args.seed, train_flags=extra, rows=[])
+    report = dict(card=card, device=kind, cores=cores(), scenes=args.scenes,
+                  scene_hw=list(SCENE_HW), seed=args.seed, train_flags=extra, rows=[])
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "city")
         t = time.perf_counter()
@@ -257,8 +348,8 @@ def main(argv=None):
         for dtype in args.dtype:
             for bs in args.bs:
                 row = measure(train_argv(root, ckpt, bs, dtype, args.gpu_ids, extra),
-                              resident, dev, tmp,
-                              args.warmup, args.steps, args.reps)
+                              resident, dev, tmp, args.warmup, args.steps, args.reps,
+                              args.grain_workers, args.controls)
                 print(json.dumps(row), flush=True)
                 report["rows"].append(row)
     print(json.dumps(report))

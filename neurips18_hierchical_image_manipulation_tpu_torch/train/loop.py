@@ -42,10 +42,13 @@ initializes the networks from another run's ``--which_epoch`` weights once
 the state is built and before a resume. ``--continue_train`` restores
 ``--which_epoch`` and resumes at ``iter.txt``'s epoch, skipping the batches
 of it already done. The streaming loader's shuffle order is not part of a
-checkpoint (as in the JAX package): a resumed streamed run repeats the
-straight run's batches exactly under ``--serial_batches``, except where
-box2mask's ``--bg_box_prob`` places background boxes by the loader's own
-epoch count, which a new process starts at 0 (so does the JAX package's).
+checkpoint (as in the JAX package, whose loop calls no ``get_state`` of
+the grain iterator either; ``--data_backend grain`` takes the same skip):
+a resumed streamed run repeats the straight run's batches exactly under
+``--serial_batches`` (and under grain's shuffle within the first epoch),
+except where box2mask's ``--bg_box_prob`` places background boxes by the
+loader's own epoch count, which a new process starts at 0 (so does the JAX
+package's; grain's shuffle of epoch e is seeded by it too).
 ``--profile_dir`` traces the 21st step of the run (``trace``, the step the
 JAX loop traces).
 """

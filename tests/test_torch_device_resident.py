@@ -308,8 +308,11 @@ def test_create_dataloader_resident_branches(dataroot, tmp_path):
             dataroot=dataroot, checkpoints_dir=os.path.join(str(tmp_path), "ckpt"),
             gpu_ids="-1", label_nc=8, fineSize=32, min_box_size=8, device_resident_data=True,
             bg_box_prob=0.25))
-    with pytest.raises(NotImplementedError, match="no grain package"):
-        CreateDataLoader(port_opt(dataroot, tmp_path, data_backend="grain"))
+    # the JAX package drops --data_backend grain under --device_resident_data
+    # without a word (ROADMAP §C.15)
+    with pytest.raises(ValueError, match="§C.15"):
+        CreateDataLoader(port_opt(dataroot, tmp_path, device_resident_data=True,
+                                  data_backend="grain", grain_workers=2))
 
 
 def test_hbm_guard_refuses_and_allows(dataroot, tmp_path, monkeypatch):

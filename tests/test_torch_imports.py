@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor any module of the JAX package."""
+"""The port imports neither JAX nor any module of the JAX package, nor the
+grain or TensorFlow packages (its grain pipeline is its own copy)."""
 
 import os
 import subprocess
@@ -18,8 +19,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(
     m for m in sys.modules
-    if m in ("jax", "flax", "optax", "orbax")
-    or m.startswith(("jax.", "flax.", "optax.", "orbax."))
+    if m in ("jax", "flax", "optax", "orbax", "grain", "tensorflow")
+    or m.startswith(("jax.", "flax.", "optax.", "orbax.", "grain.", "tensorflow."))
     or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")
 )
 print("COUNT", len(names))
@@ -67,13 +68,13 @@ def test_port_imports_no_jax(tmp_path):
      f"{PORT}.tools.trace_attrib", f"{PORT}.tools.profile_decode", f"{PORT}.tools.byte_ledger",
      f"{PORT}.tools.bench_all", f"{PORT}.tools.bench_ablate", f"{PORT}.tools.bench_convt",
      f"{PORT}.tools.bench_torch_oracle", f"{PORT}.kernels.bounds", f"{PORT}.kernels.calls",
-     f"{PORT}.tools.grad_audit"],
+     f"{PORT}.tools.grad_audit", f"{PORT}.data.grain_pipeline"],
 )
 def test_entry_points_import_no_jax(tmp_path, module):
     code = (
         "import sys, importlib\n"
         f"importlib.import_module({module!r})\n"
-        "print([m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        "print([m for m in sys.modules if m.split('.')[0] in ('jax', 'grain', 'tensorflow')"
         f" or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r})])\n"
     )
     proc = run_script(code, str(tmp_path))

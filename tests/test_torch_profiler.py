@@ -183,14 +183,22 @@ def test_lifted_flags_accepted(flag, tmp_path):
                                            "§C.11"),
                                           (["--netG", "local", "--remat_policy", "conv_out"],
                                            "§C.11"),
-                                          (["--data_backend", "grain"], "§A.2")])
+                                          # the id it had while grain was refused
+                                          pytest.param(["--data_backend", "grain"], None,
+                                                       id="flag3-§A.2")])
 def test_refused_flags_name_their_section(flag, section, tmp_path):
     """What stays refused: remat of the LocalEnhancer (the JAX package
-    ignores it there) and the grain backend (no package on either machine)."""
+    ignores it there). The grain backend, refused before its port, is
+    accepted: the train options pass and CreateDataLoader builds its loader
+    (here over a dataroot with no scenes)."""
     opt = loop_opt(tmp_path, flag)
     if "--data_backend" in flag:
-        with pytest.raises(NotImplementedError, match=f"not ported.*{section}"):
-            CreateDataLoader(opt)
+        check_train_options(opt)
+        opt.dataroot = str(tmp_path / "city")
+        for sub in ("train_label", "train_inst"):
+            os.makedirs(os.path.join(opt.dataroot, sub))
+        loader = CreateDataLoader(opt)
+        assert type(loader).__name__ == "GrainLoader" and len(loader) == 0
     else:
         with pytest.raises(ValueError, match=section):
             check_train_options(opt)
