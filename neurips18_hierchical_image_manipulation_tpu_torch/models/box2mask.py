@@ -21,6 +21,10 @@ parameters.
 Batches are ``data/bbox.BboxCropDataset`` crops: masked_layout and
 gt_layout (B,S,S) int ids, boxmask and gt_objmask (B,S,S,1) float, cls (B,)
 int, -1 for a background box (its one-hot is all zeros).
+
+Spans (``train/profiler.span``): ``inference`` is ``himan.infer`` around
+``himan.infer.encode`` and ``himan.infer.G`` (the two timed on the card);
+in the objective ``himan.step.forward.{encode,G,D}``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch.func import functional_call
 
 from ..losses import discriminator_loss, gan_loss, layout_ce_loss, object_mask_loss
 from ..ops.onehot_edges import one_hot_label
+from ..train.profiler import span
 from . import networks
 from .pix2pixhd import _detached
 
@@ -72,9 +77,11 @@ class BoxToMaskModel:
         """-> (total, metrics, merged). ``params``: ``{G, D: {name: tensor}}``
         to run the networks under (None: their own parameters)."""
         opt = self.opt
-        masked_oh, boxmask, cls_oh = self.encode_input(batch)
-        layout_logits, mask_logit, merged = functional_call(
-            self.netG, self._params(params, "G"), (masked_oh, boxmask, cls_oh))
+        with span("himan.step.forward.encode"):
+            masked_oh, boxmask, cls_oh = self.encode_input(batch)
+        with span("himan.step.forward.G"):
+            layout_logits, mask_logit, merged = functional_call(
+                self.netG, self._params(params, "G"), (masked_oh, boxmask, cls_oh))
         gt_ids, gt_obj = batch["gt_layout"], batch["gt_objmask"]
         # the context stream is not supervised at object pixels (the
         # gradient the paper's CE on the merged map gives it)
@@ -93,11 +100,13 @@ class BoxToMaskModel:
 
         use_lsgan = not opt.no_lsgan
         d_frozen = {k: v.detach() for k, v in self._params(params, "D").items()}
-        loss_g_gan = gan_loss(
-            functional_call(self.netD, d_frozen, (merged, boxmask, cls_oh)), True, use_lsgan)
+        with span("himan.step.forward.D"):
+            d_fake_for_g = functional_call(self.netD, d_frozen, (merged, boxmask, cls_oh))
+        loss_g_gan = gan_loss(d_fake_for_g, True, use_lsgan)
         gt_oh = one_hot_label(gt_ids, opt.label_nc, merged.dtype)
-        d_rf = functional_call(self.netD, self._params(params, "D"),
-                               (torch.cat([gt_oh, merged.detach()], 0), boxmask, cls_oh))
+        with span("himan.step.forward.D"):
+            d_rf = functional_call(self.netD, self._params(params, "D"),
+                                   (torch.cat([gt_oh, merged.detach()], 0), boxmask, cls_oh))
         nb = gt_oh.shape[0]
         loss_d, loss_d_real, loss_d_fake = discriminator_loss(
             [f[:nb] for f in d_rf], [f[nb:] for f in d_rf], use_lsgan)
@@ -114,9 +123,12 @@ class BoxToMaskModel:
         """-> (merged layout probs, object mask probs[, context probs]): the
         context stream's softmax for remove-mode fills, where the merged map
         is all zeros under a saturated mask and the null class."""
-        masked_oh, boxmask, cls_oh = self.encode_input(batch)
-        layout_logits, mask_logit, merged = self.netG(masked_oh, boxmask, cls_oh)
-        obj = torch.sigmoid(mask_logit) * boxmask
-        if return_ctx:
-            return merged, obj, torch.softmax(layout_logits, dim=-1)
-        return merged, obj
+        with span("himan.infer", timed=True):
+            with span("himan.infer.encode"):
+                masked_oh, boxmask, cls_oh = self.encode_input(batch)
+            with span("himan.infer.G", timed=True):
+                layout_logits, mask_logit, merged = self.netG(masked_oh, boxmask, cls_oh)
+            obj = torch.sigmoid(mask_logit) * boxmask
+            if return_ctx:
+                return merged, obj, torch.softmax(layout_logits, dim=-1)
+            return merged, obj

@@ -24,6 +24,11 @@ Encoder's, ``netE``, trained with G; or ``batch["feat"]``):
   * otherwise (the LocalEnhancer, whose pyramid pools the input first;
     features, concatenated after the kernel; ``--norm batch``, odd sizes):
     the unpadded tensor.
+
+Spans (``train/profiler.span``): ``inference`` is ``himan.infer`` around
+``himan.infer.encode`` and ``himan.infer.G`` (the two timed on the card);
+in the objective each network's applications are
+``himan.step.forward.{encode,G,D,VGG}``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from torch.func import functional_call
 from ..kernels import encode as kenc
 from ..losses import discriminator_loss, feature_matching_loss, gan_loss, vgg_loss
 from ..ops.nnops import PaddedStemInput, ids_int32
+from ..train.profiler import span
 from . import networks
 
 # batch keys that hold pixel coordinates: never a dtype witness (the JAX
@@ -159,7 +165,11 @@ class Pix2PixHDModel:
     @torch.inference_mode()
     def inference(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(B,H,W,3) NHWC generator output in [-1, 1]."""
-        return self.netG(self.encode_input(batch))
+        with span("himan.infer", timed=True):
+            with span("himan.infer.encode"):
+                g_input = self.encode_input(batch)
+            with span("himan.infer.G", timed=True):
+                return self.netG(g_input)
 
     # ---- training: the fused G + D objective ----
 
@@ -205,23 +215,28 @@ class Pix2PixHDModel:
         (``networks.dropout_masks``)."""
         opt = self.opt
         g_params = self._params(params, "G")
-        batch = self._normalized(batch, next(iter(g_params.values())).dtype)
-        real = batch.get("image")
-        g_input, cond = self._g_input(batch, params), self._cond(batch)
         if self.wants_rng() and rng is None:
             raise ValueError("--use_dropout needs a per-step generator; the train "
                              "step must pass losses(..., rng=generator)")
-        with networks.dropout_masks(rng if self.wants_rng() else None):
+        with span("himan.step.forward.encode"):
+            batch = self._normalized(batch, next(iter(g_params.values())).dtype)
+            real = batch.get("image")
+            g_input, cond = self._g_input(batch, params), self._cond(batch)
+        with span("himan.step.forward.G"), \
+                networks.dropout_masks(rng if self.wants_rng() else None):
             fake = functional_call(self.netG, g_params, (g_input,))
         use_lsgan = not opt.no_lsgan
         d_frozen = {k: v.detach() for k, v in self._params(params, "D").items()}
-        d_fake_for_g = functional_call(self.netD, d_frozen, (cond, fake))
+        with span("himan.step.forward.D"):
+            d_fake_for_g = functional_call(self.netD, d_frozen, (cond, fake))
         loss_g_gan = gan_loss(d_fake_for_g, True, use_lsgan)
         d_real = d_fake = None
         if not g_only:
-            d_real, d_fake = self._d_pair(params, cond, real, fake.detach())
+            with span("himan.step.forward.D"):
+                d_real, d_fake = self._d_pair(params, cond, real, fake.detach())
         elif not opt.no_ganFeat_loss:
-            d_real = functional_call(self.netD, d_frozen, (cond, real))
+            with span("himan.step.forward.D"):
+                d_real = functional_call(self.netD, d_frozen, (cond, real))
         loss_g_feat = 0.0
         if not opt.no_ganFeat_loss:
             loss_g_feat = feature_matching_loss(
@@ -230,8 +245,9 @@ class Pix2PixHDModel:
             )
         loss_g_vgg = 0.0
         if self.vgg is not None:
-            loss_g_vgg = opt.lambda_feat * vgg_loss(
-                lambda x: self._apply(params, "VGG", x), fake, real)
+            with span("himan.step.forward.VGG"):
+                loss_g_vgg = opt.lambda_feat * vgg_loss(
+                    lambda x: self._apply(params, "VGG", x), fake, real)
         total = loss_g_gan + loss_g_feat + loss_g_vgg
         metrics = {"G_GAN": loss_g_gan, "G_GAN_Feat": loss_g_feat, "G_VGG": loss_g_vgg}
         if not g_only:
@@ -243,8 +259,12 @@ class Pix2PixHDModel:
     def d_losses(self, batch: Dict[str, torch.Tensor], fake: torch.Tensor, params=None):
         """D-only objective against a given (e.g. pool-replayed) fake ->
         (loss_d, {D_real, D_fake})."""
-        batch = self._normalized(batch, next(iter(self._params(params, "D").values())).dtype)
-        d_real, d_fake = self._d_pair(params, self._cond(batch), batch["image"], fake.detach())
+        with span("himan.step.forward.encode"):
+            batch = self._normalized(batch,
+                                     next(iter(self._params(params, "D").values())).dtype)
+            cond = self._cond(batch)
+        with span("himan.step.forward.D"):
+            d_real, d_fake = self._d_pair(params, cond, batch["image"], fake.detach())
         loss_d, loss_d_real, loss_d_fake = discriminator_loss(
             d_real, d_fake, not self.opt.no_lsgan
         )

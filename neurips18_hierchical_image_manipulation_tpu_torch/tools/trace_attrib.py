@@ -27,6 +27,16 @@ same sequence number (the last forward op to record it: ops that create no
 node record the number the next node takes), and the module range
 enclosing that op is the site.
 
+A kernel launched outside every module range is sited by the innermost
+range around its launch: the port's spans (``train/profiler.span``:
+``himan.step.sample``, ``himan.step.cast``, ``himan.step.optimizer``, the
+loss terms inside ``himan.step.forward``, ...) or a library's own
+(``Optimizer.step#Adam.step``), and ``(top)`` only outside all of them. A
+backward kernel whose forward op ran outside every module range is sited
+by the innermost span around that op, as ``<span> (backward)`` (the cast's
+backward: ``himan.step.cast (backward)``), and ``(backward)`` only where
+none encloses it.
+
 Per site: device ms a step, its share, its class (``profile_decode``),
 kernels a step, TFLOP/s from ``roofline_step``'s true-MAC FLOPs of the
 module's convolutions, and GB/s from its forward non-conv bytes. Beside it
@@ -46,6 +56,7 @@ from . import profile_decode
 from . import roofline_step as rs
 
 MODULE = "module: "
+SPAN = "himan."     # the port's spans (train/profiler.span)
 LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
             "cudaLaunchCooperativeKernel")
 
@@ -102,10 +113,11 @@ def attribute(events, steps=1, unmatched=None):
             launch[args.get("correlation")] = e
     threads = {tid: _Intervals(evs) for tid, evs in host.items()}
 
-    def module_frame(frames):
-        mods = [f for f in frames if f.get("cat") == "user_annotation"
-                and f["name"].startswith(MODULE)]
-        return mods[-1] if mods else None
+    def innermost(frames, prefix=MODULE):
+        """The innermost range among frames named ``prefix...``."""
+        found = [f for f in frames if f.get("cat") == "user_annotation"
+                 and f["name"].startswith(prefix)]
+        return found[-1] if found else None
 
     out = []
     for k in profile_decode.kernel_events(events):
@@ -117,7 +129,7 @@ def attribute(events, steps=1, unmatched=None):
             out.append(("(no launch)", name, ms))
             continue
         frames = threads[la["tid"]].enclosing(la["ts"])
-        mod = module_frame(frames)
+        mod = innermost(frames)
         if mod is not None:
             op = _op_in(frames, mod["ts"])
             tag = profile_decode.kernel_tag(name) if port or op is None else op["name"]
@@ -128,12 +140,15 @@ def attribute(events, steps=1, unmatched=None):
             node = nodes[-1]
             seq = (node.get("args") or {}).get("Sequence number")
             fwd = fwd_by_seq.get(seq)
-            where = "(backward)"
+            where, fmod = "(backward)", None
             if fwd is not None:
-                fmod = module_frame(threads[fwd["tid"]].enclosing(fwd["ts"]))
+                fframes = threads[fwd["tid"]].enclosing(fwd["ts"])
+                fmod, fspan = innermost(fframes), innermost(fframes, SPAN)
                 if fmod is not None:
                     where = fmod["name"][len(MODULE):]
-            if where == "(backward)" and unmatched is not None:
+                elif fspan is not None:
+                    where = f"{fspan['name']} (backward)"
+            if fmod is None and unmatched is not None:
                 key = (_node_name(node), fwd["name"] if fwd is not None else None)
                 unmatched[key] = unmatched.get(key, 0.0) + ms
             tag = profile_decode.kernel_tag(name) if port else _node_name(node)
@@ -166,7 +181,7 @@ def site_rows(attributed, flops_by_site=None, bytes_by_site=None, steps=1, top=N
     # GB/s of a module's forward non-conv time against its forward bytes
     nonconv_ms = defaultdict(float)
     for site, (ms, kinds, _) in agg.items():
-        if "Backward" not in site and not site.startswith("(backward)"):
+        if "Backward" not in site and "(backward)" not in site:
             nonconv_ms[_module_of(site)] += sum(v for k, v in kinds.items()
                                                 if not profile_decode.is_conv(k))
     rows = []

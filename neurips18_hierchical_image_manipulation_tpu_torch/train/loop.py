@@ -50,7 +50,7 @@ except where box2mask's ``--bg_box_prob`` places background boxes by the
 loader's own epoch count, which a new process starts at 0 (so does the JAX
 package's; grain's shuffle of epoch e is seeded by it too).
 ``--profile_dir`` traces the 21st step of the run (``trace``, the step the
-JAX loop traces).
+JAX loop traces), and prints and writes (``spans.json``) its spans.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from ..utils.image_pool import ImagePool
 from ..utils.imaging import tensor2im, tensor2label
 from ..utils.visualizer import Visualizer
 from .prefetch import H2DStager, device_prefetch, ready, to_device
-from .profiler import ThroughputMeter, trace
+from .profiler import ThroughputMeter, span, trace
 from .state import make_optimizers
 from .steps import (
     make_dp_train_step,
@@ -101,9 +101,10 @@ def make_step_fn(opt, model, mesh=None):
     g_step, d_step = make_pooled_train_steps(model, compute_dtype, debug_nans)
 
     def step(state, batch):
-        metrics, fake = g_step(state, batch)
-        pooled = torch.from_numpy(pool.query(_host(fake))).to(fake.device)
-        return {**metrics, **d_step(state, batch, pooled)}, fake
+        with span("himan.step", timed=True):     # the G and D steps and the pool: one step
+            metrics, fake = g_step(state, batch)
+            pooled = torch.from_numpy(pool.query(_host(fake))).to(fake.device)
+            return {**metrics, **d_step(state, batch, pooled)}, fake
 
     return step
 

@@ -30,6 +30,12 @@ rows', as in the JAX package's ``shard_map`` (no ``SyncBatchNorm``).
 generator, seeded from (seed, step) like the resident draws
 (``dropout_generator``), and from the rank too under a mesh.
 
+Every step is one ``himan.step`` span (``train/profiler.span``; the
+pooled pair's is ``train/loop.make_step_fn``'s) around the phases'
+spans: ``sample``, ``cast``, ``forward``, ``backward``, ``all_reduce``
+and ``optimizer``, each ``himan.step.<phase>``; all but ``all_reduce``
+are timed on the card (the benchmark's metrics read them).
+
 ``--debug_nans`` (JAX ``train/loop.py:30-31``): every step checks its
 loss, its metrics and its gradients (after the mesh's mean) with one host
 sync, and raises ``FloatingPointError`` naming the first non-finite one,
@@ -53,6 +59,7 @@ from typing import Optional
 import torch
 
 from ..models.pix2pixhd import _COORD_KEYS
+from .profiler import span
 
 # the streams a step draws from, each seeded afresh from (seed, tag, n)
 _SHUFFLE_TAG, _SAMPLE_TAG, _DROPOUT_TAG = 0x5EED, 0xA3C0, 0xD50
@@ -104,7 +111,8 @@ def _loss_inputs(model, batch, compute_dtype: Optional[torch.dtype]):
     (None) and the batch as it is in fp32, bf16 casts of both otherwise."""
     if compute_dtype is None or compute_dtype == torch.float32:
         return None, batch
-    return cast_params(model, compute_dtype), cast_batch(batch, compute_dtype)
+    with span("himan.step.cast", timed=True):
+        return cast_params(model, compute_dtype), cast_batch(batch, compute_dtype)
 
 
 def all_reduce_grads(model, mesh, axes) -> None:
@@ -150,24 +158,39 @@ def _dp_axes(mesh, axis):
 
 
 def _make_step(model, compute_dtype, mesh=None, axis="data", debug_nans=False):
+    """The step's body, outside any ``himan.step`` span (``_rooted`` and
+    ``_with_batch`` open it)."""
     axes, rank = _dp_axes(mesh, axis)
 
     def step(state, batch):
         state.opt_g.zero_grad(set_to_none=True)
         state.opt_d.zero_grad(set_to_none=True)
         params, b = _loss_inputs(model, batch, compute_dtype)
-        total, metrics, fake = model.losses(b, params, **_rng_kw(model, state.step, rank))
-        total.backward()
+        with span("himan.step.forward", timed=True):
+            total, metrics, fake = model.losses(b, params, **_rng_kw(model, state.step, rank))
+        with span("himan.step.backward", timed=True):
+            total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if mesh is not None:
-            all_reduce_grads(model, mesh, axes)
-            metrics = all_reduce_metrics(metrics, mesh, axes)
+            with span("himan.step.all_reduce"):
+                all_reduce_grads(model, mesh, axes)
+                metrics = all_reduce_metrics(metrics, mesh, axes)
         if debug_nans:
             check_finite(model, total, metrics)
-        for o in (state.opt_g, state.opt_d, state.sched_g, state.sched_d):
-            o.step()
+        with span("himan.step.optimizer", timed=True):
+            for o in (state.opt_g, state.opt_d, state.sched_g, state.sched_d):
+                o.step()
         state.step += 1
         return metrics, fake.detach()
+
+    return step
+
+
+def _rooted(body):
+    """``body`` inside the step's root span."""
+    def step(state, batch):
+        with span("himan.step", timed=True):
+            return body(state, batch)
 
     return step
 
@@ -176,7 +199,7 @@ def make_train_step(model, compute_dtype: Optional[torch.dtype] = None,
                     debug_nans: bool = False):
     """-> step(state, batch) -> (metrics, fake): one update of G and D;
     metrics are detached fp32 0-dim tensors, fake the detached G output."""
-    return _make_step(model, compute_dtype, debug_nans=debug_nans)
+    return _rooted(_make_step(model, compute_dtype, debug_nans=debug_nans))
 
 
 def make_dp_train_step(model, mesh, compute_dtype: Optional[torch.dtype] = None,
@@ -187,7 +210,7 @@ def make_dp_train_step(model, mesh, compute_dtype: Optional[torch.dtype] = None,
     of axes for the hybrid ``('dcn', 'data')`` mesh: one reduction per
     axis), dropout draws from (seed, step, rank). Returns the mean metrics
     and this rank's fake."""
-    return _make_step(model, compute_dtype, mesh, axis, debug_nans)
+    return _rooted(_make_step(model, compute_dtype, mesh, axis, debug_nans))
 
 
 def shard_batch(batch, mesh, axis="data"):
@@ -244,29 +267,34 @@ def _resident_batches(model, sample_fn, n_samples, batch_size, shuffle, seed, ro
     perms = {}   # the current epoch's permutation
 
     def batch_of(state, data):
-        epoch, i = divmod(state.step, steps_per_epoch)
-        perm = perms.get(epoch)
-        if perm is None:
-            perms.clear()
-            perm = perms[epoch] = (
-                torch.randperm(n_samples, device=device,
-                               generator=seeded_generator(device, seed, _SHUFFLE_TAG, epoch))
-                if shuffle else torch.arange(n_samples, device=device))
-        start = i * batch_size + rows[0]
-        idx = perm[start:start + rows[1]]
-        return dict(sample_fn(data, idx,
-                              seeded_generator(device, seed, _SAMPLE_TAG, state.step, fold)))
+        with span("himan.step.sample", timed=True):
+            epoch, i = divmod(state.step, steps_per_epoch)
+            perm = perms.get(epoch)
+            if perm is None:
+                perms.clear()
+                perm = perms[epoch] = (
+                    torch.randperm(n_samples, device=device,
+                                   generator=seeded_generator(device, seed, _SHUFFLE_TAG, epoch))
+                    if shuffle else torch.arange(n_samples, device=device))
+            start = i * batch_size + rows[0]
+            idx = perm[start:start + rows[1]]
+            return dict(sample_fn(data, idx,
+                                  seeded_generator(device, seed, _SAMPLE_TAG, state.step, fold)))
 
     return batch_of
 
 
 def _with_batch(train_step, batch_of):
+    """The resident steps: ``batch_of`` and the step's body ``train_step``
+    inside one ``himan.step`` span."""
     def step(state, data):
-        return train_step(state, batch_of(state, data))
+        with span("himan.step", timed=True):
+            return train_step(state, batch_of(state, data))
 
     def step_with_batch(state, data):
-        batch = batch_of(state, data)
-        metrics, fake = train_step(state, batch)
+        with span("himan.step", timed=True):
+            batch = batch_of(state, data)
+            metrics, fake = train_step(state, batch)
         return metrics, fake, batch
 
     return step, step_with_batch
@@ -293,7 +321,7 @@ def make_resident_train_step(model, sample_fn, n_samples: int, batch_size: int,
     Returns ``step(state, data) -> (metrics, fake)`` and
     ``step_with_batch(state, data) -> (metrics, fake, batch)``, the latter
     for display iterations, which show the batch."""
-    return _with_batch(make_train_step(model, compute_dtype, debug_nans),
+    return _with_batch(_make_step(model, compute_dtype, debug_nans=debug_nans),
                        _resident_batches(model, sample_fn, n_samples, batch_size, shuffle,
                                          seed, (0, batch_size), None))
 
@@ -314,7 +342,7 @@ def make_resident_dp_train_step(model, mesh, sample_fn, n_samples: int, batch_si
     if batch_size % n:
         raise ValueError(f"global batch {batch_size} not divisible by mesh size {n}")
     bs_dev = batch_size // n
-    return _with_batch(make_dp_train_step(model, mesh, compute_dtype, axis, debug_nans),
+    return _with_batch(_make_step(model, compute_dtype, mesh, axis, debug_nans),
                        _resident_batches(model, sample_fn, n_samples, batch_size, shuffle,
                                          seed, (r * bs_dev, bs_dev), r))
 
@@ -333,13 +361,16 @@ def make_pooled_train_steps(model, compute_dtype: Optional[torch.dtype] = None,
     def g_step(state, batch):
         state.opt_g.zero_grad(set_to_none=True)
         params, b = _loss_inputs(model, batch, compute_dtype)
-        total, metrics, fake = model.losses(b, params, g_only=True,
-                                            **_rng_kw(model, state.step))
-        total.backward()
+        with span("himan.step.forward", timed=True):
+            total, metrics, fake = model.losses(b, params, g_only=True,
+                                                **_rng_kw(model, state.step))
+        with span("himan.step.backward", timed=True):
+            total.backward()
         if debug_nans:
             check_finite(model, total, metrics, g_nets)
-        state.opt_g.step()
-        state.sched_g.step()
+        with span("himan.step.optimizer", timed=True):
+            state.opt_g.step()
+            state.sched_g.step()
         state.step += 1
         return metrics, fake.detach()
 
@@ -347,13 +378,17 @@ def make_pooled_train_steps(model, compute_dtype: Optional[torch.dtype] = None,
         state.opt_d.zero_grad(set_to_none=True)
         params, b = _loss_inputs(model, batch, compute_dtype)
         if params is not None:
-            fake_pool = fake_pool.to(compute_dtype)
-        loss, metrics = model.d_losses(b, fake_pool, params)
-        loss.backward()
+            with span("himan.step.cast", timed=True):
+                fake_pool = fake_pool.to(compute_dtype)
+        with span("himan.step.forward", timed=True):
+            loss, metrics = model.d_losses(b, fake_pool, params)
+        with span("himan.step.backward", timed=True):
+            loss.backward()
         if debug_nans:
             check_finite(model, loss, metrics, ("D",))
-        state.opt_d.step()
-        state.sched_d.step()
+        with span("himan.step.optimizer", timed=True):
+            state.opt_d.step()
+            state.sched_d.step()
         return metrics
 
     return g_step, d_step

@@ -98,6 +98,27 @@ def test_export_holds_ops_reloads_bit_exact_and_matches_jax(stage, stage_runs, t
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_exported_graph_holds_no_profiler_op(stage, stage_runs):
+    """Exported under a running profiler, where ``inference``'s spans would
+    record: the graph holds no profiler op (a span is off under export),
+    and the eager call after it records its spans."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.train import profiler
+
+    name, _, pcls, make_batch = STAGES[stage]
+    model = create_model(pcls(name=name, checkpoints_dir=stage_runs, gpu_ids="-1", **ARCH))
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(np.random.RandomState(3)).items()}
+    profiler.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        ep = export_inference.export(stage, model, batch)
+        assert profiler.span_table() == {}
+        model.inference(batch)
+    targets = [str(n.target) for n in ep.graph_module.graph.nodes if n.op == "call_function"]
+    assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+    assert {k: v["count"] for k, v in profiler.span_table().items()} == {
+        "himan.infer": 1, "himan.infer.encode": 1, "himan.infer.G": 1}
+
+
 def test_export_without_ops_refused(stage_runs, monkeypatch):
     """No fallback: a graph traced through the plain composition raises."""
     name, _, pcls, make_batch = STAGES["box2mask"]

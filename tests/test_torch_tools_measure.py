@@ -358,6 +358,45 @@ def test_trace_attribution_and_classes(tmp_path):
     assert json.loads((tmp_path / "d.json").read_text())["trace"] == str(path)
 
 
+def test_trace_attribution_by_the_ports_spans():
+    """Kernels launched outside every module range are sited by the
+    innermost span around the launch; a backward kernel whose forward op
+    ran in no module by the span around that op; outside all, ``(top)``."""
+    ev = [
+        _x("user_annotation", "himan.step", FWD, 0, 1000),
+        _x("user_annotation", "himan.step.cast", FWD, 10, 80),
+        _x("cpu_op", "aten::_to_copy", FWD, 20, 30, **{"Sequence number": 9}),
+        _x("cuda_runtime", "cudaLaunchKernel", FWD, 25, 2, correlation=1),
+        _x("user_annotation", "himan.step.forward", FWD, 100, 300),
+        _x("user_annotation", "module: G.conv", FWD, 110, 90),
+        _x("cpu_op", "aten::convolution", FWD, 120, 30, **{"Sequence number": 10}),
+        _x("cuda_runtime", "cudaLaunchKernel", FWD, 125, 2, correlation=2),
+        _x("cpu_op", "aten::mse_loss", FWD, 300, 20),
+        _x("cuda_runtime", "cudaLaunchKernel", FWD, 305, 2, correlation=3),
+        _x("cpu_op", "autograd::engine::evaluate_function: ToCopyBackward0", BWD, 600, 50,
+           **{"Sequence number": 9, "Fwd thread id": 1}),
+        _x("cuda_runtime", "cudaLaunchKernel", BWD, 610, 2, correlation=4),
+        _x("cpu_op", "autograd::engine::evaluate_function: ConvolutionBackward0", BWD, 700,
+           50, **{"Sequence number": 10, "Fwd thread id": 1}),
+        _x("cuda_runtime", "cudaLaunchKernel", BWD, 710, 2, correlation=5),
+        _x("cuda_runtime", "cudaLaunchKernel", FWD, 2000, 2, correlation=6),
+    ]
+    names = ["copy_to_bf16", "fprop_conv", "mse_reduce", "copy_to_fp32", "dgrad_conv",
+             "mystery"]
+    ev += [_x("kernel", n, 7, 3000 + 100 * c, 5, correlation=c)
+           for c, n in enumerate(names, start=1)]
+    unmatched = {}
+    got = {name: site for site, name, _ in trace_attrib.attribute(ev, 1, unmatched)}
+    assert got == {"copy_to_bf16": "himan.step.cast [aten::_to_copy]",
+                   "fprop_conv": "G.conv [aten::convolution]",
+                   "mse_reduce": "himan.step.forward [aten::mse_loss]",
+                   "copy_to_fp32": "himan.step.cast (backward) [ToCopyBackward0]",
+                   "dgrad_conv": "G.conv [ConvolutionBackward0]",
+                   "mystery": "(top) [mystery]"}
+    # a backward sited by a span still lists its missing module
+    assert list(unmatched) == [("ToCopyBackward0", "aten::_to_copy")]
+
+
 # ------------------------------------------------------ (h) the recipes
 
 SCRIPTS = ("train_mask2image_city.sh", "train_mask2image_city_1024p.sh",
