@@ -38,7 +38,10 @@ raises and the script exits non-zero):
               counts, each on the variant kernels/reflect_pad._plan picks
               (bulk or gather), the same bits on a second run; MSE/L1 at the D-logit,
               FM-feature and VGG-tap sizes (each a group of one), encode_cond
-              at 512x256; times beside the library call
+              at 512x256; times beside the library call; the loss groups'
+              backward over the flagship's 4 groups (bs 32, 512x512 windows:
+              6 MSE + 13 L1 terms), the same bits as its plain version, one
+              launch a group, kernel and plain version timed
   5. serving  (main path 1) the port's mask2image_test CLI end to end at
               full width (label_nc 35, ngf 64, 4 downs, 9 resblocks at 1024
               channels, bbox-crop windows at fineSize 512) on a seeded
@@ -362,6 +365,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.kernels.bounds import (
     encode_bytes,
     in_bwd_bytes,
     in_bytes,
+    loss_bwd_bytes,
     loss_bytes,
     pad_bwd_bytes,
 )
@@ -562,6 +566,8 @@ def plan_variants(kind, calls, groups=()):
     if kind in ("mse_to_scalar", "l1_to_scalar"):
         mode = "mse" if kind == "mse_to_scalar" else "l1"
         return {"group": sum(any(t[0] == mode for t in g) for g in groups)}
+    if kind == "loss_group_bwd":   # calls: (terms with a gradient, those off the grid)
+        return {"terms": sum(c[0] for c in calls), "unaligned": sum(c[1] for c in calls)}
     want = {v: 0 for v in counters()[kind].variants}
     for call in calls:
         v = plan_variant(kind, call)
@@ -609,7 +615,8 @@ def recording():
     """Record the arguments' shapes of every call of a training kernel's
     wrapper, of the IN forward's and of encode's (a call on a CPU tensor
     too), by kernel name (``kernels/calls.intercept``)."""
-    calls = {k: [] for k in ("instance_norm", "loss_group", "encode") + TRAIN_KERNELS}
+    calls = {k: [] for k in ("instance_norm", "loss_group", "loss_group_bwd", "encode")
+             + TRAIN_KERNELS}
 
     def group(terms):
         """One loss launch: its terms (mode, shape, dtype, scalar target or
@@ -623,6 +630,14 @@ def recording():
                 calls["l1_to_scalar"].append((shape, dt))
         return "loss_group", table
 
+    def group_bwd(spec, tensors, needs, g):
+        """One backward launch: its terms that take a gradient, and those
+        of them whose operands are off the 16-byte grid."""
+        rows = klosses._operands(spec, tensors, needs)
+        off = sum(any(x is not None and x.is_contiguous() and x.data_ptr() % 16
+                      for x in (a, b)) for _, _, _, a, b, _, _ in rows)
+        return "loss_group_bwd", (len(rows), off)
+
     describe = {
         "instance_norm": lambda x, act="none", residual=None, eps=kin.EPS:
             ("instance_norm", (tuple(x.shape), x.dtype, act, residual is not None)),
@@ -630,6 +645,7 @@ def recording():
             ("instance_norm_bwd", (tuple(x.shape), x.dtype, act, bool(want_dres))),
         "reflect_pad_bwd": lambda dy, pad: ("reflect_pad_bwd", (tuple(dy.shape), dy.dtype, pad)),
         "reduce_group": group,
+        "loss_group_bwd": group_bwd,
         "encode_cond": lambda label, inst, nc, dtype=torch.float32:
             ("encode_cond", (tuple(label.shape), inst is not None, nc, dtype)),
         "encode": lambda label, inst, image, boxes, nc, pad=0, dtype=None:
@@ -941,9 +957,80 @@ def phase_train_kernels(dev, results):
                        library_ms=None, bound_ms=bms, bound_by=by, bit_exact=True)
             rows.append(row)
             log(f"[kernels train] {row}")
+    for dt in (torch.float32, torch.bfloat16):
+        row = time_loss_group_bwd(dt, dev, gen, FLAGSHIP_BS)
+        rows.append(row)
+        log(f"[kernels train] {row}")
     log(f"[kernels train] max|kernel - plain|: {errs}")
     results["train_kernel_rows"] = rows
     results["train_kernel_max_err"] = errs
+
+
+# the flagship step's loss terms at its 512x512 windows (a sample's shape):
+# the D logits of both scales, D's 4 feature-matching layers at each, VGG's
+# relu1_1..relu5_1 taps
+FLAGSHIP_LOGITS = ((67, 67, 1), (35, 35, 1))
+FLAGSHIP_FM = ((257, 257, 64), (129, 129, 128), (65, 65, 256), (66, 66, 512),
+               (129, 129, 64), (65, 65, 128), (33, 33, 256), (34, 34, 512))
+FLAGSHIP_VGG = ((512, 512, 64), (256, 256, 128), (128, 128, 256), (64, 64, 512), (32, 32, 512))
+
+
+def flagship_loss_groups(bs, dt, dev, gen):
+    """The backward calls of the flagship step's 4 loss groups at batch bs:
+    G's GAN terms, D's real and fake terms (the halves of D's [real; fake]
+    logits), feature matching and VGG (the real side detached) -> [(spec,
+    tensors, needs, g)], g weights that are no powers of two."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    g_logits = [rand(bs, *s) for s in FLAGSHIP_LOGITS]
+    d_logits = [rand(2 * bs, *s) for s in FLAGSHIP_LOGITS]
+    groups = [
+        ((("mse", 1.0),) * 2, g_logits, [True] * 2),
+        ((("mse", 1.0),) * 2 + (("mse", 0.0),) * 2,
+         [x[:bs] for x in d_logits] + [x[bs:] for x in d_logits], [True] * 4),
+    ]
+    for shapes in (FLAGSHIP_FM, FLAGSHIP_VGG):
+        groups.append(((("l1", None),) * len(shapes),
+                       [x for s in shapes for x in (rand(bs, *s), rand(bs, *s))],
+                       [True, False] * len(shapes)))
+    return [(spec, tensors, needs, torch.linspace(0.3, 2.9, len(spec), device=dev))
+            for spec, tensors, needs in groups]
+
+
+def time_loss_group_bwd(dt, dev, gen, bs):
+    """The loss groups' backward over the flagship step's 4 groups at bs 32:
+    one launch a group, each group's gradients the plain version's bits;
+    device time of kernel and plain version by CUDA-graph replay, and the
+    bound (a and b read, da written)."""
+    calls = flagship_loss_groups(bs, dt, dev, gen)
+    before = klosses.loss_group_bwd.launches
+    got = [klosses.loss_group_bwd(*c) for c in calls]
+    launches = klosses.loss_group_bwd.launches - before
+    if launches != len(calls):
+        raise AssertionError(f"loss_group_bwd {dt}: {launches} launches for {len(calls)} groups")
+    for c, grads in zip(calls, got):
+        want = klosses.loss_group_bwd_plain(*c)
+        torch.cuda.synchronize()
+        if not all((x is None and y is None) or torch.equal(x, y) for x, y in zip(grads, want)):
+            raise AssertionError(f"loss_group_bwd {dt}: not the plain version's bits, {c[0]}")
+        del want
+    del got
+    nbytes = ops = 0
+    for spec, tensors, needs, _ in calls:
+        for _, _, _, a, b, ga, gb in klosses._operands(spec, tensors, needs):
+            nb, o = loss_bwd_bytes(a.numel(), a.element_size(), b is not None,
+                                   (ga is not None) + (gb is not None))
+            nbytes, ops = nbytes + nb, ops + o
+    bms, by = bound(nbytes, ops)
+    row = dict(kernel="loss_group_bwd", shape=f"flagship bs {bs}, 512x512: 6 MSE + 13 L1 terms",
+               dtype=str(dt)[6:], launches=len(calls),
+               ms=graph_ms(lambda: [klosses.loss_group_bwd(*c) for c in calls]),
+               plain_ms=graph_ms(lambda: [klosses.loss_group_bwd_plain(*c) for c in calls]),
+               library_ms=None, bound_ms=bms, bound_by=by, bytes=nbytes, bit_exact=True)
+    del calls
+    torch.cuda.empty_cache()
+    return row
 
 
 def two_bf16_ulps(got, want):
@@ -1180,6 +1267,7 @@ def train_per_step(g_sites, opt, pads=None):
         "instance_norm_bwd": in_sites, "mse_to_scalar": 3 * opt.num_D,
         "l1_to_scalar": ((0 if opt.no_ganFeat_loss else (opt.n_layers_D + 1) * opt.num_D)
                          + (0 if opt.no_vgg_loss else 5)),
+        "loss_group_bwd": sum(loss_groups_per_step(opt).values()),
         "reflect_pad_bwd": 2 * opt.n_blocks_global + 1 if pads is None else pads,
         "conv3x3_in_act": 0,
     }
@@ -1210,6 +1298,7 @@ def b2m_per_step(opt):
     in_sites = g_sites + 2 * opt.n_layers_D
     return {"encode": 0, "encode_cond": 0, "instance_norm": in_sites,
             "instance_norm_bwd": in_sites, "mse_to_scalar": 0 if opt.no_lsgan else 3,
+            "loss_group_bwd": 0 if opt.no_lsgan else 2,
             "l1_to_scalar": 0, "reflect_pad_bwd": 2 * opt.n_blocks_global + 2,
             "conv3x3_in_act": 0}
 
@@ -1863,7 +1952,7 @@ def phase_b2m_kernels(dev, results):
     del model
     torch.cuda.empty_cache()
     for (bs, dt), calls in recorded.items():
-        got = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar",)}
+        got = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar", "loss_group_bwd")}
         want = {k: per_step[k] for k in got}
         expect_launches(got, want, f"box2mask step bs {bs} {dt}, calls recorded")
         expect_launches(len(calls["loss_group"]), loss_groups_per_step(
@@ -2453,7 +2542,7 @@ def image_encodes(calls):
 def expect_recorded(calls, per_step, opt, what):
     """One step's recorded calls against the architecture's per-step count."""
     got = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar", "l1_to_scalar",
-                                               "encode_cond")}
+                                               "loss_group_bwd", "encode_cond")}
     got["encode"] = len(image_encodes(calls))
     expect_launches(got, {k: per_step[k] for k in got}, f"{what}, calls recorded")
     expect_launches(len(calls["loss_group"]), sum(loss_groups_per_step(opt).values()),
@@ -4554,7 +4643,8 @@ def counted_steps():
 def expect_recorded_launches(calls, launches, what):
     """Each recorded call of a wrapper launched its kernel once (the loss
     kernel: each term counted), and conv3x3_in_act none."""
-    want = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar", "l1_to_scalar")}
+    want = {k: len(calls[k]) for k in PLANNED + ("mse_to_scalar", "l1_to_scalar",
+                                               "loss_group_bwd")}
     want["encode"] = len(image_encodes(calls))
     # a no-image encode (encode_cond's, or G's input without RGB) is recorded
     # as an encode call and launches on encode_cond's counter

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from . import losses as klosses
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
@@ -57,6 +59,12 @@ def loss_bytes(numel, itemsize, two_operands):
     return numel * itemsize * (1 + int(two_operands)), 3 * numel
 
 
+def loss_bwd_bytes(numel, itemsize, two_operands, gradients):
+    """a (and b) read once, each of the term's ``gradients`` written once;
+    ~4 operations an element."""
+    return numel * itemsize * (1 + int(two_operands) + gradients), 4 * numel
+
+
 def cond_bytes(b, h, w, width, itemsize):
     """label and inst (int32) read, the width-channel conditioning written."""
     return b * h * w * (8 + width * itemsize), b * h * w * width
@@ -80,7 +88,8 @@ def _item(dtype):
 def call_bytes(kind, *args, **kw):
     """Bytes that one call of the wrapper ``kind`` must move, from the
     arguments it was given: ``instance_norm``, ``instance_norm_bwd``,
-    ``reflect_pad_bwd``, ``reduce_group``, ``encode``, ``encode_cond``."""
+    ``reflect_pad_bwd``, ``reduce_group``, ``loss_group_bwd``, ``encode``,
+    ``encode_cond``."""
     if kind == "instance_norm":
         x = args[0]
         residual = kw.get("residual", args[2] if len(args) > 2 else None)
@@ -97,6 +106,11 @@ def call_bytes(kind, *args, **kw):
     if kind == "reduce_group":
         return sum(loss_bytes(a.numel(), a.element_size(), torch.is_tensor(t))[0]
                    for _, a, t in args[0])
+    if kind == "loss_group_bwd":
+        spec, tensors, needs = args[:3]
+        return sum(loss_bwd_bytes(a.numel(), a.element_size(), b is not None,
+                                  (ga is not None) + (gb is not None))[0]
+                   for _, _, _, a, b, ga, gb in klosses._operands(spec, tensors, needs))
     if kind == "encode":
         label, inst, image, _boxes, nc = args[:5]
         pad = kw.get("pad", args[5] if len(args) > 5 else 0)

@@ -13,16 +13,26 @@ tensor of a's shape, dtype and device, or a float. The port's kernel
 and reduces a whole group of terms in one launch that also finishes the
 means: deterministic, the same bits for a term alone or in any group.
 
-Bound: bytes (each element read once). The backward is each term's closed
-form, 2(pred - t)/N and ±sign(a - b)/N, in plain PyTorch, as the JAX
-package leaves it to XLA. Every loss term on the card launches the kernel,
-down to the ~2.3k-element D logits: the JAX ``diff.size < _CHUNK`` gate was
-a TPU tiling limit, and its ``_LOSS_KERNELS = False`` gate a TPU
-measurement. A CPU tensor takes the plain version.
+Bound: bytes (each element read once). Every loss term on the card
+launches the kernel, down to the ~2.3k-element D logits: the JAX
+``diff.size < _CHUNK`` gate was a TPU tiling limit, and its
+``_LOSS_KERNELS = False`` gate a TPU measurement. A CPU tensor takes the
+plain version.
+
+The backward, ``loss_group_bwd``, is each term's closed form, 2 g (pred -
+t)/N and g sign(a - b)/N (the JAX package leaves it to XLA): one launch of
+``csrc/losses.cu``'s backward kernel a group for CUDA tensors, over the
+terms that take a gradient, with the bits of the plain closed form
+(``loss_group_bwd_plain``, which CPU tensors take). Bound: bytes, 6 an
+element in bf16 and 12 in fp32, where the plain closed form moves about 46
+through its fp32 temporaries.
 
 ``mse_to_scalar.launches`` / ``l1_to_scalar.launches`` count the terms of
 each mode that a launch reduced; ``.variants["group"]`` counts the launches
-that held a term of that mode.
+that held a term of that mode. ``loss_group_bwd.launches`` counts the
+backward's launches; its ``.variants["terms"]`` the terms they wrote a
+gradient for, and ``["unaligned"]`` those of them off the 16-byte grid
+(read and written element by element).
 
 The launches' tickets and partials live in a workspace of each (device,
 stream), zeroed once when it is made and left at zero by every launch, so
@@ -131,9 +141,88 @@ def _launch(terms):
     return out
 
 
+def _operands(spec, tensors, needs):
+    """The terms of ``spec`` that take a gradient: (index in g, mode,
+    scalar target, a, target tensor or None, index in ``tensors`` of a's
+    gradient, of the target's; None where that one takes none)."""
+    out, i = [], 0
+    for k, (mode, t) in enumerate(spec):
+        ib = i + 1 if t is None else None
+        ga = i if needs[i] else None
+        gb = ib if ib is not None and needs[ib] else None
+        if ga is not None or gb is not None:
+            out.append((k, mode, 0.0 if t is None else t, tensors[i],
+                        None if ib is None else tensors[ib], ga, gb))
+        i += 1 if ib is None else 2
+    return out
+
+
+def loss_group_bwd_plain(spec, tensors, needs, g):
+    """Plain PyTorch version of ``loss_group_bwd``: each term's closed form
+    in fp32, rounded once to the operand's dtype."""
+    grads = [None] * len(tensors)
+    for k, mode, t, a, b, ga, gb in _operands(spec, tensors, needs):
+        d = a.to(torch.float32) - (b.to(torch.float32) if b is not None else t)
+        if mode == "mse":
+            s = (2.0 * g[k] / a.numel()) * d
+        else:
+            s = (g[k] / a.numel()) * torch.sign(d)
+        if ga is not None:
+            grads[ga] = s.to(a.dtype)
+        if gb is not None:
+            grads[gb] = (-s).to(b.dtype)
+    return grads
+
+
+def loss_group_bwd(spec, tensors, needs, g):
+    """The backward of ``reduce_group``: ``spec`` and ``tensors`` as
+    ``_Group.forward`` takes them, ``needs`` whether each tensor takes a
+    gradient, ``g`` the (T,) fp32 upstream gradient -> each tensor's
+    gradient (None where it takes none). One launch for CUDA tensors over
+    the terms that take a gradient (none where no term does); g is read on
+    the card, so nothing waits for the host. CPU tensors take the plain
+    version."""
+    if tensors[0].device.type == "cpu":
+        return loss_group_bwd_plain(spec, tensors, needs, g)
+    grads = [None] * len(tensors)
+    rows = []  # per term: its index in g, mode, scalar target, then a, b, da, db
+    for k, mode, t, a, b, ga, gb in _operands(spec, tensors, needs):
+        a = a.contiguous()
+        b = b.contiguous() if b is not None else None
+        if ga is not None:
+            grads[ga] = torch.empty_like(a)
+        if gb is not None:
+            grads[gb] = torch.empty_like(b)
+        rows.append((k, MODES[mode], float(t), a, b, None if ga is None else grads[ga],
+                     None if gb is None else grads[gb]))
+    if not rows:
+        return grads
+    count, a0 = len(rows), rows[0][3]
+    ks, modes, ts, *ops = zip(*rows)
+    ptrs = [[x.data_ptr() if x is not None else None for x in col] for col in ops]
+    g = g.to(torch.float32)
+    err = _lib().himan_loss_group_bwd(
+        *((ctypes.c_void_p * count)(*col) for col in ptrs),
+        (ctypes.c_float * count)(*ts), (ctypes.c_int64 * count)(*[a.numel() for a in ops[0]]),
+        (ctypes.c_int * count)(*modes), (ctypes.c_int * count)(*ks),
+        count, int(a0.dtype == torch.bfloat16), g.data_ptr(), g.stride(0),
+        _build.stream_for(a0.device),
+    )
+    _build.check(err, "himan_loss_group_bwd")
+    loss_group_bwd.launches += 1
+    loss_group_bwd.variants["terms"] += count
+    loss_group_bwd.variants["unaligned"] += sum(any(p and p % 16 for p in term)
+                                                for term in zip(*ptrs))
+    return grads
+
+
+loss_group_bwd.launches = 0
+loss_group_bwd.variants = {"terms": 0, "unaligned": 0}
+
+
 class _Group(torch.autograd.Function):
     """Forward: the (T,) means, by the kernel (the plain version for CPU
-    tensors). Backward: each term's closed form."""
+    tensors). Backward: each term's closed form, ``loss_group_bwd``."""
 
     @staticmethod
     def forward(ctx, spec, *tensors):
@@ -149,21 +238,7 @@ class _Group(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = iter(ctx.saved_tensors)
-        need = iter(ctx.needs_input_grad[1:])
-        grads = []
-        for k, (mode, t) in enumerate(ctx.spec):
-            a, need_a = next(saved), next(need)
-            b, need_b = (next(saved), next(need)) if t is None else (None, False)
-            d = a.to(torch.float32) - (b.to(torch.float32) if b is not None else t)
-            if mode == "mse":
-                s = (2.0 * g[k] / a.numel()) * d
-            else:
-                s = (g[k] / a.numel()) * torch.sign(d)
-            grads.append(s.to(a.dtype) if need_a else None)
-            if b is not None:
-                grads.append((-s).to(b.dtype) if need_b else None)
-        return (None, *grads)
+        return (None, *loss_group_bwd(ctx.spec, ctx.saved_tensors, ctx.needs_input_grad[1:], g))
 
 
 def reduce_group(terms):
@@ -228,4 +303,7 @@ def _lib():
         lib.himan_loss_workspace_bytes.restype = ctypes.c_int64
         lib.himan_loss_group.argtypes = [p, p, p, p, p, i, i, p, p, p]
         lib.himan_loss_group.restype = i
+        lib.himan_loss_group_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, p,
+                                             ctypes.c_int64, p]
+        lib.himan_loss_group_bwd.restype = i
     return lib

@@ -416,6 +416,163 @@ def test_loss_group_rejects_bad_tables_on_card(cuda_device, terms):
         klosses.reduce_group(terms)
 
 
+# ---- the loss groups' backward (kernels/losses.loss_group_bwd): the plain
+# closed form's gradients bit for bit, one launch a group that carries one
+
+def bwd_counts():
+    f = klosses.loss_group_bwd
+    return f.launches, f.variants["terms"], f.variants["unaligned"]
+
+
+def bwd_against_plain(terms, wants, g):
+    """loss_group_bwd on the card against loss_group_bwd_plain on the same
+    tensors -> (launches, terms, unaligned terms) it counted."""
+    spec = tuple((m, None if torch.is_tensor(t) else t) for m, _, t in terms)
+    tensors = [x for _, a, t in terms for x in ((a, t) if torch.is_tensor(t) else (a,))]
+    assert len(wants) == len(tensors)
+    before = bwd_counts()
+    got = klosses.loss_group_bwd(spec, tensors, wants, g)
+    counted = tuple(x - y for x, y in zip(bwd_counts(), before))
+    want = klosses.loss_group_bwd_plain(spec, tensors, wants, g)
+    torch.cuda.synchronize()
+    for x, y, a, need in zip(got, want, tensors, wants):
+        assert (x is None) == (y is None) == (not need)
+        if x is not None:
+            assert x.shape == a.shape and x.dtype == a.dtype and torch.equal(x, y)
+    return counted
+
+
+def with_ties(a, b):
+    """A third of the elements 0 on both sides, a sixth equal operands."""
+    n = a.numel()
+    a.view(-1)[: n // 3] = 0
+    b.view(-1)[: n // 3] = 0
+    b.view(-1)[n // 3: n // 2] = a.view(-1)[n // 3: n // 2]
+    return a, b
+
+
+def bwd_g(count, dev, kind):
+    """The upstream gradient: weights that are no powers of two with a 0 and
+    a 1 among them, or one weight broadcast (stride 0, as sum's backward
+    hands it)."""
+    if kind == "broadcast":
+        return torch.full((), 0.3, device=dev).expand(count)
+    g = torch.linspace(0.1, 3.7, count, device=dev)
+    g[0], g[min(1, count - 1)] = 0.0, 1.0
+    return g
+
+
+@pytest.mark.parametrize("gk", ["weights", "broadcast"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_loss_group_bwd_mixed_16_terms(cuda_device, dt, gk):
+    """16 terms, MSE and L1, scalar and tensor targets, odd sizes up to a
+    VGG tap's 8.4M, ties; a term where only b takes a gradient and one
+    where nothing does: one launch for the 15 that do."""
+    tdt = getattr(torch, dt)
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    terms, wants = [], []
+    for k, n in enumerate((1, 77, 2345, 300_001, 8_388_608, 33, 4097, 1_000_003)):
+        a, b = with_ties(*(torch.randn(n, generator=gen, device=cuda_device).to(tdt)
+                           for _ in range(2)))
+        terms += [("mse", a, float(k % 3) - 1.0) if k % 2 else ("l1", a, b),
+                  ("mse", b, a) if k % 2 else ("l1", b, 0.25)]
+        wants += ([True] if k % 2 else [True, False]) + ([False, True] if k % 2 else [True])
+    wants[-2:] = [False, False]             # the last term takes no gradient
+    assert len(terms) == 16
+    assert bwd_against_plain(terms, wants, bwd_g(16, cuda_device, gk)) == (1, 15, 0)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_loss_group_bwd_flagship_taps_bs2(cuda_device, dt):
+    """The flagship's feature-matching and VGG groups at 512x512, bs 2,
+    the real side detached; its G and D logit groups (D's real and fake
+    halves of one tensor: at bs 2 the fake halves lie off the 16-byte
+    grid)."""
+    tdt = getattr(torch, dt)
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(tdt)
+
+    vgg = [(2, 512, 512, 64), (2, 256, 256, 128), (2, 128, 128, 256), (2, 64, 64, 512),
+           (2, 32, 32, 512)]
+    fm = [(2, 257, 257, 64), (2, 129, 129, 128), (2, 65, 65, 256), (2, 66, 66, 512),
+          (2, 129, 129, 64), (2, 65, 65, 128), (2, 33, 33, 256), (2, 34, 34, 512)]
+    for shapes in (vgg, fm):
+        terms = [("l1", *with_ties(rand(s), rand(s))) for s in shapes]
+        got = bwd_against_plain(terms, [True, False] * len(shapes),
+                                bwd_g(len(shapes), cuda_device, "weights"))
+        assert got == (1, len(shapes), 0)
+    logits = [rand((4, 67, 67, 1)), rand((4, 35, 35, 1))]
+    g_terms = [("mse", rand((2, 67, 67, 1)), 1.0), ("mse", rand((2, 35, 35, 1)), 1.0)]
+    d_terms = [("mse", x[:2], 1.0) for x in logits] + [("mse", x[2:], 0.0) for x in logits]
+    assert bwd_against_plain(g_terms, [True, True], bwd_g(2, cuda_device, "weights")) == (1, 2, 0)
+    assert bwd_against_plain(d_terms, [True] * 4, bwd_g(4, cuda_device, "weights")) == (1, 4, 2)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_loss_group_bwd_off_grid_view(cuda_device, dt):
+    """Views one element past a 16-byte row start (box2mask's fake D logits
+    at bs 1 are one) take the element path, counted as unaligned, and an
+    aligned term of the same group does not; odd sizes."""
+    tdt = getattr(torch, dt)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    buf = torch.randn(2, 100_008, generator=gen, device=cuda_device).to(tdt)
+    a, b = with_ties(buf[0, 1:], buf[1, 1:])
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    c = torch.randn(2 * 361, generator=gen, device=cuda_device).to(tdt)
+    aligned = torch.randn(1001, generator=gen, device=cuda_device).to(tdt)
+    terms = [("l1", a, b), ("mse", c[361:], 0.0), ("mse", aligned, 1.0), ("mse", a, b)]
+    counted = bwd_against_plain(terms, [True, True, True, True, True, False],
+                                bwd_g(4, cuda_device, "weights"))
+    assert counted == (1, 4, 3)
+
+
+def test_loss_group_bwd_nothing_to_write_launches_nothing(cuda_device):
+    a = torch.randn(1000, device=cuda_device)
+    before = bwd_counts()
+    got = klosses.loss_group_bwd((("l1", None), ("mse", 0.0)), [a, a, a], [False] * 3,
+                                 torch.ones(2, device=cuda_device))
+    assert got == [None] * 3 and bwd_counts() == before
+
+
+def test_loss_group_bwd_through_autograd_and_a_graph(cuda_device):
+    """reduce_group's backward on the card is one launch a group, the
+    plain path's none; captured in a CUDA graph (no host sync: g is read
+    on the card) its replays give the eager bits for a new g."""
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    a = torch.randn((2, 64, 64, 32), generator=gen, device=cuda_device, requires_grad=True)
+    b = torch.randn((2, 64, 64, 32), generator=gen, device=cuda_device)
+    x = torch.randn((2, 35, 35, 1), generator=gen, device=cuda_device, requires_grad=True)
+    terms = [("l1", a, b), ("mse", x, 1.0)]
+    w = torch.tensor([0.3, 1.7], device=cuda_device)
+    before = bwd_counts()
+    got = torch.autograd.grad(klosses.reduce_group(terms), (a, x), w)
+    assert bwd_counts()[0] - before[0] == 1
+    mid = bwd_counts()
+    want = torch.autograd.grad(klosses.reduce_group_plain(terms), (a, x), w)
+    assert bwd_counts() == mid
+    for p, q in zip(got, want):
+        torch.testing.assert_close(p, q, rtol=1e-6, atol=0)
+    spec, tensors, needs = (("l1", None), ("mse", 1.0)), [a.detach(), b, x.detach()], \
+        [True, False, True]
+    g = w.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        klosses.loss_group_bwd(spec, tensors, needs, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = klosses.loss_group_bwd(spec, tensors, needs, g)
+    for weights in ((0.3, 1.7), (2.5, 0.0)):
+        g.copy_(torch.tensor(weights))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = klosses.loss_group_bwd_plain(spec, tensors, needs, g)
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[2], eager[2])
+
+
 def test_encode_cond_counts_apart(cuda_device):
     i = encode_inputs(cuda_device, nc=8)
     e0, c0 = kenc.encode.launches, kenc.encode_cond.launches
@@ -495,11 +652,12 @@ def check_step_kernel_path(model, batch, launches, groups=(2, 2), nudges=("image
                     p.copy_(v)
 
     counters = [kin.instance_norm_bwd, klosses.mse_to_scalar, klosses.l1_to_scalar,
-                krp.reflect_pad_bwd, kenc.encode_cond]
+                krp.reflect_pad_bwd, kenc.encode_cond, klosses.loss_group_bwd]
     before = [c.launches for c in counters]
     groups0 = [klosses.mse_to_scalar.variants["group"], klosses.l1_to_scalar.variants["group"]]
     mk, gk = run(batch, contextlib.nullcontext())
-    assert [c.launches - b for c, b in zip(counters, before)] == list(launches)
+    # the loss groups' backward: one launch a group, each carries a gradient
+    assert [c.launches - b for c, b in zip(counters, before)] == [*launches, sum(groups)]
     assert [klosses.mse_to_scalar.variants["group"] - groups0[0],
             klosses.l1_to_scalar.variants["group"] - groups0[1]] == list(groups)
     mid = [c.launches for c in counters]
@@ -648,13 +806,15 @@ def test_box2mask_step_kernel_path_matches_plain(cuda_device, restore_torch_prec
         return metrics, grads
 
     counters = [kin.instance_norm, kin.instance_norm_bwd, klosses.mse_to_scalar,
-                klosses.l1_to_scalar, krp.reflect_pad_bwd, kenc.encode, kenc.encode_cond]
+                klosses.l1_to_scalar, krp.reflect_pad_bwd, kenc.encode, kenc.encode_cond,
+                klosses.loss_group_bwd]
     before = [c.launches for c in counters]
     groups = klosses.mse_to_scalar.variants["group"]
     mk, gk = run(contextlib.nullcontext())
     # IN: G 2 + 3*2 + 2*2 sites, D 2 applies x 2 sites, forward and backward;
-    # 3 MSE terms in 2 launches; 2*2 resblock pads + the two 7x7 heads
-    assert [c.launches - b for c, b in zip(counters, before)] == [16, 16, 3, 0, 6, 0, 0]
+    # 3 MSE terms in 2 launches, and 2 backward launches; 2*2 resblock pads +
+    # the two 7x7 heads
+    assert [c.launches - b for c, b in zip(counters, before)] == [16, 16, 3, 0, 6, 0, 0, 2]
     assert klosses.mse_to_scalar.variants["group"] - groups == 2
     mid = [c.launches for c in counters]
     mp, gp = run(plain_path())

@@ -2,8 +2,11 @@
 in one launch) on the CPU, where a group takes its plain version: each term
 against the JAX package's Pallas ``mse_to_scalar`` / ``l1_to_scalar``
 (interpret mode) and its VJP, the four losses against the JAX losses on
-the same numpy inputs, and the group table's validation. The kernel itself
-is held to the plain version on the card (``test_torch_kernels_cuda.py``)."""
+the same numpy inputs, and the group table's validation; the group's
+backward (``loss_group_bwd``, its plain version here) against the closed
+form and PyTorch's autograd, and its launch counter. The kernels
+themselves are held to the plain versions on the card
+(``test_torch_kernels_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ import torch
 from neurips18_hierchical_image_manipulation_tpu import losses as jlosses
 from neurips18_hierchical_image_manipulation_tpu.ops.pallas import losses as plosses
 from neurips18_hierchical_image_manipulation_tpu_torch import losses as tlosses
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import calls as kcalls
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import losses as klosses
 
 LOSS_RTOL = 1e-6       # fp32: one sum in another order (test_torch_train_kernels.py)
@@ -150,6 +154,119 @@ def test_group_table_validation(case):
         klosses.reduce_group(terms)
     with pytest.raises(ValueError):
         klosses.reduce_group_plain(terms)
+
+
+# ---------------------------------------------------------------- the backward
+
+def closed_form(spec, tensors, needs, g):
+    """The group's backward as the autograd node wrote it term by term
+    before it had a name of its own: the reference of loss_group_bwd_plain."""
+    saved, need = iter(tensors), iter(needs)
+    grads = []
+    for k, (mode, t) in enumerate(spec):
+        a, need_a = next(saved), next(need)
+        b, need_b = (next(saved), next(need)) if t is None else (None, False)
+        d = a.to(torch.float32) - (b.to(torch.float32) if b is not None else t)
+        if mode == "mse":
+            s = (2.0 * g[k] / a.numel()) * d
+        else:
+            s = (g[k] / a.numel()) * torch.sign(d)
+        grads.append(s.to(a.dtype) if need_a else None)
+        if b is not None:
+            grads.append((-s).to(b.dtype) if need_b else None)
+    return grads
+
+
+def backward_terms(dt, wants):
+    """A mixed group with ties (equal operands, zeros on both sides, a at
+    the scalar target); ``wants`` per tensor whether it takes a gradient."""
+    rng = np.random.RandomState(8)
+    terms, it = [], iter(wants)
+    for k, n in enumerate((1, 77, 2345, 300_001)):
+        a = rng.randn(n).astype(np.float32)
+        b = rng.randn(n).astype(np.float32)
+        a[: n // 3], b[: n // 3] = 0.0, 0.0
+        b[n // 3: n // 2] = a[n // 3: n // 2]
+        if k % 2:
+            a[-1] = 1.0
+        terms.append(("mse", a, float(k % 2)))
+        terms.append(("l1", a, b))
+        terms.append(("mse", b, a))
+        terms.append(("l1", b, -0.25))
+    out = []
+    for m, a, t in terms:
+        ta = torch.from_numpy(a).to(dt).requires_grad_(next(it))
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t).to(dt).requires_grad_(next(it))
+        out.append((m, ta, t))
+    return out
+
+
+def tensors_of(terms):
+    return [x for _, a, t in terms for x in ((a, t) if torch.is_tensor(t) else (a,))]
+
+
+# which tensors take a gradient (per tensor of backward_terms' 24, in order)
+WANTS = {
+    "all": [True] * 24,
+    "a only": [True, True, False, True, False, True] * 4,
+    "b only": [False, False, True, False, True, False] * 4,
+    "some terms none": [True, False, False, False, False, False, True, True, False, True,
+                        False, True] * 2,
+}
+
+
+@pytest.mark.parametrize("wants", list(WANTS))
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_backward_plain_is_the_closed_form_and_autograd(dt, wants):
+    """loss_group_bwd_plain (which CPU tensors take) gives the closed form's
+    gradients bit for bit, through reduce_group's autograd node too, and
+    PyTorch's own autograd through reduce_group_plain; the upstream
+    gradient holds 0, 1 and weights that are no powers of two."""
+    terms = backward_terms(dt, WANTS[wants])
+    tensors = tensors_of(terms)
+    needs = [x.requires_grad for x in tensors]
+    spec = tuple((m, None if torch.is_tensor(t) else t) for m, _, t in terms)
+    g = torch.from_numpy(np.random.RandomState(9).rand(len(terms)).astype(np.float32))
+    g[0], g[1] = 0.0, 1.0
+    got = klosses.loss_group_bwd_plain(spec, tensors, needs, g)
+    want = closed_form(spec, tensors, needs, g)
+    assert [x is None for x in got] == [not n for n in needs]
+    for x, y in zip(got, want):
+        assert (x is None and y is None) or (x.dtype == dt and torch.equal(x, y))
+    wanted = [x for x in tensors if x.requires_grad]
+    by_node = torch.autograd.grad(klosses.reduce_group(terms), wanted, g)
+    by_torch = torch.autograd.grad(klosses.reduce_group_plain(terms), wanted, g)
+    for x, y, z in zip([x for x in got if x is not None], by_node, by_torch):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    for x, y in zip(klosses.loss_group_bwd(spec, tensors, needs, g), got):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_backward_counter_is_counted_and_zeroed_and_the_cpu_launches_nothing():
+    """loss_group_bwd's launch counter (groups; terms and unaligned terms
+    as variants) is one of kernels/calls' counters, zero_launches resets
+    it, and a backward on the CPU, or one that needs no gradient, counts
+    nothing."""
+    assert kcalls.COUNTED["loss_group_bwd"] == (klosses, "loss_group_bwd")
+    assert any(name == "loss_group_bwd" for _, name in kcalls.CALLED)
+    f = klosses.loss_group_bwd
+    saved = f.launches, dict(f.variants)
+    try:
+        f.launches, f.variants["terms"], f.variants["unaligned"] = 3, 7, 2
+        assert kcalls.read_launches()["loss_group_bwd"] == 3
+        assert kcalls.read_variants()["loss_group_bwd"] == {"terms": 7, "unaligned": 2}
+        kcalls.zero_launches()
+        assert (f.launches, f.variants) == (0, {"terms": 0, "unaligned": 0})
+        terms = backward_terms(torch.float32, WANTS["all"])
+        (klosses.reduce_group(terms) * 3.0).sum().backward()
+        spec = tuple((m, None if torch.is_tensor(t) else t) for m, _, t in terms)
+        tensors = tensors_of(terms)
+        none = klosses.loss_group_bwd(spec, tensors, [False] * len(tensors), torch.ones(16))
+        assert none == [None] * len(tensors)
+        assert (f.launches, f.variants) == (0, {"terms": 0, "unaligned": 0})
+    finally:
+        f.launches, f.variants = saved[0], saved[1]
 
 
 # ---------------------------------------------------------------- the losses
