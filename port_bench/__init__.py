@@ -6,5 +6,7 @@ prints one JSON line. Everything a cell needs is found by name: its
 configuration in ``configs/``, its traffic mix in ``traffic/``, the limits
 of its correctness check in ``limits/`` and each per-layer metric's reader
 in ``metrics/``. The plain reference that decides ``correct`` is in
-``reference/`` and imports nothing of the port.
+``reference/`` and imports nothing of the port; each model there is the
+module that declares the configuration's ``model`` (``reference/registry.py``),
+with its counts for ``flops.py``.
 """

@@ -12,6 +12,8 @@ import tempfile
 
 import torch
 
+from .reference import registry
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 PORT = "neurips18_hierchical_image_manipulation_tpu_torch"
@@ -48,14 +50,14 @@ def seed_mix(seed: int, tag: int) -> int:
     return (int(seed) * 0x9E3779B97F4A7C15 + tag * 0xBF58476D1CE4E5B9) % 2**63
 
 
-def make_weights(cfg, seed: int, device, train: bool = True):
+def make_weights(cfg, seed: int, device, train: bool = True, model=None):
     """{net: {name: tensor}} for the reference's networks of ``cfg``, made on
     ``device`` from ``seed``: every weight of two or more dimensions N(0,
-    INIT_STD), drawn for a network in one call, every bias zero."""
-    from .reference.train import MODELS
-
+    INIT_STD), drawn for a network in one call, every bias zero. ``model``:
+    the model's module, by default the one that declares ``cfg["model"]``
+    (``reference/registry.py``)."""
     with torch.device("meta"):
-        ref = MODELS[cfg["model"]](cfg, train)
+        ref = (model or registry.find(cfg["model"])).Reference(cfg, train)
     gen = torch.Generator(device).manual_seed(seed_mix(seed, 0x3E1))
     out = {}
     for net, m in ref.nets.items():

@@ -14,6 +14,10 @@ times a sample: on the fake for G (data gradients only) and on the real and
 the held fake for D (weight gradients, and data gradients below the first
 layer).
 
+A model's own layers come from its module, the one that declares its name
+(``reference/registry.py``): G's layers and IN sites, D's input and scales,
+VGG's taps and the linear layers. The arithmetic they share is here.
+
 IN bytes: every instance-norm site's forward reads x (and the residual,
 where one is added) and writes y; its backward reads x and dy and writes
 dx; each writes or reads its per-(sample, channel) mean and rstd in fp32.
@@ -34,6 +38,8 @@ apart from these three.
 """
 
 from __future__ import annotations
+
+from .reference import registry
 
 
 def conv(n, ho, wo, cin, cout, k):
@@ -134,50 +140,21 @@ def _vgg_taps(h, w):
     return total
 
 
-def _two_stream_g(cfg, s):
-    nc, ngf, nd, nb = cfg["label_nc"], cfg["ngf"], cfg["n_downsample_global"], cfg["n_blocks_global"]
-    layers = [(conv(1, s, s, nc + 1, ngf, 7), False)]
-    sites = [(s * s * ngf, ngf, False)]
-    c, hh = ngf, s
-    for _ in range(nd):
-        hh //= 2
-        layers.append((conv(1, hh, hh, c, 2 * c, 3), True))
-        c *= 2
-        sites.append((hh * hh * c, c, False))
-    layers.append((conv(1, hh, hh, c + nc, c, 1), True))
-    sites.append((hh * hh * c, c, False))
-    for _ in range(nb):
-        layers += [(conv(1, hh, hh, c, c, 3), True)] * 2
-        sites += [(hh * hh * c, c, False), (hh * hh * c, c, True)]
-    for cout in (nc, 1):
-        cc, h2 = c, hh
-        for _ in range(nd):
-            layers.append((convt(1, h2, h2, cc, cc // 2), True))
-            h2, cc = h2 * 2, cc // 2
-            sites.append((h2 * h2 * cc, cc, False))
-        layers.append((conv(1, s, s, ngf, cout, 7), True))
-    return layers, sites
-
-
-def train_step(cfg, n, hw, elem_bytes):
+def train_step(cfg, n, hw, elem_bytes, model=None):
     """{"conv", "conv_fwd", "conv_wgrad", "conv_dgrad", "linear": FLOPs;
-    "in_fwd_bytes", "in_bwd_bytes"} of one train step on n samples of hw."""
+    "in_fwd_bytes", "in_bwd_bytes"} of one train step on n samples of hw.
+    ``model``: the model's module (``reference/registry.py``), by default
+    the one that declares ``cfg["model"]``."""
     h, w = hw
-    if cfg["model"] == "pix2pixHD":
-        g_layers, g_sites = _global_g(cfg, h, w)
-        scales = _d_scales(cfg, h, w, cfg["label_nc"] + 1 + 3, cfg["num_D"])
-        first_share = 3 / (cfg["label_nc"] + 1 + 3)
-        vgg = _vgg_taps(h, w)
-        linear = 0.0
-    else:
-        g_layers, g_sites = _two_stream_g(cfg, h)
-        scales = _d_scales(cfg, h, w, 2 * cfg["label_nc"] + 1, 1)
-        first_share = cfg["label_nc"] / (2 * cfg["label_nc"] + 1)
-        vgg = 0.0
-        linear = 2 * 2.0 * n * cfg["label_nc"] * cfg["ngf"] * 2 ** cfg["n_downsample_global"]
+    m = model or registry.find(cfg["model"])
+    g_layers, g_sites = m.g_layers(cfg, h, w)
+    cin, cond, num_d = m.d_input(cfg)
+    scales = _d_scales(cfg, h, w, cin, num_d)
+    vgg = m.vgg_taps(cfg, h, w)
     g_fwd = n * sum(f for f, _ in g_layers)
     g_dgrad = n * sum(f for f, dgrad in g_layers if dgrad)
-    d_fwd, d_wgrad, d_dgrad = _d_work(scales, n, first_share)
+    # the first layer's data gradient reaches the image, not the conditioning
+    d_fwd, d_wgrad, d_dgrad = _d_work(scales, n, (cin - cond) / cin)
     sites = [(e, c, r, n) for e, c, r in g_sites]
     for _, d_sites in scales:
         sites += [(e, c, False, 3 * n) for e, c in d_sites]
@@ -185,28 +162,23 @@ def train_step(cfg, n, hw, elem_bytes):
     out = {"conv_fwd": g_fwd + d_fwd + 2 * n * vgg,      # VGG: fake and real
            "conv_wgrad": g_fwd + d_wgrad,                 # VGG is frozen
            "conv_dgrad": g_dgrad + d_dgrad + n * vgg,     # VGG: back to the fake
-           "linear": linear, "in_fwd_bytes": in_fwd, "in_bwd_bytes": in_bwd}
+           "linear": m.linear(cfg, n), "in_fwd_bytes": in_fwd, "in_bwd_bytes": in_bwd}
     out["conv"] = out["conv_fwd"] + out["conv_wgrad"] + out["conv_dgrad"]
     return out
 
 
-def g_forward(cfg, n, hw):
+def g_forward(cfg, n, hw, model=None):
     """FLOPs of the served forward (G) on n samples of hw."""
-    layers, _ = (_global_g(cfg, *hw) if cfg["model"] == "pix2pixHD"
-                 else _two_stream_g(cfg, hw[0]))
+    layers, _ = (model or registry.find(cfg["model"])).g_layers(cfg, *hw)
     return n * sum(f for f, _ in layers)
 
 
-def port_differences(cfg, n, hw):
+def port_differences(cfg, n, hw, model=None):
     """FLOPs of ``train_step``'s count that the port does not dispatch: the
     conditioning's share of D's first convolution on the held fake of the
     stacked real-and-fake apply (the port computes it once and tiles it for
     both), its forward and its weight gradient: each is half this."""
     h, w = hw
-    if cfg["model"] == "pix2pixHD":
-        cin, cond = cfg["label_nc"] + 1 + 3, cfg["label_nc"] + 1
-        scales = _d_scales(cfg, h, w, cin, cfg["num_D"])
-    else:
-        cin, cond = 2 * cfg["label_nc"] + 1, cfg["label_nc"] + 1
-        scales = _d_scales(cfg, h, w, cin, 1)
+    cin, cond, num_d = (model or registry.find(cfg["model"])).d_input(cfg)
+    scales = _d_scales(cfg, h, w, cin, num_d)
     return sum(2 * n * layers[0][0] * cond / cin for layers, _ in scales)

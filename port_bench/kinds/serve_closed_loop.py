@@ -70,7 +70,7 @@ def run(ctx):
     factory = common.port_module("models.factory")
     model = ctx.timed("model", lambda: factory.create_model(opt))
     ctx.timed("weights", lambda: model.netG.load_state_dict(
-        common.make_weights(cfg, ctx.seed, dev, train=False)["G"], strict=True))
+        common.make_weights(cfg, ctx.seed, dev, train=False, model=ctx.model)["G"], strict=True))
     rng = np.random.RandomState([ctx.seed & 0xFFFFFFFF, ctx.seed >> 32, 0x5E7])
     keep = set(rng.choice(tr["check_of"], tr["check_requests"], replace=False).tolist())
     kept, lat, count = {}, [], [0]
@@ -104,7 +104,7 @@ def run(ctx):
     ctx.metrics["serve_ms_p95"] = 1e3 * common.quantile(window_lat, 0.95)
     hw = (cfg["options"]["fineSize"],) * 2
     ctx.reading(kind="serve", trace=trace, calls=n, step_s=elapsed / n,
-                work={"g_forward": flops.g_forward(cfg, 1, hw)}, tier=tr["dtype"])
+                work={"g_forward": flops.g_forward(cfg, 1, hw, model=ctx.model)}, tier=tr["dtype"])
     ctx.attempted, ctx.failed = n, 0
     ctx.extra["requests_checked"] = len(kept)
 
@@ -121,7 +121,8 @@ def run(ctx):
 def reference(ctx, pool, kept, precision="fp32"):
     """{request: the reference's image} of the kept requests."""
     ref = rtrain.build(ctx.cfg, False, ctx.device,
-                       common.make_weights(ctx.cfg, ctx.seed, ctx.device, train=False))
+                       common.make_weights(ctx.cfg, ctx.seed, ctx.device, train=False,
+                                           model=ctx.model), model=ctx.model)
     out = {}
     with torch.no_grad(), mode(precision):
         for i in kept:

@@ -77,7 +77,7 @@ def run(ctx):
     model = ctx.timed("model", lambda: factory.create_model(opt))
 
     def load():
-        w = common.make_weights(cfg, ctx.seed, dev, train=True)
+        w = common.make_weights(cfg, ctx.seed, dev, train=True, model=ctx.model)
         for net, m in model.nets().items():
             m.load_state_dict(w[net], strict=True)
         return w
@@ -129,7 +129,8 @@ def run(ctx):
     ctx.metrics["train_samples_per_s"] = n * bs / elapsed
     hw = (cfg["options"]["fineSize"],) * 2
     ctx.reading(kind="train", trace=trace, step_s=elapsed / n, calls=n,
-                work=flops.train_step(cfg, bs, hw, 2 if tr["dtype"] == "bfloat16" else 4),
+                work=flops.train_step(cfg, bs, hw, 2 if tr["dtype"] == "bfloat16" else 4,
+                                      model=ctx.model),
                 tier=tr["dtype"])
     ctx.attempted, ctx.failed = n, 0
 
@@ -151,5 +152,7 @@ def reference(ctx, idx, scenes, precision="fp32"):
     recs = rdata.records(scenes["inst"], o.get("min_box_size", 16))
     batches = [rdata.batch(scenes, recs, rows, o["fineSize"], o["contextMargin"], dev)
                for rows in idx]
-    ref = rtrain.build(cfg, True, dev, common.make_weights(cfg, ctx.seed, dev, train=True))
+    ref = rtrain.build(cfg, True, dev,
+                       common.make_weights(cfg, ctx.seed, dev, train=True, model=ctx.model),
+                       model=ctx.model)
     return rtrain.steps(ref, batches, tr["ref_block"], cfg["lr"], cfg["beta1"], precision)

@@ -26,8 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import flops
 from .layers import Conv, ConvT, PatchD, ResBlock, inorm, onehot
 
+MODEL = "box2mask"
 METRICS = ("G_GAN", "G_recon", "G_obj", "D_real", "D_fake")
 
 
@@ -131,3 +133,50 @@ class BoxToMask:
         metrics = {"G_GAN": g_gan, "G_recon": recon, "G_obj": obj, "D_real": d_real,
                    "D_fake": d_fake}
         return g_gan + recon + obj, 0.5 * (d_real + d_fake), metrics
+
+
+# ---- what the harness asks of a model (reference/registry.py)
+
+Reference = BoxToMask
+
+
+def g_layers(cfg, h, w):
+    """The two-stream G's layers and IN sites on h x w (flops.train_step)."""
+    nc, ngf, nd, nb = cfg["label_nc"], cfg["ngf"], cfg["n_downsample_global"], cfg["n_blocks_global"]
+    conv, convt = flops.conv, flops.convt
+    layers = [(conv(1, h, w, nc + 1, ngf, 7), False)]
+    sites = [(h * w * ngf, ngf, False)]
+    c, hh, ww = ngf, h, w
+    for _ in range(nd):
+        hh, ww = hh // 2, ww // 2
+        layers.append((conv(1, hh, ww, c, 2 * c, 3), True))
+        c *= 2
+        sites.append((hh * ww * c, c, False))
+    layers.append((conv(1, hh, ww, c + nc, c, 1), True))
+    sites.append((hh * ww * c, c, False))
+    for _ in range(nb):
+        layers += [(conv(1, hh, ww, c, c, 3), True)] * 2
+        sites += [(hh * ww * c, c, False), (hh * ww * c, c, True)]
+    for cout in (nc, 1):
+        cc, h2, w2 = c, hh, ww
+        for _ in range(nd):
+            layers.append((convt(1, h2, w2, cc, cc // 2), True))
+            h2, w2, cc = h2 * 2, w2 * 2, cc // 2
+            sites.append((h2 * w2 * cc, cc, False))
+        layers.append((conv(1, h, w, ngf, cout, 7), True))
+    return layers, sites
+
+
+def d_input(cfg):
+    """LayoutD, one PatchGAN: (the layout, the class tiled and the box mask;
+    the conditioning, the class and the box mask; one scale)."""
+    return 2 * cfg["label_nc"] + 1, cfg["label_nc"] + 1, 1
+
+
+def vgg_taps(cfg, h, w):
+    return 0.0
+
+
+def linear(cfg, n):
+    """The class embedding, forward and weight gradient."""
+    return 2 * 2.0 * n * cfg["label_nc"] * cfg["ngf"] * 2 ** cfg["n_downsample_global"]

@@ -21,8 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import flops
 from .layers import Conv, ConvT, PatchD, ResBlock, edges, inorm, onehot
 
+MODEL = "pix2pixHD"
 VGG_CFG = ((64, 64), (128, 128), (256,) * 4, (512,) * 4, (512,) * 4)
 VGG_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 METRICS = ("G_GAN", "G_GAN_Feat", "G_VGG", "D_real", "D_fake")
@@ -158,3 +160,27 @@ class Pix2PixHD:
         metrics = {k: v * share for k, v in metrics.items()}
         return (metrics["G_GAN"] + metrics["G_GAN_Feat"] + metrics["G_VGG"],
                 0.5 * (metrics["D_real"] + metrics["D_fake"]), metrics)
+
+
+# ---- what the harness asks of a model (reference/registry.py)
+
+Reference = Pix2PixHD
+
+
+def g_layers(cfg, h, w):
+    """The GlobalGenerator's layers and IN sites on h x w (flops.train_step)."""
+    return flops._global_g(cfg, h, w)
+
+
+def d_input(cfg):
+    """The multiscale D: (the conditioning and the image; the conditioning,
+    one-hot and edges; num_D scales)."""
+    return cfg["label_nc"] + 1 + 3, cfg["label_nc"] + 1, cfg["num_D"]
+
+
+def vgg_taps(cfg, h, w):
+    return flops._vgg_taps(h, w)
+
+
+def linear(cfg, n):
+    return 0.0

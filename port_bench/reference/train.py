@@ -8,16 +8,15 @@ from __future__ import annotations
 
 import torch
 
-from . import box2mask, pix2pixhd
+from . import registry
 from .precision import mode
 
-MODELS = {"pix2pixHD": pix2pixhd.Pix2PixHD, "box2mask": box2mask.BoxToMask}
 
-
-def build(cfg, train: bool, device, weights):
+def build(cfg, train: bool, device, weights, model=None):
     """The reference of ``cfg`` on ``device`` with ``weights`` ({net: {name:
-    tensor}}) loaded."""
-    ref = MODELS[cfg["model"]](cfg, train)
+    tensor}}) loaded; ``model``: the model's module, by default the one that
+    declares ``cfg["model"]`` (``registry.py``)."""
+    ref = (model or registry.find(cfg["model"])).Reference(cfg, train)
     for net, m in ref.nets.items():
         m.to(device)
         m.load_state_dict(weights[net], strict=True)

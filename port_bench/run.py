@@ -7,8 +7,10 @@ for. The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 (``port_bench/configs/<name>.json``) and a traffic mix
 (``port_bench/traffic/<name>.json``), whose ``kind`` names the code that
 drives it (``port_bench/kinds/<kind>.py``); the limits of the cell's
-correctness check are ``port_bench/limits/<workload>.json``, and each
-per-layer metric is read by ``port_bench/metrics/<metric>.py``.
+correctness check are ``port_bench/limits/<workload>.json``, each
+per-layer metric is read by ``port_bench/metrics/<metric>.py``, and the
+configuration's ``model`` is the module of ``port_bench/reference/`` that
+declares it (its reference, seeded weights' shapes and counts).
 
 A run makes its scenes and weights from ``--seed``, warms up the cell's
 shapes (set-up, ``setup_s``), measures for ``--seconds``, and with
@@ -54,6 +56,7 @@ os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_CACHE, "triton"))
 import torch  # noqa: E402
 
 from port_bench import common, faults  # noqa: E402
+from port_bench.reference import registry  # noqa: E402
 from port_bench.trace import profiled  # noqa: E402
 
 
@@ -78,6 +81,7 @@ class Run:
             return common.load_json(common.named_file(kind, name))
 
         self.cfg = find("configs", cell["config"])
+        self.model = registry.find(self.cfg["model"], files.get("models", ()))
         self.traffic = find("traffic", cell["traffic"])
         self.limits = find("limits", workload)
         self.seed, self.seconds, self.trace = int(seed), float(seconds), bool(trace)
@@ -179,8 +183,9 @@ def end_to_end(bench, run):
 def execute(argv=None, bench=None, require_cuda=True, device=None, fault="none", files=None):
     """Run a cell -> (the result dict that ``main`` prints, the ``Run``).
     ``bench``, ``require_cuda``, ``device``, ``fault`` and ``files``
-    (configurations, traffic and limits by name, in place of their files)
-    are the seams of the tests and of ``calibrate.py``."""
+    (configurations, traffic and limits by name, in place of their files;
+    under ``models``, more directories to find a model's module in) are the
+    seams of the tests and of ``calibrate.py``."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)

@@ -9,6 +9,7 @@ import re
 import pytest
 
 from port_bench import common
+from port_bench.reference import registry
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -137,18 +138,23 @@ def _imports(path):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            yield ("." * node.level) + (node.module or "")
+            base = "." * node.level + (node.module + "." if node.module else "")
+            yield from (base + a.name for a in node.names)
 
 
 def test_reference_imports_nothing_of_the_port_or_jax():
+    """Nothing from outside reference/ but the counts' shared arithmetic,
+    ``flops.py``, which itself imports nothing but the registry."""
     ref = os.path.join(common.HERE, "reference")
     for f in os.listdir(ref):
         if f.endswith(".py"):
             for name in _imports(os.path.join(ref, f)):
                 top = name.lstrip(".").split(".")[0]
                 assert top not in common.FORBIDDEN + (common.PORT,), (f, name)
-                if name.startswith(".."):
+                if name.startswith("..") and name != "..flops":
                     pytest.fail(f"{f} imports {name} from outside reference/")
+    assert set(_imports(os.path.join(common.HERE, "flops.py"))) == {
+        "__future__.annotations", ".reference.registry"}
 
 
 def test_nothing_of_the_benchmark_imports_jax():
@@ -157,3 +163,44 @@ def test_nothing_of_the_benchmark_imports_jax():
             if f.endswith(".py"):
                 for name in _imports(os.path.join(root, f)):
                     assert name.lstrip(".").split(".")[0] not in common.FORBIDDEN, (f, name)
+
+
+def test_every_configuration_names_a_model_the_registry_finds(bench):
+    for c in bench["configs"]:
+        model = common.load_json(os.path.join(common.ROOT, c["file"]))["model"]
+        assert registry.find(model).MODEL == model, c["name"]
+
+
+def _code_strings(path):
+    """The string constants of a file that are not docstrings."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs], tree
+
+
+def test_no_harness_file_names_a_model():
+    """Only a model's own module names it: the harness finds it through the
+    registry, with no table of models and no branch on a configuration's
+    ``model``."""
+    models = set(registry.declarations())
+    kinds = os.path.join(common.HERE, "kinds")
+    files = [os.path.join(common.HERE, f) for f in ("flops.py", "common.py", "run.py",
+                                                    "calibrate.py", "reference/train.py")]
+    files += [os.path.join(kinds, f) for f in os.listdir(kinds) if f.endswith(".py")]
+    for path in files:
+        strings, tree = _code_strings(path)
+        named = [(s, m) for s in strings for m in models if m in s]
+        assert not named, (path, named)
+        assert not any(isinstance(n, ast.Name) and n.id == "MODELS" for n in ast.walk(tree))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Compare):
+                keys = [n.slice.value for n in ast.walk(node) if isinstance(n, ast.Subscript)
+                        and isinstance(n.slice, ast.Constant)]
+                assert "model" not in keys, (path, ast.unparse(node))
