@@ -45,6 +45,7 @@ from torch.utils.checkpoint import (
 from ..kernels import instance_norm as kin
 from ..ops import nnops
 from ..ops.nnops import PaddedStemInput
+from ..train.profiler import span
 
 
 class Conv(nn.Module):
@@ -358,7 +359,12 @@ class LocalEnhancer(nn.Module):
     is c7s1-output_nc + tanh. The input is the unpadded NHWC tensor (its
     pyramid pools it before any pad). The JAX package's packed stems and
     packed-output up are TPU layouts of the same math and have no
-    counterpart."""
+    counterpart.
+
+    Spans (``train/profiler.span``, inside the caller's G span): the pools
+    are ``himan.G.pyramid``, the trunk ``himan.G.trunk`` and branch n from
+    its stem through its up ``himan.G.local{n}`` (the last two timed on
+    the card); the head runs outside them."""
 
     def __init__(self, input_nc, output_nc=3, ngf=32, n_downsample_global=4,
                  n_blocks_global=9, n_local_enhancers=1, n_blocks_local=3,
@@ -387,19 +393,22 @@ class LocalEnhancer(nn.Module):
 
     def forward(self, x):
         pyramid = [x]
-        for _ in range(self.n_local_enhancers):
-            pyramid.append(nnops.avg_pool_3x3s2(pyramid[-1]))
-        out = getattr(self, "global")(pyramid[-1])
+        with span("himan.G.pyramid"):
+            for _ in range(self.n_local_enhancers):
+                pyramid.append(nnops.avg_pool_3x3s2(pyramid[-1]))
+        with span("himan.G.trunk", timed=True):
+            out = getattr(self, "global")(pyramid[-1])
         for n in range(1, self.n_local_enhancers + 1):
             def layer(name, n=n):
                 return getattr(self, f"local{n}_{name}")
 
-            h = layer("norm_in")(layer("conv_in")(pyramid[self.n_local_enhancers - n]))
-            h = layer("norm_down")(layer("down")(h))
-            h = h + out     # the trunk's (or the previous branch's) features
-            for i in range(self.n_blocks_local):
-                h = layer(f"res{i}")(h)
-            out = layer("norm_up")(layer("up")(h))
+            with span(f"himan.G.local{n}", timed=True):
+                h = layer("norm_in")(layer("conv_in")(pyramid[self.n_local_enhancers - n]))
+                h = layer("norm_down")(layer("down")(h))
+                h = h + out     # the trunk's (or the previous branch's) features
+                for i in range(self.n_blocks_local):
+                    h = layer(f"res{i}")(h)
+                out = layer("norm_up")(layer("up")(h))
         return torch.tanh(self.conv_out(out))
 
 
