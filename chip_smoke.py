@@ -36,8 +36,11 @@ raises and the script exits non-zero):
               call (1000 calls); the reflect-pad backward at the resblock and head
               pads, one tile with overlapping mirrors and two odd channel
               counts, each on the variant kernels/reflect_pad._plan picks
-              (bulk or gather), the same bits on a second run; MSE/L1 at the D-logit,
-              FM-feature and VGG-tap sizes (each a group of one), encode_cond
+              (bulk or gather), the same bits on a second run; the reflect-pad
+              forward at every pad site of the benchmark's cells, bit for bit
+              the plain pad twice on the variant kernels/reflect_pad._fwd_plan
+              picks (wide or narrow), timed beside its byte bound; MSE/L1 at
+              the D-logit, FM-feature and VGG-tap sizes (each a group of one), encode_cond
               at 512x256; times beside the library call; the loss groups'
               backward over the flagship's 4 groups (bs 32, 512x512 windows:
               6 MSE + 13 L1 terms), the same bits as its plain version, one
@@ -105,8 +108,8 @@ raises and the script exits non-zero):
               --bg_box_prob 0.25 --lambda_ctx_neg 5.0, bs 1, one epoch over
               phase 6's scenes: counters zeroed before and read after, held
               per step to the architecture's counts (IN 25 + 25, reflect-pad
-              backward 10, 3 MSE terms in 2 loss launches) and per variant
-              to the plans; every loss finite; a background-box sample drawn;
+              backward 10 and forward 11, 3 MSE terms in 2 loss launches) and
+              per variant to the plans; every loss finite; a background-box sample drawn;
               then box2mask_test from its latest over phase 5's scenes:
               "restored checkpoint 'latest'", no partial load, the gallery,
               19 IN forwards a crop
@@ -368,6 +371,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.kernels.bounds import (
     loss_bwd_bytes,
     loss_bytes,
     pad_bwd_bytes,
+    pad_fwd_bytes,
 )
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import conv_in as kconv
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
@@ -521,7 +525,7 @@ FEAT_STEP_HW = (512, 512)   # the train CLI's windows (fineSize)
 SEG_FP32_ATOL = 1e-5        # an fp32 segment mean against the fp64 one, values in [-1, 1]
 ACTS = ("none", "relu", "lrelu")
 TRAIN_KERNELS = ("encode_cond", "instance_norm_bwd", "mse_to_scalar", "l1_to_scalar",
-                 "reflect_pad_bwd")
+                 "reflect_pad_bwd", "reflect_pad_fwd")
 
 
 def log(*a):
@@ -553,6 +557,9 @@ def plan_variant(kind, call):
     if kind == "reflect_pad_bwd":
         (n, hp, wp, c), dt, pad = call
         return krp._plan(n, hp - 2 * pad, wp - 2 * pad, c, pad, dt)["variant"]
+    if kind == "reflect_pad_fwd":
+        shape, dt, pad, aligned = call
+        return krp._fwd_plan(*shape, pad, dt, aligned)["variant"]
     shape, dt = call[:2]
     plan = kin._fwd_plan if kind == "instance_norm" else kin._bwd_plan
     return plan(*shape, dt)["variant"]
@@ -560,9 +567,9 @@ def plan_variant(kind, call):
 
 def plan_variants(kind, calls, groups=()):
     """The launches per variant that the kernel's plan (kernels/instance_norm
-    ._fwd_plan, ._bwd_plan, kernels/reflect_pad._plan) reckons for recorded
-    calls of one kernel; for the loss kernel, the recorded groups that hold
-    a term of its mode."""
+    ._fwd_plan, ._bwd_plan, kernels/reflect_pad._plan, ._fwd_plan) reckons
+    for recorded calls of one kernel; for the loss kernel, the recorded
+    groups that hold a term of its mode."""
     if kind in ("mse_to_scalar", "l1_to_scalar"):
         mode = "mse" if kind == "mse_to_scalar" else "l1"
         return {"group": sum(any(t[0] == mode for t in g) for g in groups)}
@@ -576,7 +583,7 @@ def plan_variants(kind, calls, groups=()):
     return want
 
 
-PLANNED = ("instance_norm", "instance_norm_bwd", "reflect_pad_bwd")
+PLANNED = ("instance_norm", "instance_norm_bwd", "reflect_pad_bwd", "reflect_pad_fwd")
 
 
 def expect_variants(calls, what, since=None):
@@ -644,6 +651,8 @@ def recording():
         "instance_norm_bwd": lambda x, y, g, mean, rstd, act="none", want_dres=False:
             ("instance_norm_bwd", (tuple(x.shape), x.dtype, act, bool(want_dres))),
         "reflect_pad_bwd": lambda dy, pad: ("reflect_pad_bwd", (tuple(dy.shape), dy.dtype, pad)),
+        "reflect_pad_fwd": lambda x, pad: ("reflect_pad_fwd", (tuple(x.shape), x.dtype, pad,
+                                                               x.data_ptr() % 16 == 0)),
         "reduce_group": group,
         "loss_group_bwd": group_bwd,
         "encode_cond": lambda label, inst, nc, dtype=torch.float32:
@@ -820,6 +829,70 @@ def check_pad_bwd(dy, pad, what):
     return check_close(got, krp.reflect_pad_bwd_plain(dy, pad), dy.dtype, PAD_FP32_ATOL, what)
 
 
+def check_pad_fwd(x, pad, what):
+    """The reflect-pad forward twice on the variant its plan picks: both
+    the plain pad's bits -> 0.0 (the max |diff|)."""
+    variant = krp._fwd_plan(*x.shape, pad, x.dtype, x.data_ptr() % 16 == 0)["variant"]
+    got, again = twice_on("reflect_pad_fwd", variant, lambda: krp.reflect_pad_fwd(x, pad), what)
+    want = krp.reflect_pad_plain(x, pad)
+    if not (same_bits(got, want) and same_bits(again, want)):
+        raise AssertionError(f"{what}: not the plain pad's bits")
+    return 0.0
+
+
+def pad_fwd_input(shape, dt, aligned, gen, dev):
+    """x of a recorded forward call: a fresh tensor, or a contiguous view
+    one element past a 16-byte boundary where the call's x was off it."""
+    n = math.prod(shape)
+    flat = torch.randn(n + (not aligned), generator=gen, device=dev).to(dt)
+    return flat[int(not aligned):].view(shape)
+
+
+def library_pad_fwd(x, pad):
+    """The library yardstick: aten's reflection pad on the channels_last
+    view (the same values, NCHW-contiguous; the plain version copies them
+    back to NHWC)."""
+    return lambda: F.pad(x.permute(0, 3, 1, 2), (pad,) * 4, mode="reflect")
+
+
+# every pad site of the benchmark's cells in its dtype: (N, H, W, C), pad,
+# dtype -- the flagship bf16 bs 32 (resblocks, head; its stem's pad is in
+# the encode), the 1024p step (trunk stem and resblocks, branch stem and
+# resblocks, head), box2mask (stem, resblocks, the two heads), the fp32
+# flagship at bs 16 and the fp32 serving forward at bs 1
+PAD_FWD_SITES = (
+    ((32, 32, 32, 1024), 1, torch.bfloat16), ((32, 512, 512, 64), 3, torch.bfloat16),
+    ((8, 512, 512, 39), 3, torch.bfloat16), ((8, 32, 32, 1024), 1, torch.bfloat16),
+    ((8, 1024, 1024, 39), 3, torch.bfloat16), ((8, 512, 512, 64), 1, torch.bfloat16),
+    ((8, 1024, 1024, 32), 3, torch.bfloat16),
+    ((128, 128, 128, 36), 3, torch.bfloat16), ((128, 16, 16, 512), 1, torch.bfloat16),
+    ((128, 128, 128, 64), 3, torch.bfloat16),
+    ((16, 32, 32, 1024), 1, torch.float32), ((16, 512, 512, 64), 3, torch.float32),
+    ((1, 32, 32, 1024), 1, torch.float32), ((1, 512, 512, 64), 3, torch.float32))
+
+
+def pad_fwd_rows(dev, gen):
+    """The reflect-pad forward at each site: bit for bit the plain pad
+    twice, on its plan's variant; CUDA-graph device ms of the kernel, the
+    plain version and the library call beside the byte bound -> rows."""
+    rows = []
+    for shape, pad, dt in PAD_FWD_SITES:
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        check_pad_fwd(x, pad, f"reflect-pad fwd {shape} p{pad} {dt}")
+        bms, by = bound(*pad_fwd_bytes(shape, pad, x.element_size()))
+        row = dict(kernel="reflect_pad_fwd", shape=list(shape), pad=pad, dtype=str(dt)[6:],
+                   plan=krp._fwd_plan(*shape, pad, dt),
+                   ms=graph_ms(lambda: krp.reflect_pad_fwd(x, pad)),
+                   plain_ms=graph_ms(lambda: krp.reflect_pad_plain(x, pad)),
+                   library_ms=graph_ms(library_pad_fwd(x, pad)), bound_ms=bms, bound_by=by)
+        row["of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log(f"[kernels train] {row}")
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def library_in_bwd(x, gy):
     """The library yardstick: the backward of F.instance_norm (IN alone, no
     activation or residual) on the same x and cotangent, as the one aten
@@ -918,6 +991,10 @@ def phase_train_kernels(dev, results):
                        library_ms=graph_ms(library_pad_bwd(dy, pad)), bound_ms=bms, bound_by=by)
             rows.append(row)
             log(f"[kernels train] {row}")
+    # the forward at every pad site of the benchmark's cells
+    for row in pad_fwd_rows(dev, gen):
+        keep("reflect_pad_fwd", getattr(torch, row["dtype"]), 0.0)
+        rows.append(row)
     # the D logits of both scales, the FM features, the VGG taps at 512x256
     loss_shapes = [(1, 35, 67, 1), (1, 19, 35, 1), (1, 129, 257, 64), (1, 65, 129, 128),
                    (1, 34, 66, 512), (1, 256, 512, 64), (1, 128, 256, 128), (1, 64, 128, 256),
@@ -1164,6 +1241,14 @@ def site_inputs(kind, calls, dev, gen):
             lib.append(library_pad_bwd(dy, pad))
             b, o = pad_bwd_bytes(shape, pad, dy.element_size())
             e = (kern[-1]().float() - plain[-1]().float()).abs().max().item()
+        elif kind == "reflect_pad_fwd":
+            shape, dt, pad, aligned = call
+            x = pad_fwd_input(shape, dt, aligned, gen, dev)
+            kern.append(lambda x=x, p=pad: krp.reflect_pad_fwd(x, p))
+            plain.append(lambda x=x, p=pad: krp.reflect_pad_plain(x, p))
+            lib.append(library_pad_fwd(x, pad))
+            b, o = pad_fwd_bytes(shape, pad, x.element_size())
+            e = check_pad_fwd(x, pad, f"reflect-pad fwd {shape} p{pad}")
         elif kind == "encode":
             shape, pad = call
             inp = encode_inputs(shape[0], shape[1], shape[2], dev, seed=len(kern))
@@ -1249,11 +1334,11 @@ def time_loss_groups(kind, groups, dev, seed):
         bytes=nbytes)
 
 
-def train_per_step(g_sites, opt, pads=None):
+def train_per_step(g_sites, opt, pads, fwd_pads):
     """Launches of each kernel in one train step of this architecture
     (g_sites: the IN sites of G's forward, the Encoder's included; pads:
-    the reflect pads whose backward runs, by default the GlobalGenerator's
-    2 a resblock and its head). With the image pool the D step encodes its
+    the reflect pads whose backward runs; fwd_pads: the reflect pads the
+    forward runs, ``forward_pads``). With the image pool the D step encodes its
     conditioning again, and the G step runs D on the real image for feature
     matching on its own. Without the masked image G's input is a no-image
     encode, which counts on encode_cond."""
@@ -1268,8 +1353,7 @@ def train_per_step(g_sites, opt, pads=None):
         "l1_to_scalar": ((0 if opt.no_ganFeat_loss else (opt.n_layers_D + 1) * opt.num_D)
                          + (0 if opt.no_vgg_loss else 5)),
         "loss_group_bwd": sum(loss_groups_per_step(opt).values()),
-        "reflect_pad_bwd": 2 * opt.n_blocks_global + 1 if pads is None else pads,
-        "conv3x3_in_act": 0,
+        "reflect_pad_bwd": pads, "reflect_pad_fwd": fwd_pads, "conv3x3_in_act": 0,
     }
 
 
@@ -1293,27 +1377,49 @@ def b2m_per_step(opt):
     resblock, both decoders' ups: 19 at full width) and at the n_layers_D
     sites of each of the two D applies, forward and backward; the
     reflect-pad backward at the resblock pads and the two 7x7 heads (the
-    stem's input takes no gradient); LSGAN's 3 MSE terms."""
+    stem's input takes no gradient), its forward at those and the stem;
+    LSGAN's 3 MSE terms."""
     g_sites = 2 + 3 * opt.n_downsample_global + 2 * opt.n_blocks_global
     in_sites = g_sites + 2 * opt.n_layers_D
     return {"encode": 0, "encode_cond": 0, "instance_norm": in_sites,
             "instance_norm_bwd": in_sites, "mse_to_scalar": 0 if opt.no_lsgan else 3,
             "loss_group_bwd": 0 if opt.no_lsgan else 2,
             "l1_to_scalar": 0, "reflect_pad_bwd": 2 * opt.n_blocks_global + 2,
-            "conv3x3_in_act": 0}
+            "reflect_pad_fwd": 2 * opt.n_blocks_global + 3, "conv3x3_in_act": 0}
+
+
+def runs_encoder(model):
+    """The instance-feature Encoder runs in the model's forward (not under
+    --load_features, and not without features)."""
+    return getattr(model, "netE", None) is not None and not getattr(model.opt, "load_features",
+                                                                    False)
+
+
+def forward_pads(model, encoder=None):
+    """The reflect pads one generator forward runs, a reflect_pad_fwd launch
+    each: box2mask's 2 a resblock, two heads and stem; a GlobalGenerator's or
+    LocalEnhancer's pads whose backward runs (``generator_counts``) and its
+    stems, but a GlobalGenerator stem whose pad the encode kernel makes
+    (the windows here are even); with ``encoder`` (default: whether it
+    runs), the Encoder's stem and head."""
+    if isinstance(model, BoxToMaskModel):
+        return 2 * model.opt.n_blocks_global + 3
+    _, pads, stems = generator_counts(model.netG)
+    pads += 0 if model._padded_stem(2, 2) else stems
+    return pads + (2 if (runs_encoder(model) if encoder is None else encoder) else 0)
 
 
 def per_step_of(model):
     """Launches of each kernel in one train step of the model's architecture.
     The instance-feature Encoder (not run under --load_features) adds its 1 +
     2 n_down IN sites (9), its head's pad and the generator stems' pads,
-    whose input now takes its gradient."""
+    whose input now takes its gradient; forward, its stem's pad too."""
     if isinstance(model, BoxToMaskModel):
         return b2m_per_step(model.opt)
     g_sites, pads, stems = generator_counts(model.netG)
-    if model.netE is not None and not model.opt.load_features:
+    if runs_encoder(model):
         g_sites, pads = g_sites + 1 + 2 * model.netE.n_downsampling, pads + 1 + stems
-    return train_per_step(g_sites, model.opt, pads)
+    return train_per_step(g_sites, model.opt, pads, forward_pads(model))
 
 
 def loss_groups_per_step(opt):
@@ -1475,10 +1581,13 @@ def phase_roofline(tmp, results):
     launches = read_launches()
     # the fused kernel: warm-up, timed calls and one compared with the plain
     # composition; the reflect-pad backward: the plain resblock's two pads
-    # in each warm-up and timed forward + backward
+    # in each warm-up and timed forward + backward; its forward: the plain
+    # conv_in_relu's pad in its timed calls and one compared, the plain
+    # resblock's two in its forward and in its forward + backward
     calls = report["iters"] + int(ROOFLINE_ARGV[ROOFLINE_ARGV.index("--warmup") + 1])
     expect_launches(launches, dict({k: 0 for k in launches}, conv3x3_in_act=calls + 1,
-                                   reflect_pad_bwd=2 * calls), "roofline tool")
+                                   reflect_pad_bwd=2 * calls, reflect_pad_fwd=5 * calls + 1),
+                    "roofline tool")
     # every call at bs 32 is the wgmma kernel (kernels/conv_in._plan)
     variants = read_variants()["conv3x3_in_act"]
     expect_launches(variants, dict({k: 0 for k in variants}, wgmma=calls + 1),
@@ -1811,15 +1920,15 @@ def phase_train_step_bf16(dev, results):
     results["step_bf16"] = rows
     del model
     torch.cuda.empty_cache()
-    # the IN forward, the reflect-pad backward and the loss groups over the
-    # calls of one bs-1 bf16 step
+    # the IN forward, the reflect-pad backward and forward and the loss
+    # groups over the calls of one bs-1 bf16 step
     table = []
-    for i, name in enumerate(("instance_norm", "reflect_pad_bwd")):
+    for i, name in enumerate(("instance_norm", "reflect_pad_bwd", "reflect_pad_fwd")):
         trow = dict(name=name, **time_sites(name, step_calls[name], dev, seed=60 + i))
         table.append(trow)
         log(f"[step bf16 {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
     for i, name in enumerate(("mse_to_scalar", "l1_to_scalar")):
-        trow = dict(name=name, **time_loss_groups(name, step_calls["loss_group"], dev, 62 + i))
+        trow = dict(name=name, **time_loss_groups(name, step_calls["loss_group"], dev, 63 + i))
         table.append(trow)
         log(f"[step bf16 {STEP_HW[1]}x{STEP_HW[0]} bs 1] {trow}")
     results["train_step_kernels_bf16"] = table
@@ -1887,8 +1996,9 @@ def check_loss_group(table, dev, gen, what):
 
 
 def check_recorded(recorded, dev, seed, tag):
-    """Each distinct recorded call of rows 4-7 (and of encode and
-    encode_cond, where recorded) on fresh inputs of its shape: against its
+    """Each distinct recorded call of rows 4-7 and of the reflect pad's
+    forward (and of encode and encode_cond, where recorded) on fresh inputs
+    of its shape: against its
     plain version on the variant its plan picks, the same bits twice (the
     encodes bit-exact, in fp32 and bf16) -> (max |kernel - plain| by kind
     and dtype, calls checked by kind)."""
@@ -1915,6 +2025,9 @@ def check_recorded(recorded, dev, seed, tag):
     for shape, dt, pad in distinct["reflect_pad_bwd"]:
         dy = torch.randn(shape, generator=gen, device=dev).to(dt)
         keep("reflect_pad_bwd", dt, check_pad_bwd(dy, pad, f"{tag} pad bwd {shape} p{pad}"))
+    for shape, dt, pad, aligned in distinct["reflect_pad_fwd"]:
+        x = pad_fwd_input(shape, dt, aligned, gen, dev)
+        keep("reflect_pad_fwd", dt, check_pad_fwd(x, pad, f"{tag} pad fwd {shape} p{pad}"))
     for table in distinct["loss_group"]:
         keep("loss_group", table[0][2],
              check_loss_group(list(table), dev, gen, f"{tag} loss group {table}"))
@@ -2005,6 +2118,7 @@ def phase_b2m_cli(tmp, results):
     log(f"[box2mask train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
         f"variants {variants}")
     g_sites = per_step["instance_norm"] - 2 * model.opt.n_layers_D
+    g_pads = per_step["reflect_pad_fwd"]
     del model
     torch.cuda.empty_cache()
 
@@ -2023,8 +2137,8 @@ def phase_b2m_cli(tmp, results):
     slaunches = read_launches()
     if "restored checkpoint 'latest'" not in text or "partial load" in text:
         raise AssertionError("box2mask_test did not restore latest in full")
-    expect_launches(slaunches, dict({k: 0 for k in slaunches}, instance_norm=g_sites * how_many),
-                    "box2mask serving CLI")
+    expect_launches(slaunches, dict({k: 0 for k in slaunches}, instance_norm=g_sites * how_many,
+                                    reflect_pad_fwd=g_pads * how_many), "box2mask serving CLI")
     svariants = expect_variants(scalls, "box2mask serving CLI")
     with open(os.path.join(tmp, "results_b2m", "smoke_b2m", "test_latest", "index.html")) as f:
         html = f.read()
@@ -2064,7 +2178,8 @@ def phase_b2m_step(dev, results):
             log(f"[box2mask step] {row}")
         if dtype == "float32":
             cmp = compare_step(model, b2m_batch(1, dev, seed=60), nudge="params",
-                               kernels=("instance_norm_bwd", "mse_to_scalar", "reflect_pad_bwd"))
+                               kernels=("instance_norm_bwd", "mse_to_scalar", "reflect_pad_bwd",
+                                        "reflect_pad_fwd"))
         del model
         torch.cuda.empty_cache()
     # inference, fp32 at bs 1, through the test options (the trained depth)
@@ -2117,21 +2232,26 @@ def stage_sites(model, bs=1):
     return [(shape, torch.float32, act, res) for shape, act, res in sites]
 
 
-def expect_path_launches(calls, launches, in_sites, encodes, what):
+def expect_path_launches(calls, launches, in_sites, encodes, pads, what):
     """A path's launches held to what its architecture reckons: the IN
     forward at `in_sites` (in order, and per variant as
     kernels/instance_norm._fwd_plan picks), encode at `encodes` ((label
-    shape, pad) each), every other kernel 0."""
+    shape, pad) each), the reflect pad's forward at `pads` calls (per
+    variant as kernels/reflect_pad._fwd_plan picks), every other kernel 0."""
     if calls["instance_norm"] != in_sites:
         raise AssertionError(f"{what}: IN calls off the architecture "
                              f"({len(calls['instance_norm'])} against {len(in_sites)})")
     if calls["encode"] != encodes:
         raise AssertionError(f"{what}: encode calls {calls['encode']}, expected {encodes}")
+    if len(calls["reflect_pad_fwd"]) != pads:
+        raise AssertionError(f"{what}: {len(calls['reflect_pad_fwd'])} reflect pads, "
+                             f"expected {pads}")
     expect_launches(launches, dict({k: 0 for k in launches}, encode=len(encodes),
-                                   instance_norm=len(in_sites)), what)
+                                   instance_norm=len(in_sites), reflect_pad_fwd=pads), what)
     variants = read_variants()
-    expect_launches(variants["instance_norm"], plan_variants("instance_norm", in_sites),
-                    f"{what}, IN variants")
+    for kind in ("instance_norm", "reflect_pad_fwd"):
+        expect_launches(variants[kind], plan_variants(kind, calls[kind]),
+                        f"{what}, {kind} variants")
     return variants
 
 
@@ -2239,7 +2359,8 @@ def phase_two_step_cli(tmp, results):
         ms = m2i.opt.fineSize
         variants = expect_path_launches(
             calls, launches, (stage_sites(b2m) + stage_sites(m2i)) * passes,
-            [((1, ms, ms), 3)] * passes, f"two-step demo {edit} {m2i_name}")
+            [((1, ms, ms), 3)] * passes, (forward_pads(b2m) + forward_pads(m2i)) * passes,
+            f"two-step demo {edit} {m2i_name}")
         # each stage's inference under its own tier's TF32 switches
         tier = {"b2m": b2m.conv_precision_resolved == "default",
                 "m2i": m2i.conv_precision_resolved == "default"}
@@ -2424,6 +2545,7 @@ def phase_two_step_pipeline(tmp, dev, results):
             expect_path_launches(calls, read_launches(),
                                  (stage_sites(b2m, bs) + stage_sites(m2i, bs)) * passes,
                                  [((bs, pipe.m2i_size, pipe.m2i_size), 3)] * passes,
+                                 (forward_pads(b2m) + forward_pads(m2i)) * passes,
                                  f"two-step {mode} bs {bs}")
             with cudnn_deterministic():
                 first, again = run(), run()
@@ -2518,7 +2640,7 @@ def phase_evaluate_cli(tmp, results):
             raise AssertionError(f"evaluate {stage}: {res}")
         encodes = [] if stage == "box2mask" else [((1, model.opt.fineSize, model.opt.fineSize), 3)] * n
         variants = expect_path_launches(calls, read_launches(), stage_sites(model) * n, encodes,
-                                        f"evaluate {stage}")
+                                        forward_pads(model) * n, f"evaluate {stage}")
         launches = read_launches()
         add_paths(total, launches, variants)
         row = dict(stage=stage, result=res, wall_s=wall, samples=n, launches=launches,
@@ -2681,7 +2803,7 @@ def phase_local_cli(tmp, dev, results):
     variants = expect_variants(calls, "1024p train CLI")
     log(f"[1024p train CLI] losses, first step {errors[0]}, last step {errors[-1]}; "
         f"variants {variants}")
-    g_sites = generator_counts(model.netG)[0]
+    g_sites, g_pads = generator_counts(model.netG)[0], forward_pads(model)
     del model, pre
     torch.cuda.empty_cache()
 
@@ -2690,7 +2812,8 @@ def phase_local_cli(tmp, dev, results):
         tmp, "smoke_1024p", ckpt, os.path.join(tmp, "city"), flags(LOCAL_G),
         os.path.join(tmp, "results_1024p"), how_many)
     expect_launches(slaunches, dict({k: 0 for k in slaunches}, encode=how_many,
-                                    instance_norm=g_sites * how_many), "1024p serving CLI")
+                                    instance_norm=g_sites * how_many,
+                                    reflect_pad_fwd=g_pads * how_many), "1024p serving CLI")
     svariants = expect_variants(scalls, "1024p serving CLI")
     if svariants["encode"] != {"pad0": how_many, "pad3": 0}:
         raise AssertionError(f"1024p serving CLI: encode variants {svariants['encode']}")
@@ -2880,12 +3003,13 @@ def phase_feat_cli(tmp, dev, results):
         row = dict(wall_s=wall, steps=steps, launches=launches, per_step=per_step,
                    losses=errors, variants=variants)
         recorded[name] = calls
-        sites = generator_counts(model.netG)[0], 1 + 2 * model.netE.n_downsampling
+        sites = (generator_counts(model.netG)[0], 1 + 2 * model.netE.n_downsampling,
+                 forward_pads(model, encoder=False))
         del model
         torch.cuda.empty_cache()
         return row, sites
 
-    row, (g_sites, e_sites) = train("smoke_feat")
+    row, (g_sites, e_sites, g_pads) = train("smoke_feat")
     paths["train_instance_feat"] = row
     npy = os.path.join(tmp, "features_clustered_010.npy")
     clusters, launches, calls = drive_tool(
@@ -2893,9 +3017,12 @@ def phase_feat_cli(tmp, dev, results):
     if clusters.shape != (35, 10, 3) or not np.isfinite(clusters).all() \
             or not np.abs(clusters[[24, 26, 33]]).max() > 0:
         raise AssertionError(f"clusters {clusters.shape} not finite or empty")
-    if launches["instance_norm"] == 0 or launches["instance_norm"] % e_sites \
-            or any(n for k, n in launches.items() if k != "instance_norm"):
-        raise AssertionError(f"encode_features: launches {launches}, {e_sites} IN a window")
+    # the Encoder a window: its IN sites, and its stem's and head's pads
+    windows = launches["instance_norm"] // e_sites
+    if windows == 0 or launches != dict({k: 0 for k in launches}, instance_norm=e_sites * windows,
+                                        reflect_pad_fwd=2 * windows):
+        raise AssertionError(f"encode_features: launches {launches}, {e_sites} IN and 2 pads "
+                             "a window")
     recorded["encode_features"] = calls
     paths["encode_features"] = dict(launches=launches,
                                     variants=expect_variants(calls, "encode_features"))
@@ -2907,15 +3034,16 @@ def phase_feat_cli(tmp, dev, results):
     if "loaded feature clusters (35, 10, 3)" not in text:
         raise AssertionError("the serving CLI did not load the clusters")
     expect_launches(slaunches, dict({k: 0 for k in slaunches}, encode=how_many,
-                                    instance_norm=g_sites * how_many), "clusters serving CLI")
+                                    instance_norm=g_sites * how_many,
+                                    reflect_pad_fwd=g_pads * how_many), "clusters serving CLI")
     recorded["serving_clusters"] = scalls
     paths["serving_clusters"] = dict(wall_s=swall, launches=slaunches,
                                      variants=expect_variants(scalls, "clusters serving CLI"))
     feat_dir, launches, calls = drive_tool(
         precompute_feature_maps.main, ["--name", "smoke_feat", *common], "precompute")
     n_maps = len(os.listdir(feat_dir))
-    expect_launches(launches, dict({k: 0 for k in launches}, instance_norm=e_sites * n_maps),
-                    "precompute_feature_maps")
+    expect_launches(launches, dict({k: 0 for k in launches}, instance_norm=e_sites * n_maps,
+                                   reflect_pad_fwd=2 * n_maps), "precompute_feature_maps")
     fmap = np.load(os.path.join(feat_dir, sorted(os.listdir(feat_dir))[0]))
     if fmap.shape != (*DATAROOT_HW, 3) or not np.isfinite(fmap).all():
         raise AssertionError(f"feature map {fmap.shape} not finite")
@@ -3311,6 +3439,7 @@ SOURCES = {
     "mse_to_scalar": ("csrc/losses.cu", "ops/pallas/losses.py:39"),
     "l1_to_scalar": ("csrc/losses.cu", "ops/pallas/losses.py:39"),
     "reflect_pad_bwd": ("csrc/reflect_pad.cu", "ops/pallas/reflect_pad.py:82"),
+    "reflect_pad_fwd": ("csrc/reflect_pad.cu", None),   # no TPU kernel: jnp.pad
 }
 
 
@@ -3329,7 +3458,8 @@ def phase_train_main_path_kernels(dev, cli_launches, cli_calls, cli_variants, st
     for i, name in enumerate(TRAIN_KERNELS):
         src, tpu = SOURCES[name]
         row = dict(name=name, route="cuda", source=f"{PKG}/{src}",
-                   replaces=f"{JAX_PKG}/{tpu}", launches=cli_launches[name],
+                   replaces=f"{JAX_PKG}/{tpu}" if tpu else "none (jnp.pad, fused by XLA)",
+                   launches=cli_launches[name],
                    **timed(name, cli_calls, 20 + i))
         row["per"] = (f"the {row['launches_per_step']} calls one train-CLI step makes "
                       f"(bbox windows, bs 1, fp32)")
@@ -3446,7 +3576,7 @@ def phase_serving(tmp, results):
         outputs.append((tuple(out.shape), bool(torch.isfinite(out).all())))
         return out
 
-    per_forward, arch = [], {}
+    per_forward, pads, arch = [], [], {}
 
     def record_site(module, args, kwargs, _out):
         if len(sites) < per_forward[0]:
@@ -3459,6 +3589,7 @@ def phase_serving(tmp, results):
         model = orig_create(opt)
         g = model.netG
         per_forward.append(1 + 2 * g.n_downsampling + 2 * g.n_blocks)  # 27 at full width
+        pads.append(forward_pads(model))                               # 19
         arch.update(ngf=g.conv_in.weight.shape[0], n_down=g.n_downsampling,
                     n_blocks=g.n_blocks)
         log(f"[serving] GlobalGenerator {sum(p.numel() for p in g.parameters())} params, "
@@ -3501,7 +3632,8 @@ def phase_serving(tmp, results):
         raise AssertionError(f"non-finite or missing outputs: {outputs}")
     expect_launches(launches, dict(
         {k: 0 for k in launches}, encode=len(outputs),
-        instance_norm=per_forward[0] * len(outputs)), "serving CLI")
+        instance_norm=per_forward[0] * len(outputs), reflect_pad_fwd=pads[0] * len(outputs)),
+        "serving CLI")
     if len(sites) != per_forward[0]:
         raise AssertionError(f"expected {per_forward[0]} IN sites per forward, saw {len(sites)}")
     if sites != generator_sites(*outputs[0][0][:3], **arch):
@@ -3781,15 +3913,18 @@ def held_to_sensitivity(got, want, sens, metrics, want_metrics, what):
     return dict(gradients=whole, bit_equal=bits, sensitivity=sens, max_loss_rel=loss_rel)
 
 
-def expect_remat_launches(policy, launches, none):
+def expect_remat_launches(policy, launches, none, n_blocks):
     """A remat policy launches what ``none`` launches, but for the IN
-    forwards its recompute adds (none under ``none``) -> their count."""
-    extra = launches["instance_norm"] - none["instance_norm"]
-    if {k: v for k, v in launches.items() if k != "instance_norm"} != \
-            {k: v for k, v in none.items() if k != "instance_norm"} or \
-            (policy == "none") != (extra == 0):
+    forwards and the reflect pads' forwards its recompute adds (none under
+    ``none``; the pads 2 a resblock) -> the IN forwards it adds."""
+    again = ("instance_norm", "reflect_pad_fwd")
+    extra = {k: launches[k] - none[k] for k in again}
+    if {k: v for k, v in launches.items() if k not in again} != \
+            {k: v for k, v in none.items() if k not in again} or \
+            (policy == "none") != (extra["instance_norm"] == 0) or \
+            extra["reflect_pad_fwd"] != (0 if policy == "none" else 2 * n_blocks):
         raise AssertionError(f"remat {policy}: launches {launches} vs none {none}")
-    return extra
+    return extra["instance_norm"]
 
 
 def phase_remat(dev, results):
@@ -3834,7 +3969,8 @@ def phase_remat(dev, results):
             if convs.n != want_convs:
                 raise AssertionError(f"remat {policy}: {convs.n} convolutions in backward, "
                                      f"want {want_convs}")
-            row["instance_norm_recomputed"] = expect_remat_launches(policy, launches, ref[3])
+            row["instance_norm_recomputed"] = expect_remat_launches(
+                policy, launches, ref[3], model.netG.n_blocks)
             del grads
             state = make_optimizers(opt, model, 1000)
             step = make_train_step(model, compute)
@@ -4408,7 +4544,8 @@ def phase_tools_convert(tmp, dev, results):
         raise AssertionError(f"parity render: calls off the serving path "
                              f"({len(calls['instance_norm'])} IN, {calls['encode']})")
     expect_launches(launches, dict({k: 0 for k in launches}, encode_cond=n,
-                                   instance_norm=len(stage_sites(model)) * n), "parity render")
+                                   instance_norm=len(stage_sites(model)) * n,
+                                   reflect_pad_fwd=forward_pads(model) * n), "parity render")
     log(f"[parity report] {json.dumps(report['stages'])}; launches {launches}")
 
     # the converted G against pix2pixHD's module, both on the card
@@ -4495,7 +4632,8 @@ def phase_tools_export(tmp, results):
                     out = fn()
                 torch.cuda.synchronize()
                 variants = expect_path_launches(calls, read_launches(), stage_sites(model),
-                                                encodes, f"export {stage} {who}")
+                                                encodes, forward_pads(model),
+                                                f"export {stage} {who}")
                 runs[who] = dict(fn=fn, out=out if isinstance(out, tuple) else (out,),
                                  launches=read_launches(), variants=variants)
             timing = interleaved_ms({who: r["fn"] for who, r in runs.items()},
@@ -5002,7 +5140,7 @@ def main(argv=None):
     for row in kernels:
         if row["name"] == "instance_norm":
             row["variants"] = results["serving"]["variants"]
-        if row["name"] in ("instance_norm_bwd", "reflect_pad_bwd"):
+        if row["name"] in ("instance_norm_bwd", "reflect_pad_bwd", "reflect_pad_fwd"):
             row["variants"] = cli_variants[row["name"]]
         if row["name"] == "conv3x3_in_act":
             row["variants"] = results["roofline"]["variants"]

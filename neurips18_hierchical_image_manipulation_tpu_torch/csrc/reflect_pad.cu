@@ -1,5 +1,50 @@
-// Backward of ReflectionPad2d(p) on NHWC: folds the cotangent of the padded
-// tensor, dy (N, H+2p, W+2p, C), back onto the input, dx (N, H, W, C).
+// ReflectionPad2d(p) on NHWC, forward and backward.
+//
+// ------------------------------------------------------------- forward
+// y (N, H+2p, W+2p, C) from x (N, H, W, C): output row yo of image n copies
+// source row reflect(yo - p), output column xo source pixel reflect(xo - p),
+// where reflect(i) = |i| below 0 and 2(n-1) - i from n on (H, W > p, so one
+// bounce; the mirrors may overlap).
+//
+// Replaces no TPU kernel: the JAX package pads with jnp.pad, which XLA
+// fuses into its neighbours. On the card the plain version
+// (kernels/reflect_pad.reflect_pad_plain) takes three passes: aten's
+// reflection pad makes the channels_last view of x contiguous NCHW (a
+// transposing copy), pads in NCHW, and the result is copied back to NHWC
+// (a second transposing copy). This kernel is one NHWC pass.
+//
+// Bound: bytes. x is read once and y written once: at the flagship's
+// resblock pad (32, 32, 32, 1024) bf16 that is 67.1 MB + 75.8 MB, 42.7 us at
+// 3.35 TB/s; its head pad (32, 512, 512, 64) 1.07 GB + 1.10 GB, 0.65 ms.
+//
+// Global memory moves in 16-byte vectors on both sides. Items are output
+// rows times tiles of a row (kernels/reflect_pad._fwd_plan: at most 16 KB
+// of output an item, at least 264 items where the rows allow), one block of
+// 256 threads an item; each thread issues its (up to) 4 loads before its
+// stores. Two forms, by the pixel's byte width:
+// wide (C * itemsize a multiple of 16, x 16-byte aligned: every resblock
+// and head pad): an item is `tile` output pixels; each output vector copies
+// the vector of its source pixel.
+// narrow (the 39- and 36-channel stems, 78 / 72 bytes a pixel in bf16; also
+// a misaligned x): output pixels do not start on 16-byte boundaries. Each
+// item is `tile` 16-byte chunks of the flat output, those whose first byte
+// lies in its row. A chunk whose bytes come from one contiguous source run
+// (one output row, and one source pixel or only interior pixels) loads the
+// one or two aligned 16-byte vectors that hold the run and shifts it into
+// place; the chunks at the mirrors and across rows (about 1 % of a stem's)
+// gather element by element. Every chunk is stored as one aligned vector
+// but the flat output's last, partial one, which is written element by
+// element. The aligned vector that holds a byte of x lies inside x's
+// allocation (the allocators align and size allocations in multiples of
+// 256 bytes), so x needs no alignment here: _fwd_plan sends a misaligned x
+// to this form and the wrapper does not raise for it.
+//
+// Limits, checked by the wrapper: N*(H+2p)*tiles < 2^31, (W+2p)*C*itemsize
+// < 2^30.
+//
+// ------------------------------------------------------------- backward
+// Folds the cotangent of the padded tensor, dy (N, H+2p, W+2p, C), back
+// onto the input, dx (N, H, W, C).
 //
 // Replaces the TPU kernel of ops/pallas/reflect_pad.py in the JAX package
 // (reflect_pad_bwd / _bwd_kernel): a read-modify-write fold of the mirrored
@@ -46,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -311,6 +358,126 @@ int launch_bulk(const void* dy, void* dx, int N, int H, int W, int C, int p, int
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ forward form
+
+// the source index of padded index i - p of an axis of n (one bounce)
+__device__ __forceinline__ int reflect(int i, int n) {
+  i = i < 0 ? -i : i;
+  return i >= n ? 2 * (n - 1) - i : i;
+}
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdUnroll = 4;   // vectors a thread has in flight (kernels/reflect_pad._FWD_ITEM)
+
+// wide form: block = one item, output row `row` = blockIdx.x / tiles, its
+// pixels [x0, x0 + tile); CV 16-byte vectors a pixel
+__global__ void __launch_bounds__(kFwdThreads)
+reflect_pad_fwd_wide_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int H, int W,
+                            int CV, int p, int tile, int tiles) {
+  const int row = blockIdx.x / tiles, k = blockIdx.x - row * tiles;
+  const int Hp = H + 2 * p, Wp = W + 2 * p;
+  const int n = row / Hp, ys = reflect(row - n * Hp - p, H);
+  const int x0 = k * tile, nv = min(tile, Wp - x0) * CV;
+  const uint4* src = x + ((int64_t)n * H + ys) * W * CV;
+  uint4* dst = y + ((int64_t)row * Wp + x0) * CV;
+  for (int base = threadIdx.x; base < nv; base += kFwdThreads * kFwdUnroll) {
+    uint4 v[kFwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      const int i = base + u * kFwdThreads;
+      if (i < nv) {
+        const int j = i / CV;
+        v[u] = __ldg(src + reflect(x0 + j - p, W) * CV + (i - j * CV));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      const int i = base + u * kFwdThreads;
+      if (i < nv) dst[i] = v[u];
+    }
+  }
+}
+
+// 16 bytes of x from byte address a: the one or two aligned vectors that
+// hold them, shifted into place
+__device__ __forceinline__ uint4 load16(const unsigned char* a) {
+  const uintptr_t u = (uintptr_t)a;
+  const uint4* v = reinterpret_cast<const uint4*>(u & ~(uintptr_t)15);
+  const int s = (int)(u & 15);
+  const uint4 v0 = __ldg(v);
+  if (s == 0) return v0;
+  const uint4 v1 = __ldg(v + 1);
+  const uint64_t q0 = v0.x | (uint64_t)v0.y << 32, q1 = v0.z | (uint64_t)v0.w << 32;
+  const uint64_t q2 = v1.x | (uint64_t)v1.y << 32, q3 = v1.z | (uint64_t)v1.w << 32;
+  const bool hi = s >= 8;
+  const uint64_t a0 = hi ? q1 : q0, a1 = hi ? q2 : q1, a2 = hi ? q3 : q2;
+  const int sh = (s & 7) * 8;
+  const uint64_t r0 = sh ? (a0 >> sh) | (a1 << (64 - sh)) : a0;
+  const uint64_t r1 = sh ? (a1 >> sh) | (a2 << (64 - sh)) : a1;
+  return make_uint4((uint32_t)r0, (uint32_t)(r0 >> 32), (uint32_t)r1, (uint32_t)(r1 >> 32));
+}
+
+// narrow form: block = one item, output row `row` = blockIdx.x / tiles and
+// `tile` of the 16-byte chunks of the flat output whose first byte lies in
+// that row; px bytes a pixel, RB = (W+2p) px bytes an output row, E
+// elements of ES bytes a chunk
+template <int ES>
+__global__ void __launch_bounds__(kFwdThreads)
+reflect_pad_fwd_narrow_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
+                              int H, int W, int px, int p, int tile, int tiles, int rows) {
+  using E_t = typename std::conditional<ES == 2, uint16_t, uint32_t>::type;
+  constexpr int E = 16 / ES;
+  const int row = blockIdx.x / tiles, k = blockIdx.x - row * tiles;
+  const int Hp = H + 2 * p, Wp = W + 2 * p, RB = Wp * px;
+  const int n = row / Hp, ys = reflect(row - n * Hp - p, H);
+  const unsigned char* src = x + ((int64_t)n * H + ys) * W * px;
+  const int64_t rb0 = (int64_t)row * RB;
+  const int64_t total = (int64_t)rows * RB;
+  const int64_t qa = (rb0 + 15) >> 4, qb = (rb0 + RB + 15) >> 4;
+  const int64_t q0 = qa + (int64_t)k * tile;
+  const int nq = q0 >= qb ? 0 : (int)(qb - q0 < tile ? qb - q0 : tile);   // chunks of the item
+  for (int base = threadIdx.x; base < nq; base += kFwdThreads * kFwdUnroll) {
+    uint4 v[kFwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      const int i = base + u * kFwdThreads;
+      if (i >= nq) continue;
+      const int o = (int)(((q0 + i) << 4) - rb0);   // the chunk's first byte in the row
+      const int j = o / px, j1 = (o + 15) / px;
+      if (o + 16 <= RB && (j == j1 || (j >= p && j1 < W + p))) {
+        v[u] = load16(src + (int64_t)reflect(j - p, W) * px + (o - j * px));
+      } else {   // at a mirror or across rows: element by element
+        union { uint4 u4; E_t e[E]; } c;
+        c.u4 = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          int r = row, oe = o + e * ES;
+          while (oe >= RB) oe -= RB, ++r;
+          if (r >= rows) break;
+          const int ne = r / Hp, ye = reflect(r - ne * Hp - p, H), je = oe / px;
+          c.e[e] = *reinterpret_cast<const E_t*>(
+              x + (((int64_t)ne * H + ye) * W + reflect(je - p, W)) * px + (oe - je * px));
+        }
+        v[u] = c.u4;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwdUnroll; ++u) {
+      const int i = base + u * kFwdThreads;
+      if (i >= nq) continue;
+      const int64_t b = (q0 + i) << 4;
+      if (b + 16 <= total) {
+        *reinterpret_cast<uint4*>(y + b) = v[u];
+      } else {   // the flat output's last, partial chunk
+        union { uint4 u4; E_t e[E]; } c;
+        c.u4 = v[u];
+        for (int e = 0; e < E && b + e * ES < total; ++e)
+          *reinterpret_cast<E_t*>(y + b + e * ES) = c.e[e];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // dy: (N, H+2p, W+2p, C), dx: (N, H, W, C), both contiguous NHWC in fp32
@@ -337,5 +504,27 @@ extern "C" int himan_reflect_pad_bwd(const void* dy, void* dx, int N, int H,
   else
     reflect_pad_bwd_kernel<float><<<grid, 256, 0, s>>>(
         (const float*)dy, (float*)dx, H, W, C, p);
+  return (int)cudaGetLastError();
+}
+
+// x: (N, H, W, C), y: (N, H+2p, W+2p, C), both contiguous NHWC in fp32 or
+// bf16; H, W > p; y 16-byte aligned. wide 1: the wide form (C * itemsize a
+// multiple of 16, x 16-byte aligned), `tile` pixels an item; wide 0: the
+// narrow form, `tile` 16-byte chunks an item; `tiles` items an output row
+// (kernels/reflect_pad._fwd_plan).
+extern "C" int himan_reflect_pad_fwd(const void* x, void* y, int N, int H, int W, int C, int p,
+                                     int wide, int tile, int tiles, int is_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int es = is_bf16 ? 2 : 4, rows = N * (H + 2 * p);
+  const int grid = rows * tiles;
+  if (wide)
+    reflect_pad_fwd_wide_kernel<<<grid, kFwdThreads, 0, s>>>(
+        (const uint4*)x, (uint4*)y, H, W, C * es / 16, p, tile, tiles);
+  else if (is_bf16)
+    reflect_pad_fwd_narrow_kernel<2><<<grid, kFwdThreads, 0, s>>>(
+        (const unsigned char*)x, (unsigned char*)y, H, W, C * es, p, tile, tiles, rows);
+  else
+    reflect_pad_fwd_narrow_kernel<4><<<grid, kFwdThreads, 0, s>>>(
+        (const unsigned char*)x, (unsigned char*)y, H, W, C * es, p, tile, tiles, rows);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,12 @@ def in_bwd_bytes(shape, itemsize, act, want_dres):
     return elems * itemsize * (3 + int(act != "none") + int(want_dres)) + 2 * n * c * 4, 12 * elems
 
 
+def pad_fwd_bytes(x_shape, pad, itemsize):
+    """x read once, the padded y written once; no operations."""
+    n, h, w, c = x_shape
+    return (n * h * w + n * (h + 2 * pad) * (w + 2 * pad)) * c * itemsize, 0
+
+
 def pad_bwd_bytes(dy_shape, pad, itemsize):
     n, hp, wp, c = dy_shape
     dy = n * hp * wp * c
@@ -88,8 +94,8 @@ def _item(dtype):
 def call_bytes(kind, *args, **kw):
     """Bytes that one call of the wrapper ``kind`` must move, from the
     arguments it was given: ``instance_norm``, ``instance_norm_bwd``,
-    ``reflect_pad_bwd``, ``reduce_group``, ``loss_group_bwd``, ``encode``,
-    ``encode_cond``."""
+    ``reflect_pad_fwd``, ``reflect_pad_bwd``, ``reduce_group``,
+    ``loss_group_bwd``, ``encode``, ``encode_cond``."""
     if kind == "instance_norm":
         x = args[0]
         residual = kw.get("residual", args[2] if len(args) > 2 else None)
@@ -100,6 +106,9 @@ def call_bytes(kind, *args, **kw):
         act = kw.get("act", args[5] if len(args) > 5 else "none")
         want = kw.get("want_dres", args[6] if len(args) > 6 else False)
         return in_bwd_bytes(tuple(x.shape), x.element_size(), act, bool(want))[0]
+    if kind == "reflect_pad_fwd":
+        x, pad = args[0], kw.get("pad", args[1] if len(args) > 1 else None)
+        return pad_fwd_bytes(tuple(x.shape), pad, x.element_size())[0]
     if kind == "reflect_pad_bwd":
         dy, pad = args[0], kw.get("pad", args[1] if len(args) > 1 else None)
         return pad_bwd_bytes(tuple(dy.shape), pad, dy.element_size())[0]

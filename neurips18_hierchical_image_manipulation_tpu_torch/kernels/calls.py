@@ -31,14 +31,15 @@ COUNTED = {
     "instance_norm": (kin, "instance_norm"), "instance_norm_bwd": (kin, "instance_norm_bwd"),
     "mse_to_scalar": (klosses, "mse_to_scalar"), "l1_to_scalar": (klosses, "l1_to_scalar"),
     "loss_group_bwd": (klosses, "loss_group_bwd"),
-    "reflect_pad_bwd": (krp, "reflect_pad_bwd"), "conv3x3_in_act": (kconv, "conv3x3_in_act"),
+    "reflect_pad_fwd": (krp, "reflect_pad_fwd"), "reflect_pad_bwd": (krp, "reflect_pad_bwd"),
+    "conv3x3_in_act": (kconv, "conv3x3_in_act"),
 }
 # the wrappers the model's paths call (the loss kernel through reduce_group,
 # which counts on mse_to_scalar / l1_to_scalar; its backward through
 # loss_group_bwd, from the group's autograd node)
-CALLED = ((kin, "instance_norm"), (kin, "instance_norm_bwd"), (krp, "reflect_pad_bwd"),
-          (klosses, "reduce_group"), (klosses, "loss_group_bwd"), (kenc, "encode"),
-          (kenc, "encode_cond"))
+CALLED = ((kin, "instance_norm"), (kin, "instance_norm_bwd"), (krp, "reflect_pad_fwd"),
+          (krp, "reflect_pad_bwd"), (klosses, "reduce_group"), (klosses, "loss_group_bwd"),
+          (kenc, "encode"), (kenc, "encode_cond"))
 
 
 def counters():

@@ -11,7 +11,9 @@ kernels on the serving path are ops of their own:
     table (``encode_full``, ``encode_packed``) and, with no image, row 1
     (``encode_cond``);
   * ``himan::instance_norm``: ``kernels/instance_norm.instance_norm``, row
-    4 (``fused_instance_norm``'s forward): -> (y, mean, rstd).
+    4 (``fused_instance_norm``'s forward): -> (y, mean, rstd);
+  * ``himan::reflect_pad``: ``kernels/reflect_pad.reflect_pad_fwd``, the
+    reflect pad's forward (no TPU kernel: ``jnp.pad``).
 
 Each op's implementation is the wrapper itself: on a CUDA tensor the
 hand-written kernel, counted by the wrapper's launch counter; on a CPU
@@ -32,10 +34,12 @@ import torch
 
 from . import encode as kenc
 from . import instance_norm as kin
+from . import reflect_pad as krp
 
 NAMESPACE = "himan"
 ENCODE = f"{NAMESPACE}::encode"
 INSTANCE_NORM = f"{NAMESPACE}::instance_norm"
+REFLECT_PAD = f"{NAMESPACE}::reflect_pad"
 
 
 @torch.library.custom_op(ENCODE, mutates_args=())
@@ -71,9 +75,20 @@ def _instance_norm_fake(x, act, residual, eps):
     return torch.empty_like(x), stats, torch.empty_like(stats)
 
 
+@torch.library.custom_op(REFLECT_PAD, mutates_args=())
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    return krp.reflect_pad_fwd(x, pad)
+
+
+@reflect_pad.register_fake
+def _reflect_pad_fake(x, pad):
+    n, h, w, c = krp._check(x, "x")
+    return x.new_empty((n, h + 2 * pad, w + 2 * pad, c))
+
+
 def exported_ops(graph_module) -> dict:
     """Nodes of each ``himan::`` op in an exported graph, by op name."""
-    counts = {ENCODE: 0, INSTANCE_NORM: 0}
+    counts = {ENCODE: 0, INSTANCE_NORM: 0, REFLECT_PAD: 0}
     for node in graph_module.graph.nodes:
         schema = getattr(node.target, "_schema", None) if node.op == "call_function" else None
         if schema is not None and schema.name in counts:

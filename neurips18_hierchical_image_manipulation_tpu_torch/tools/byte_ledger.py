@@ -44,7 +44,7 @@ from . import roofline_step as rs
 
 # port kernel name prefixes -> the wrapper whose bytes roofline_step reckons
 PORT_KERNELS = (("in_fwd_", "instance_norm"), ("in_bwd_", "instance_norm_bwd"),
-                ("reflect_pad_bwd_", "reflect_pad_bwd"),
+                ("reflect_pad_fwd_", "reflect_pad_fwd"), ("reflect_pad_bwd_", "reflect_pad_bwd"),
                 ("loss_group_kernel_bwd", "loss_group_bwd"), ("loss_group_kernel", "reduce_group"),
                 ("encode_kernel", "encode"))
 

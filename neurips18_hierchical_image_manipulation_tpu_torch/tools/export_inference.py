@@ -8,9 +8,9 @@ program (weights included) is written with ``torch.export.save`` as a
 ``.pt2`` file.
 
 The kernels on the serving path are in the exported graph as the custom
-ops ``himan::encode`` and ``himan::instance_norm`` (``kernels/ops.py``): a
-reloaded program launches the same hand-written kernels as the eager
-forward, on the card. There is no fallback: a graph without them (the
+ops ``himan::encode``, ``himan::instance_norm`` and ``himan::reflect_pad``
+(``kernels/ops.py``): a reloaded program launches the same hand-written
+kernels as the eager forward, on the card. There is no fallback: a graph without them (the
 plain composition traced in their place) raises.
 
     python -m neurips18_hierchical_image_manipulation_tpu_torch.tools.export_inference \\
@@ -35,8 +35,8 @@ from ..kernels import ops as kops
 from ..models.factory import create_model
 
 # the ops each stage's exported graph must hold
-REQUIRED = {"mask2image": (kops.ENCODE, kops.INSTANCE_NORM),
-            "box2mask": (kops.INSTANCE_NORM,)}
+REQUIRED = {"mask2image": (kops.ENCODE, kops.INSTANCE_NORM, kops.REFLECT_PAD),
+            "box2mask": (kops.INSTANCE_NORM, kops.REFLECT_PAD)}
 
 
 class Inference(torch.nn.Module):
@@ -88,7 +88,7 @@ def save(ep, path) -> int:
 
 def load(path) -> torch.export.ExportedProgram:
     """Read a program written by ``save``, with the kernel ops registered."""
-    from ..kernels import ops  # noqa: F401  (registers himan::encode / instance_norm)
+    from ..kernels import ops  # noqa: F401  (registers the himan:: ops)
 
     return torch.export.load(path)
 

@@ -35,9 +35,9 @@ DEFAULT_TRACE_DIR = os.path.join(tempfile.gettempdir(), "himan_prof")
 # a matching substring wins, so the specific families come before the
 # generic ones
 KERNEL_CLASSES = (
-    ("port kernels", ("in_fwd_", "in_bwd_", "reflect_pad_bwd_", "loss_group_kernel",
-                      "encode_kernel", "conv_wgmma_kernel", "conv_mma_kernel",
-                      "conv_fma_kernel", "conv_splitk_reduce_kernel",
+    ("port kernels", ("in_fwd_", "in_bwd_", "reflect_pad_fwd_", "reflect_pad_bwd_",
+                      "loss_group_kernel", "encode_kernel", "conv_wgmma_kernel",
+                      "conv_mma_kernel", "conv_fma_kernel", "conv_splitk_reduce_kernel",
                       "conv_in_normalize_kernel", "reflect_pad1_kernel")),
     ("layout conversion (cuDNN)", ("nhwctonchw", "nchwtonhwc", "nchwaddpadding",
                                    "converttensor", "transpose_readwrite",

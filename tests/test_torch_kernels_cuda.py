@@ -282,6 +282,126 @@ def test_reflect_pad_backward_kernel_matches_plain(cuda_device, dt, shape, pad, 
     close_bf16_ok(dx, want, tdt)
 
 
+# (N, H, W, C), pad: every pad site of the benchmark's cells (the
+# flagship's resblocks and head; the 1024p trunk's stem and resblocks, its
+# branch's stem and resblocks, its head; box2mask's stem, resblocks and
+# heads; the fp32 cells' at bs 16 and 1), then mirrors that overlap (pad 3
+# with H or W = 4), W = pad + 1, one image, and odd channel counts whose
+# pixels are not 16-byte multiples
+PAD_FWD_SHAPES = [
+    ((32, 32, 32, 1024), 1), ((32, 512, 512, 64), 3), ((8, 512, 512, 39), 3),
+    ((8, 32, 32, 1024), 1), ((8, 1024, 1024, 39), 3), ((8, 512, 512, 64), 1),
+    ((8, 1024, 1024, 32), 3), ((128, 128, 128, 36), 3), ((128, 16, 16, 512), 1),
+    ((128, 128, 128, 64), 3), ((16, 32, 32, 1024), 1), ((16, 512, 512, 64), 3),
+    ((1, 32, 32, 1024), 1), ((1, 512, 512, 64), 3),
+    ((2, 4, 9, 64), 3), ((3, 7, 4, 39), 3), ((2, 5, 2, 1024), 1), ((1, 6, 4, 36), 3),
+    ((1, 13, 17, 3), 1), ((2, 9, 11, 5), 3), ((1, 33, 65, 42), 3)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,pad", PAD_FWD_SHAPES)
+def test_reflect_pad_forward_kernel_matches_plain(cuda_device, dt, shape, pad):
+    """The forward kernel bit for bit the plain pad, twice, on the variant
+    _fwd_plan names (wide where a pixel is whole 16-byte vectors), each
+    launch counted."""
+    tdt = getattr(torch, dt)
+    n, h, w, c = shape
+    variant = "wide" if c * torch.empty((), dtype=tdt).element_size() % 16 == 0 else "narrow"
+    assert krp._fwd_plan(n, h, w, c, pad, tdt)["variant"] == variant
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(tdt)
+    before, v0 = krp.reflect_pad_fwd.launches, dict(krp.reflect_pad_fwd.variants)
+    y = krp.reflect_pad_fwd(x, pad)
+    again = krp.reflect_pad_fwd(x, pad)
+    assert krp.reflect_pad_fwd.launches == before + 2
+    assert {k: m - v0[k] for k, m in krp.reflect_pad_fwd.variants.items()} == dict(
+        {k: 0 for k in v0}, **{variant: 2})
+    want = krp.reflect_pad_plain(x, pad)
+    torch.cuda.synchronize()
+    assert bits_equal(y, want) and bits_equal(again, want)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [64, 39])
+def test_reflect_pad_forward_misaligned_view(cuda_device, dt, c):
+    """A contiguous view one element past a 16-byte boundary: _fwd_plan
+    sends it to the narrow form, which loads aligned vectors whatever x's
+    alignment; the same bits as the plain pad."""
+    tdt = getattr(torch, dt)
+    shape = (2, 9, 12, c)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    flat = torch.randn(2 * 9 * 12 * c + 1, generator=g, device=cuda_device).to(tdt)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    narrow = krp.reflect_pad_fwd.variants["narrow"]
+    y = krp.reflect_pad_fwd(x, 3)
+    assert krp.reflect_pad_fwd.variants["narrow"] == narrow + 1
+    torch.cuda.synchronize()
+    assert bits_equal(y, krp.reflect_pad_plain(x, 3))
+
+
+def test_reflect_pad_forward_refuses_on_the_card(cuda_device):
+    x = torch.zeros(1, 6, 6, 8, device=cuda_device)
+    for bad, pad in ((x.permute(0, 2, 1, 3), 1), (x.double(), 1), (x, 6), (x.half(), 1)):
+        with pytest.raises(ValueError):
+            krp.reflect_pad_fwd(bad, pad)
+
+
+def _pad_arch(arch):
+    """A train model of the architecture at full depth and a small width,
+    and a batch for it: the flagship's GlobalGenerator (9 resblocks, 4
+    downs; its stem's pad is in the encode), the 1024p recipe's
+    LocalEnhancer (the trunk's 9 resblocks, one enhancer of 3, 3 D scales),
+    box2mask's two-stream generator (4 resblocks, 3 downs)."""
+    if arch == "box2mask":
+        opt = BoxToMaskTrainOptions(gpu_ids="0", label_nc=8, ngf=8, ndf=8, fineSize=32)
+        batch = synthetic_box2mask_batch(np.random.RandomState(13), 2, size=32, label_nc=8)
+        return create_model(opt), {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    local = dict(netG="local", num_D=3) if arch == "1024p" else {}
+    opt = MaskToImageTrainOptions(gpu_ids="0", label_nc=8, ngf=8, ndf=8, **local)
+    hw = (128, 128) if arch == "1024p" else (64, 64)
+    return create_model(opt), encode_inputs("cuda", shape=(2, *hw), nc=8, seed=13)
+
+
+@pytest.mark.parametrize("arch,pads", [("flagship", 19), ("1024p", 27), ("box2mask", 11)])
+def test_reflect_pad_forward_launches_by_architecture(cuda_device, restore_torch_precision,
+                                                      arch, pads):
+    """A train step's reflect pads run forward through the kernel, once a
+    pad: the flagship 19 (18 resblock pads and the head), the 1024p
+    generator 27 (25 and its two stems), box2mask 11 (10 and its stem); a
+    serving forward of the flagship 19. Each launch on the variant that
+    _fwd_plan names for its shape."""
+    from neurips18_hierchical_image_manipulation_tpu_torch.kernels import calls as kcalls
+
+    model, batch = _pad_arch(arch)
+    shapes = []
+
+    def on_call(name, orig, *a, **k):
+        if name == "reflect_pad_fwd":
+            shapes.append((tuple(a[0].shape), a[0].dtype, a[1]))
+        return orig(*a, **k)
+
+    def counted(fn):
+        shapes.clear()
+        n0, v0 = krp.reflect_pad_fwd.launches, dict(krp.reflect_pad_fwd.variants)
+        with kcalls.intercept(on_call):
+            fn()
+        want = {v: 0 for v in v0}
+        for (n, h, w, c), dt, pad in shapes:
+            want[krp._fwd_plan(n, h, w, c, pad, dt)["variant"]] += 1
+        assert {k: m - v0[k] for k, m in krp.reflect_pad_fwd.variants.items()} == want
+        return krp.reflect_pad_fwd.launches - n0
+
+    def step():
+        total, _, _ = model.losses(batch)
+        total.backward()
+
+    assert counted(step) == len(shapes) == pads
+    if arch == "flagship":
+        with torch.no_grad():
+            assert counted(lambda: model.inference(batch)) == pads
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [1, 2345, 300_001, 8_388_608])
 def test_loss_kernels_match_plain(cuda_device, dt, n):
@@ -605,8 +725,8 @@ def grad_diff(a, b):
 
 def check_step_kernel_path(model, batch, launches, groups=(2, 2), nudges=("image",)):
     """One step of ``model`` on ``batch``: the training kernels' launches
-    (IN backward, MSE terms, L1 terms, reflect-pad backward, encode_cond)
-    and the loss groups as given, and the loss terms and gradients against
+    (IN backward, MSE terms, L1 terms, reflect-pad backward, encode_cond,
+    reflect-pad forward) and the loss groups as given, and the loss terms and gradients against
     the plain path. cuDNN deterministic and TF32 off, so that repeated runs
     give the same bits; the gradient of a randomly initialized GAN step
     amplifies last-ulp differences of its forward, so the whole-path
@@ -652,7 +772,8 @@ def check_step_kernel_path(model, batch, launches, groups=(2, 2), nudges=("image
                     p.copy_(v)
 
     counters = [kin.instance_norm_bwd, klosses.mse_to_scalar, klosses.l1_to_scalar,
-                krp.reflect_pad_bwd, kenc.encode_cond, klosses.loss_group_bwd]
+                krp.reflect_pad_bwd, kenc.encode_cond, krp.reflect_pad_fwd,
+                klosses.loss_group_bwd]
     before = [c.launches for c in counters]
     groups0 = [klosses.mse_to_scalar.variants["group"], klosses.l1_to_scalar.variants["group"]]
     mk, gk = run(batch, contextlib.nullcontext())
@@ -689,8 +810,9 @@ def test_train_step_kernel_path_matches_plain(cuda_device, restore_torch_precisi
     model = create_model(opt)
     batch = encode_inputs(cuda_device, shape=(2, 64, 128), nc=8, seed=6)
     # IN bwd: G 1 + 2*2 + 2*2 sites, D 2 applies x 2 scales x 3 sites;
-    # 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; 2*2 resblock pads + head
-    check_step_kernel_path(model, batch, [9 + 12, 6, 13, 5, 1])
+    # 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; 2*2 resblock pads + head,
+    # backward and forward (the stem's pad is in the encode)
+    check_step_kernel_path(model, batch, [9 + 12, 6, 13, 5, 1, 5])
 
 
 def test_local_enhancer_step_kernel_path_matches_plain(cuda_device, restore_torch_precision):
@@ -705,8 +827,9 @@ def test_local_enhancer_step_kernel_path_matches_plain(cuda_device, restore_torc
     pad0 = kenc.encode.variants["pad0"]
     # IN bwd: the trunk's 1 + 2*2 + 2*2 and the branch's 3 + 2 sites, D 2
     # applies x 3 scales x 3 sites; 9 MSE; FM 3 scales x 4 layers + 5 VGG
-    # taps; the trunk's 2*2 and the branch's 2 resblock pads + head
-    check_step_kernel_path(model, batch, [14 + 18, 9, 17, 7, 1])
+    # taps; the trunk's 2*2 and the branch's 2 resblock pads + head; forward,
+    # the two stems' pads too
+    check_step_kernel_path(model, batch, [14 + 18, 9, 17, 7, 1, 7 + 2])
     assert kenc.encode.variants["pad0"] - pad0 == 3    # one a kernel-path run
 
 
@@ -726,8 +849,8 @@ def test_instance_feat_step_kernel_path_matches_plain(cuda_device, restore_torch
     gather = krp.reflect_pad_bwd.variants["gather"]
     # IN bwd: G 1 + 2*2 + 2*2 and E 1 + 2*2 sites, D 2 applies x 2 scales x
     # 3 sites; 6 MSE; FM 2 scales x 4 layers + 5 VGG taps; G's 2*2 resblock
-    # pads, its head and its stem, E's head
-    grads = check_step_kernel_path(model, batch, [9 + 5 + 12, 6, 13, 7, 1],
+    # pads, its head and its stem, E's head; forward, E's stem too
+    grads = check_step_kernel_path(model, batch, [9 + 5 + 12, 6, 13, 7, 1, 7 + 1],
                                    nudges=("image", "params"))
     assert krp.reflect_pad_bwd.variants["gather"] - gather >= 3   # the stem's, each run
     e_grads = grads[-len(list(model.netE.parameters())):]     # E comes last in nets()
@@ -807,14 +930,14 @@ def test_box2mask_step_kernel_path_matches_plain(cuda_device, restore_torch_prec
 
     counters = [kin.instance_norm, kin.instance_norm_bwd, klosses.mse_to_scalar,
                 klosses.l1_to_scalar, krp.reflect_pad_bwd, kenc.encode, kenc.encode_cond,
-                klosses.loss_group_bwd]
+                klosses.loss_group_bwd, krp.reflect_pad_fwd]
     before = [c.launches for c in counters]
     groups = klosses.mse_to_scalar.variants["group"]
     mk, gk = run(contextlib.nullcontext())
     # IN: G 2 + 3*2 + 2*2 sites, D 2 applies x 2 sites, forward and backward;
     # 3 MSE terms in 2 launches, and 2 backward launches; 2*2 resblock pads +
-    # the two 7x7 heads
-    assert [c.launches - b for c, b in zip(counters, before)] == [16, 16, 3, 0, 6, 0, 0, 2]
+    # the two 7x7 heads, and forward the stem's pad too
+    assert [c.launches - b for c, b in zip(counters, before)] == [16, 16, 3, 0, 6, 0, 0, 2, 7]
     assert klosses.mse_to_scalar.variants["group"] - groups == 2
     mid = [c.launches for c in counters]
     mp, gp = run(plain_path())
@@ -1131,9 +1254,10 @@ def test_instance_norm_op_opcheck_and_kernel(cuda_device, act, residual):
 
 
 def test_exported_box2mask_launches_kernels(cuda_device, restore_torch_precision, tmp_path):
-    """A tiny box2mask exported on the card holds himan::instance_norm; the
-    reloaded program launches the IN kernel as often as the eager forward,
-    and gives its bits."""
+    """A tiny box2mask exported on the card holds himan::instance_norm and
+    himan::reflect_pad; the reloaded program launches the IN kernel as
+    often as the eager forward and the pad's forward at every pad, and
+    gives the eager forward's bits."""
     from neurips18_hierchical_image_manipulation_tpu_torch.tools import export_inference
 
     model, batch = export_inference.build("box2mask", 8, 32, 1, "0", ngf=8,
@@ -1143,12 +1267,13 @@ def test_exported_box2mask_launches_kernels(cuda_device, restore_torch_precision
     prog = export_inference.load(str(tmp_path / "b2m.pt2")).module()
     torch.backends.cudnn.deterministic = True
     with torch.no_grad():
-        n0 = kin.instance_norm.launches
+        n0, p0 = kin.instance_norm.launches, krp.reflect_pad_fwd.launches
         eager = model.inference(batch)
-        n1 = kin.instance_norm.launches
+        n1, p1 = kin.instance_norm.launches, krp.reflect_pad_fwd.launches
         got = prog(batch)
-        n2 = kin.instance_norm.launches
+        n2, p2 = kin.instance_norm.launches, krp.reflect_pad_fwd.launches
     assert n1 - n0 == n2 - n1 == 2 + 3 * 2 + 2 * 1
+    assert p1 - p0 == p2 - p1 == 2 * 1 + 3   # 2 a resblock, the stem, the two heads
     for a, b in zip(eager, got):
         assert bits_equal(a, b)
 

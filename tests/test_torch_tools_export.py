@@ -8,7 +8,7 @@
       of the JAX package's ``inference`` on the same parameters (the JAX
       export test is ``tests/test_export.py``).
 
-Also both ops through ``torch.library.opcheck`` on CPU tensors (schema,
+Also the ops through ``torch.library.opcheck`` on CPU tensors (schema,
 fake tensors, dispatch), each against its wrapper, eager calls that never
 touch the ops, and the tool's refusal of a graph without them.
 """
@@ -38,6 +38,7 @@ from neurips18_hierchical_image_manipulation_tpu_torch.data.synthetic import (
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import encode as kenc
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import instance_norm as kin
 from neurips18_hierchical_image_manipulation_tpu_torch.kernels import ops as kops
+from neurips18_hierchical_image_manipulation_tpu_torch.kernels import reflect_pad as krp
 from neurips18_hierchical_image_manipulation_tpu_torch.models.factory import create_model
 from neurips18_hierchical_image_manipulation_tpu_torch.tools import export_inference
 from neurips18_hierchical_image_manipulation_tpu_torch.utils.checkpoint import restore_params
@@ -76,9 +77,12 @@ def test_export_holds_ops_reloads_bit_exact_and_matches_jax(stage, stage_runs, t
     ep = export_inference.export(stage, model, batch)
     ops = kops.exported_ops(ep.graph_module)
     # IN sites: box2mask 2 + 3 n_down + 2 n_blocks, the GlobalGenerator 1 + 2 n_down +
-    # 2 n_blocks
+    # 2 n_blocks; reflect pads: 2 a resblock, box2mask's stem and two heads, the
+    # GlobalGenerator's head (its stem's pad is in the encode)
     sites = 2 + 3 * 2 + 2 * 1 if stage == "box2mask" else 1 + 2 * 2 + 2 * 1
-    assert ops == {kops.ENCODE: int(stage == "mask2image"), kops.INSTANCE_NORM: sites}
+    pads = 2 * 1 + 3 if stage == "box2mask" else 2 * 1 + 1
+    assert ops == {kops.ENCODE: int(stage == "mask2image"), kops.INSTANCE_NORM: sites,
+                   kops.REFLECT_PAD: pads}
     path = str(tmp_path / f"{stage}.pt2")
     assert export_inference.save(ep, path) > 1000
     with torch.no_grad():
@@ -179,15 +183,24 @@ def test_instance_norm_op_checks_and_equals_wrapper(act, residual):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dt,pad", [(torch.float32, 1), (torch.bfloat16, 3)])
+def test_reflect_pad_op_checks_and_equals_wrapper(dt, pad):
+    x = torch.randn(2, 5, 7, 6, generator=torch.Generator().manual_seed(2)).to(dt)
+    torch.library.opcheck(kops.reflect_pad, (x, pad))
+    assert torch.equal(torch.ops.himan.reflect_pad(x, pad), krp.reflect_pad_plain(x, pad))
+
+
 def test_eager_calls_never_reach_the_ops(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("an eager call went through the op")
 
     monkeypatch.setattr(kops, "encode", refuse)
     monkeypatch.setattr(kops, "instance_norm", refuse)
+    monkeypatch.setattr(kops, "reflect_pad", refuse)
     label, inst, rgb, boxes = encode_args(True)
     kenc.encode(label, inst, rgb, boxes, 6, 3)
     kin.instance_norm_act(torch.randn(1, 4, 4, 8), "relu")
+    krp.reflect_pad(torch.randn(1, 4, 4, 8), 1)
 
 
 def test_ops_refuse_another_device():
@@ -199,3 +212,5 @@ def test_ops_refuse_another_device():
     label = torch.zeros(1, 4, 4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kops.encode._init_fn(label, None, None, None, 6, 0, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kops.reflect_pad._init_fn(x, 1)
